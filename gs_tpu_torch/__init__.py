@@ -12,5 +12,7 @@ Entry points run on ``device="cuda"`` unless the caller passes
 version; given CUDA tensors it launches the kernel or raises.
 
 Ported so far: the serving path (load a PLY, preprocess, bin, expand, raster
-forward, image). Training (the backward kernels) is not ported yet.
+forward, image) and the training step (``train/step.py``: the render's
+gradient through the raster backward and the gradient fold, L1 + SSIM,
+densification statistics, Adam). The training loop is not ported yet.
 """

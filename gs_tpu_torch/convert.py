@@ -1,9 +1,12 @@
-"""Carry weights and cameras across from the JAX package.
+"""Carry weights, cameras and training state across from the JAX package.
 
 The two packages share nothing at import time, so values cross as numpy
 arrays: a ``gs_tpu`` ``GaussianParams`` as ``{field: np.asarray(leaf)}``, a
-``gs_tpu`` ``Camera`` as its five array fields plus width and height. The
-field names and ``[C, ...]`` layouts are the same on both sides.
+``gs_tpu`` ``Camera`` as its five array fields plus width and height, a
+``gs_tpu`` ``TrainState`` as ``{field: array}`` with its three
+``GaussianParams`` fields (``params``, ``m``, ``v``) as nested dicts. The
+field names and ``[C, ...]`` layouts are the same on both sides, so both
+packages can step from one state.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import torch
 
 from .core.camera import Camera
 from .core.gaussians import GaussianParams
+from .models.gaussian_model import TrainState
 
 CAMERA_FIELDS = ("world_view", "full_proj", "camera_center", "tan_fovx",
                  "tan_fovy")
@@ -36,3 +40,23 @@ def camera_from_numpy(arrays: dict, width: int, height: int,
     return Camera(**{
         k: torch.tensor(np.asarray(arrays[k], np.float32), device=device)
         for k in CAMERA_FIELDS}, width=int(width), height=int(height))
+
+
+PARAM_FIELDS = ("params", "m", "v")
+
+
+def state_to_numpy(state: TrainState) -> dict:
+    """TrainState -> {field: numpy array}, the params/m/v fields as
+    {parameter field: numpy array}."""
+    return {k: params_to_numpy(v) if k in PARAM_FIELDS
+            else v.detach().cpu().numpy()
+            for k, v in state._asdict().items()}
+
+
+def state_from_numpy(arrays: dict, device="cuda") -> TrainState:
+    """The inverse of :func:`state_to_numpy`; each array keeps its dtype
+    (float32, int32 counters, the bool ``alive`` mask)."""
+    return TrainState(**{
+        k: params_from_numpy(arrays[k], device) if k in PARAM_FIELDS
+        else torch.tensor(np.asarray(arrays[k]), device=device)
+        for k in TrainState._fields})

@@ -128,3 +128,51 @@ def make_camera(R: np.ndarray, t: np.ndarray, fovx: float, fovy: float,
         width=int(width),
         height=int(height),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraBatch:
+    """A stack of cameras sharing (width, height), selected by index — the
+    JAX package's traced-index pick of the training camera
+    (``gs_tpu/core/camera.py:145-181``), here a plain index."""
+    world_view: torch.Tensor      # [B,4,4]
+    full_proj: torch.Tensor       # [B,4,4]
+    camera_center: torch.Tensor   # [B,3]
+    tan_fovx: torch.Tensor        # [B]
+    tan_fovy: torch.Tensor        # [B]
+    width: int
+    height: int
+
+    def __len__(self):
+        return self.world_view.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.world_view.device
+
+    def select(self, i) -> Camera:
+        return Camera(
+            world_view=self.world_view[i],
+            full_proj=self.full_proj[i],
+            camera_center=self.camera_center[i],
+            tan_fovx=self.tan_fovx[i],
+            tan_fovy=self.tan_fovy[i],
+            width=self.width,
+            height=self.height,
+        )
+
+
+def stack_cameras(cams: list) -> CameraBatch:
+    if not cams:
+        raise ValueError("stack_cameras needs at least one camera")
+    w, h = cams[0].width, cams[0].height
+    if any((c.width, c.height) != (w, h) for c in cams):
+        raise ValueError("a CameraBatch needs one resolution")
+    return CameraBatch(
+        world_view=torch.stack([c.world_view for c in cams]),
+        full_proj=torch.stack([c.full_proj for c in cams]),
+        camera_center=torch.stack([c.camera_center for c in cams]),
+        tan_fovx=torch.stack([c.tan_fovx for c in cams]),
+        tan_fovy=torch.stack([c.tan_fovy for c in cams]),
+        width=w, height=h,
+    )

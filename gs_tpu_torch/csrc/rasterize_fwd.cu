@@ -1,7 +1,8 @@
-// K1 — forward tile rasterizer (no-grad), for Hopper (sm_90a).
+// K1 — forward tile rasterizer, for Hopper (sm_90a), in two variants.
 //
 // Replaces gs_tpu/ops/rasterize_pallas.py::_fwd_kernel (:125-225, called
-// from _raster_tiles_fwd :559) in its save_ustore=False form. Per 16x16
+// from _raster_tiles_fwd :559): the no-grad variant its save_ustore=False
+// form, the grad variant (K1g) its save_ustore=True form. Per 16x16
 // tile, front-to-back alpha compositing of the tile's depth-sorted entries
 // [start, min(end, base + max_chunks * 128)), base = start rounded down to
 // 128 (the TPU kernel's chunk window, kept so both read the same entries).
@@ -13,6 +14,20 @@
 // feats is [10, D] float32 rows (x, y, conic a/b/c, opacity, r, g, b,
 // invdepth); out is [tiles, 5, 256] float32 rows (r, g, b, invdepth,
 // final T), pixel p of a tile at (p % 16, p / 16).
+//
+// The grad variant also writes last [tiles, 256] int32: one past the
+// global index of the last entry the pixel composited (the tile's start
+// when it composited none). That is the reference CUDA rasterizer's
+// n_contrib, and K3 (rasterize_bwd.cu) walks back from it, recovering the
+// T in front of each entry from the final T by dividing by the same
+// (1 - alpha) this kernel multiplied by. The TPU kernel instead
+// checkpoints T at every 128-entry chunk ([tiles, max_chunks, 256], 67 MB
+// at max_per_tile 1024) because its log-space cumsum cannot be undone
+// exactly; here each division undoes one rounded product to within an
+// ulp, so the error grows by one rounding per entry, as the forward's did,
+// and the residual is 256 int32 per tile (8 MB at 1080p). Both variants
+// are one template: the image of the grad variant is bitwise the no-grad
+// variant's.
 //
 // Bound on the H100: at the 1080p bench scene it reads ~120 MB of entry
 // features and writes 42 MB, against 16 FP32 operations for an (entry,
@@ -27,39 +42,32 @@
 // and the block leaves the batch loop once all 256 pixels are done
 // (__syncthreads_count), which replaces the TPU kernel's per-chunk
 // max-T test.
-#include "common.cuh"
+#include "raster.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;
-constexpr int kBatch = 256;
-constexpr int kFeat = 10;
-constexpr int kChunk = 128;
-constexpr int kOut = 5;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
+using namespace gs;
 
+constexpr int kBatch = 256;
+
+template <bool kSave>
 __global__ void __launch_bounds__(kPix)
 raster_fwd_kernel(const float* __restrict__ feats, int d,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_end, int gx, int max_chunks,
-                  float* __restrict__ out) {
+                  float* __restrict__ out, int* __restrict__ last) {
   __shared__ float sf[kFeat][kBatch];
   const int t = blockIdx.x;
   const int p = threadIdx.x;
   const float px = static_cast<float>((t % gx) * kTile + p % kTile);
   const float py = static_cast<float>((t / gx) * kTile + p / kTile);
-  const int start = tile_start[t];
-  const int end = tile_end[t];
-  const int base = (start / kChunk) * kChunk;
-  const int limit = min(end, base + max_chunks * kChunk);
+  const Window win = tile_window(tile_start, tile_end, t, max_chunks);
 
   float T = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f, cd = 0.0f;
   int done = 0;
-  for (int b0 = start; b0 < limit; b0 += kBatch) {
-    const int cnt = min(kBatch, limit - b0);
+  int last_j = win.start;
+  for (int b0 = win.start; b0 < win.limit; b0 += kBatch) {
+    const int cnt = min(kBatch, win.limit - b0);
     if (p < cnt) {
 #pragma unroll
       for (int f = 0; f < kFeat; ++f)
@@ -68,10 +76,8 @@ raster_fwd_kernel(const float* __restrict__ feats, int d,
     __syncthreads();
     if (!done) {
       for (int j = 0; j < cnt; ++j) {
-        const float dx = sf[0][j] - px;
-        const float dy = sf[1][j] - py;
-        const float power = -0.5f * (sf[2][j] * dx * dx + sf[4][j] * dy * dy)
-                            - sf[3][j] * dx * dy;
+        const float power = splat_power(sf[0][j] - px, sf[1][j] - py,
+                                        sf[2][j], sf[3][j], sf[4][j]);
         if (power > 0.0f) continue;
         const float alpha = fminf(kAlphaMax, sf[5][j] * expf(power));
         if (alpha < kAlphaMin) continue;
@@ -86,6 +92,7 @@ raster_fwd_kernel(const float* __restrict__ feats, int d,
         cb += w * sf[8][j];
         cd += w * sf[9][j];
         T = test_t;
+        if (kSave) last_j = b0 + j + 1;
       }
     }
     // also the barrier before the next batch overwrites sf
@@ -97,6 +104,19 @@ raster_fwd_kernel(const float* __restrict__ feats, int d,
   o[2 * kPix] = cb;
   o[3 * kPix] = cd;
   o[4 * kPix] = T;
+  if (kSave) last[static_cast<size_t>(t) * kPix + p] = last_j;
+}
+
+template <bool kSave>
+int launch(const float* feats, int d, const int* tile_start,
+           const int* tile_end, int num_tiles, int gx, int max_chunks,
+           float* out, int* last, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  raster_fwd_kernel<kSave>
+      <<<num_tiles, kPix, 0, static_cast<cudaStream_t>(stream)>>>(
+          feats, d, tile_start, tile_end, gx, max_chunks, out, last);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -109,9 +129,16 @@ extern "C" int gs_raster_tiles_fwd(const float* feats, int d,
                                    const int* tile_start, const int* tile_end,
                                    int num_tiles, int gx, int max_chunks,
                                    float* out, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  raster_fwd_kernel<<<num_tiles, kPix, 0, static_cast<cudaStream_t>(stream)>>>(
-      feats, d, tile_start, tile_end, gx, max_chunks, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(feats, d, tile_start, tile_end, num_tiles, gx,
+                       max_chunks, out, nullptr, device, stream);
+}
+
+// The grad variant (K1g): the same, plus last [num_tiles, 256] int32.
+extern "C" int gs_raster_tiles_fwd_save(const float* feats, int d,
+                                        const int* tile_start,
+                                        const int* tile_end, int num_tiles,
+                                        int gx, int max_chunks, float* out,
+                                        int* last, int device, void* stream) {
+  return launch<true>(feats, d, tile_start, tile_end, num_tiles, gx,
+                      max_chunks, out, last, device, stream);
 }

@@ -3,7 +3,7 @@
 Each source under ``gs_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, and loaded with
 ``ctypes``. Libraries go to ``gs_tpu_torch/_build/``, named by a hash of the
-source, the shared header and the flags, so an edited kernel is rebuilt and
+source, the shared headers and the flags, so an edited kernel is rebuilt and
 an unchanged one is reused. :func:`build` starts one ``nvcc`` per missing
 library, all at once. A missing ``nvcc`` or a failed compile raises.
 
@@ -24,8 +24,7 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-HEADER = "common.cuh"
-SOURCES = ("expand.cu", "rasterize_fwd.cu")
+SOURCES = ("expand.cu", "rasterize_fwd.cu", "rasterize_bwd.cu", "fold.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)
@@ -52,8 +51,8 @@ def find_nvcc() -> str:
 
 def library_path(source: str) -> Path:
     h = hashlib.sha256()
-    for name in (HEADER, source):
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 

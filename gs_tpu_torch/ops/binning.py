@@ -12,6 +12,10 @@ port of ``gs_tpu/ops/binning.py`` (single-device path).
    — with the payload rows riding along,
 6. per-tile [start, end) ranges via searchsorted.
 
+For a differentiable render the binning also hands back a :class:`FoldPlan`:
+what the gradient fold (K4, ``ops/fold.py``) needs to sum the sorted
+entries' gradients per Gaussian without sorting them by gid.
+
 Integers are int32/int64 tensors throughout; the one exception is the K2
 table, which keeps the JAX layout (integers as exact float32 values) so that
 K2 is held bitwise against ``gs_tpu.ops.expand_pallas.expand_rows``. Every
@@ -44,6 +48,16 @@ class TileBins(NamedTuple):
     # original index order
     num_valid: torch.Tensor    # [] int32 entries surviving the exact cull:
     # the entries the raster kernel composites
+
+
+class FoldPlan(NamedTuple):
+    """Where each Gaussian's entries are, for the gradient fold. Before the
+    tile sort the expansion lays Gaussian g's entries out as one run
+    ``[offsets[g], offsets[g] + gauss_counts[g])``; ``index[e]`` is the
+    position the tile sort moved entry e to."""
+    index: torch.Tensor    # [capacity] int32 sorted position of each
+    # pre-sort entry (the inverse of the tile sort's permutation)
+    offsets: torch.Tensor  # [N] int32 run start per gaussian, original order
 
 
 def tile_grid(width: int, height: int, tile_x: int, tile_y: int):
@@ -97,10 +111,12 @@ def expansion_table(proj: Projected, payload: Optional[torch.Tensor],
 
 def bin_gaussians_payload(proj: Projected, payload: Optional[torch.Tensor],
                           width: int, height: int, tile_x: int, tile_y: int,
-                          capacity: int, *, exact_cull: bool = False):
+                          capacity: int, *, exact_cull: bool = False,
+                          fold_plan: bool = False):
     """Binning that carries per-gaussian ``payload`` [N, F] columns through
     the expansion and the tile sort. Returns (TileBins, sorted payload
-    [F, capacity] float32 rows, or None without a payload).
+    [F, capacity] float32 rows, or None without a payload), and a
+    :class:`FoldPlan` third when ``fold_plan``.
 
     ``exact_cull``: also mark expanded entries whose tile the gaussian
     cannot reach (alpha < 1/255 over the whole tile rect) invalid before the
@@ -191,7 +207,13 @@ def bin_gaussians_payload(proj: Projected, payload: Optional[torch.Tensor],
         gauss_counts=counts0,
         num_valid=entry_valid.sum().to(torch.int32),
     )
-    return bins, sorted_cols
+    if not fold_plan:
+        return bins, sorted_cols
+    index = torch.empty(capacity, dtype=torch.int32, device=dev)
+    index[perm] = eidx
+    run_offsets = torch.empty(n, dtype=torch.int32, device=dev)
+    run_offsets[comb[5].to(torch.int64)] = offsets
+    return bins, sorted_cols, FoldPlan(index=index, offsets=run_offsets)
 
 
 def bin_gaussians(proj: Projected, width: int, height: int,

@@ -1,6 +1,6 @@
-"""Forward tile rasterizer: kernel K1, its plain version, and the no-grad
-render pipeline around it — port of the forward half of
-``gs_tpu/ops/rasterize_pallas.py``.
+"""Tile rasterizer: kernels K1 (forward, with its grad variant K1g) and K3
+(backward), their plain versions, and the render pipeline around them —
+port of ``gs_tpu/ops/rasterize_pallas.py``.
 
 ``raster_tiles_fwd(feats, tile_start, tile_end, gx, max_chunks)`` composites
 each 16x16 tile's depth-sorted entries ``[start, min(end, base + max_chunks
@@ -15,20 +15,34 @@ differ by rounding, so a pixel whose T lands at the 1e-4 cut can flip; the
 two are held to each other with the rule the JAX package uses between its
 backends (``tests/test_rasterize.py::assert_images_match``).
 
+``raster_tiles_fwd_save`` (K1g) is the same image plus the residual the
+backward needs: per pixel, one past the last entry it composited.
+``raster_tiles_bwd`` (K3, ``csrc/rasterize_bwd.cu``, replacing
+``_bwd_kernel``) turns the gradients of the five output rows into the
+gradients of the ``[10, D]`` entry features; its plain version
+:func:`raster_tiles_bwd_plain` keeps the JAX formulation (per-chunk
+log1p/cumsum transmittance, the suffix sum by a reversed cumsum, the same
+masks).
+
 :func:`rasterize` is the ``cuda`` render backend: pack, bin (expansion
-through K2), K1, untile, ``image = color + T_final * bg``.
+through K2), K1 (K1g when a gradient is wanted), untile,
+``image = color + T_final * bg``. Its gradient runs K3, then the fold K4
+(``ops/fold.py``) back to the per-Gaussian packets, as the JAX package's
+two custom VJPs do (``_raster_tiles`` and ``_bin_with_payload``).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _cuda
 from ..core.project import Projected
-from .binning import bin_gaussians_payload, tile_grid
-from .composite import (T_EPS, alpha_from_power, composite_chunk,
+from .binning import TileBins, bin_gaussians_payload, tile_grid
+from .composite import (ALPHA_MAX, T_EPS, alpha_from_power, composite_chunk,
                         splat_power, transmittance)
+from .fold import fold_rows
 from .rasterize_plain import tile_pixels, pack_projected, untile
 
 TILE = 16            # the kernel's tile edge (16x16 pixels, one CTA)
@@ -37,48 +51,82 @@ CS = 128             # the TPU kernel's chunk: the entry window starts at a mult
 NFEAT = 10           # x, y, conic a/b/c, opacity, r, g, b, invdepth
 NOUT = 5             # r, g, b, invdepth, final T
 SOURCE = "rasterize_fwd.cu"
+SOURCE_BWD = "rasterize_bwd.cu"
+
+
+class _Windows(NamedTuple):
+    """Every tile's entry window and pixel coordinates."""
+    start: torch.Tensor   # [T] int64
+    base: torch.Tensor    # [T] start rounded down to CS
+    limit: torch.Tensor   # [T] end of the window
+    px: torch.Tensor      # [T, PIX]
+    py: torch.Tensor
+    n_chunks: int
+
+
+def _windows(tile_start, tile_end, gx, max_chunks, dev) -> _Windows:
+    num_tiles = tile_start.shape[0]
+    start = tile_start.to(torch.int64)
+    base = start // CS * CS
+    limit = torch.minimum(tile_end.to(torch.int64), base + max_chunks * CS)
+    px, py = tile_pixels(num_tiles, gx, TILE, TILE, dev)
+    n_chunks = int(((limit - base + CS - 1) // CS).max()) if num_tiles else 0
+    return _Windows(start, base, limit, px, py, max(n_chunks, 0))
+
+
+def _chunk(feats, win: _Windows, k: int):
+    """Chunk k of every tile's window: (entry index [T, CS], valid [T, CS],
+    packets [T, CS, 10], power [T, CS, PIX])."""
+    lane = torch.arange(CS, device=feats.device)
+    idx = win.base[:, None] + k * CS + lane
+    valid = (idx >= win.start[:, None]) & (idx < win.limit[:, None])
+    pk = feats[:, idx.clamp(0, max(feats.shape[1] - 1, 0))].permute(1, 2, 0)
+    return idx, valid, pk, splat_power(pk, win.px, win.py)
 
 
 def _tile_chunks(feats, tile_start, tile_end, gx, max_chunks):
     """Every tile's entry window, one 128-entry chunk of every tile per
-    step: yields (valid [T, CS], packets [T, CS, 10], power [T, CS, PIX])."""
-    num_tiles = tile_start.shape[0]
-    d = feats.shape[1]
-    dev = feats.device
-    start = tile_start.to(torch.int64)
-    end = tile_end.to(torch.int64)
-    base = start // CS * CS
-    limit = torch.minimum(end, base + max_chunks * CS)
-    px, py = tile_pixels(num_tiles, gx, TILE, TILE, dev)       # [T, PIX]
-    n_chunks = int(((limit - base + CS - 1) // CS).max()) if num_tiles else 0
-    lane = torch.arange(CS, device=dev)
-    for k in range(max(n_chunks, 0)):
-        idx = base[:, None] + k * CS + lane                     # [T, CS]
-        valid = (idx >= start[:, None]) & (idx < limit[:, None])
-        pk = feats[:, idx.clamp(0, max(d - 1, 0))].permute(1, 2, 0)  # [T, CS, 10]
-        yield valid, pk, splat_power(pk, px, py)
+    step: yields (idx, valid, packets, power) as :func:`_chunk`."""
+    win = _windows(tile_start, tile_end, gx, max_chunks, feats.device)
+    for k in range(win.n_chunks):
+        yield _chunk(feats, win, k)
+
+
+def _chunk_alpha(valid, pk, power):
+    return torch.where(valid[..., None], alpha_from_power(pk, power), 0.0)
 
 
 def raster_tiles_fwd_plain(feats: torch.Tensor, tile_start: torch.Tensor,
-                           tile_end: torch.Tensor, gx: int,
-                           max_chunks: int) -> torch.Tensor:
+                           tile_end: torch.Tensor, gx: int, max_chunks: int,
+                           *, save: bool = False):
     """Plain PyTorch version of K1: every tile at once, one 128-entry chunk
-    of each tile's window per step, composited as ``composite_chunk``."""
+    of each tile's window per step, composited as ``composite_chunk``.
+    ``save``: also return K1g's residual, ``last`` [T, PIX] int32 (one past
+    the last entry each pixel composits, the tile's start if none)."""
     num_tiles = tile_start.shape[0]
     dev = feats.device
     color = torch.zeros((num_tiles, PIX, 3), device=dev)
     invd = torch.zeros((num_tiles, PIX), device=dev)
     U = torch.ones((num_tiles, PIX), device=dev)
     Tmin = torch.ones((num_tiles, PIX), device=dev)
-    for valid, pk, power in _tile_chunks(feats, tile_start, tile_end, gx,
-                                         max_chunks):
-        alpha = torch.where(valid[..., None], alpha_from_power(pk, power), 0.0)
+    last = tile_start.to(torch.int64)[:, None].expand(num_tiles, PIX)
+    for idx, valid, pk, power in _tile_chunks(feats, tile_start, tile_end, gx,
+                                              max_chunks):
+        alpha = _chunk_alpha(valid, pk, power)
+        if save:
+            _, U_after = transmittance(alpha, U)
+            hit = (alpha > 0.0) & (U_after >= T_EPS)
+            last = torch.maximum(last, torch.amax(
+                torch.where(hit, idx[..., None] + 1, 0), dim=1))
         dc, dinv, U, Tmin = composite_chunk(alpha, pk[..., 6:9], pk[..., 9],
                                             U, Tmin)
         color = color + dc
         invd = invd + dinv
-    return torch.cat([color.permute(0, 2, 1), invd[:, None], Tmin[:, None]],
-                     dim=1).contiguous()
+    out = torch.cat([color.permute(0, 2, 1), invd[:, None], Tmin[:, None]],
+                    dim=1).contiguous()
+    if save:
+        return out, last.to(torch.int32).contiguous()
+    return out
 
 
 # FP32 operations csrc/rasterize_fwd.cu spends on one (entry, pixel) pair,
@@ -89,6 +137,19 @@ def raster_tiles_fwd_plain(feats: torch.Tensor, tile_start: torch.Tensor,
 #   stopping:   + 1 - alpha, T * (1 - alpha), test_t < T_EPS (3)      = 19
 #   composited: + alpha * T (1), 4 FMA (8)                            = 28
 K1_OPS = {"culled": 12, "faint": 16, "stopping": 19, "composited": 28}
+
+# FP32 operations csrc/rasterize_bwd.cu spends on one (entry, pixel) pair a
+# pixel visits (those before its last composited entry), by where it
+# leaves the loop body:
+#   culled:     dx, dy (2); power (9); power <= 0 (1)                 = 12
+#   faint:      + expf, opacity * exp, fminf, alpha >= 1/255 (4)      = 16
+#   composited: + 1 - alpha, T / (1 - alpha), w (3); cdot (4 mul,
+#               3 add: 7); dalpha (mul, add, div, sub: 4); S += w cdot
+#               (2); 4 colour gradients (4); opg < 0.99 (1); dpower (1);
+#               x and y gradients (5 each: 10); conic gradients (3
+#               each: 9); opacity gradient (1); the 10 adds that fold
+#               the pair into its entry's sums (10)                   = 68
+K3_OPS = {"culled": 12, "faint": 16, "composited": 68}
 
 
 def raster_tiles_fwd_work(feats: torch.Tensor, tile_start: torch.Tensor,
@@ -106,9 +167,9 @@ def raster_tiles_fwd_work(feats: torch.Tensor, tile_start: torch.Tensor,
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     n = dict(entries=zero, culled=zero, faint=zero, stopping=zero,
              composited=zero)
-    for valid, pk, power in _tile_chunks(feats, tile_start, tile_end, gx,
-                                         max_chunks):
-        alpha = torch.where(valid[..., None], alpha_from_power(pk, power), 0.0)
+    for _, valid, pk, power in _tile_chunks(feats, tile_start, tile_end, gx,
+                                            max_chunks):
+        alpha = _chunk_alpha(valid, pk, power)
         U_before, U_after = transmittance(alpha, U)
         reached = valid[..., None] & (U_before >= T_EPS)
         culled = reached & (power > 0.0)
@@ -124,6 +185,37 @@ def raster_tiles_fwd_work(feats: torch.Tensor, tile_start: torch.Tensor,
     work["bytes"] = 4 * (work["entries"] * NFEAT + 2 * num_tiles
                          + num_tiles * NOUT * PIX)
     work["ops"] = sum(K1_OPS[k] * work[k] for k in K1_OPS)
+    return work
+
+
+def raster_tiles_bwd_work(feats: torch.Tensor, tile_start: torch.Tensor,
+                          tile_end: torch.Tensor, gx: int, max_chunks: int,
+                          last: torch.Tensor) -> dict:
+    """The work K3 must do on these inputs, for its bound: the entries in
+    front of some pixel's ``last`` (each read once), and the (entry, pixel)
+    pairs in front of the pixel's ``last``, by class of :data:`K3_OPS`.
+    ``bytes`` counts those entries, the ranges, per pixel the final T, its
+    ``last`` and the five upstream gradients, and the [10, D] output
+    written once."""
+    num_tiles = tile_start.shape[0]
+    zero = torch.zeros((), dtype=torch.int64, device=feats.device)
+    n = dict(entries=zero, culled=zero, faint=zero, composited=zero)
+    lastl = last.to(torch.int64)[:, None, :]
+    for idx, valid, pk, power in _tile_chunks(feats, tile_start, tile_end, gx,
+                                              max_chunks):
+        alpha = _chunk_alpha(valid, pk, power)
+        visited = valid[..., None] & (idx[..., None] < lastl)
+        culled = visited & (power > 0.0)
+        hit = visited & (alpha > 0.0)
+        n["entries"] = n["entries"] + visited.any(-1).sum()
+        n["culled"] = n["culled"] + culled.sum()
+        n["faint"] = n["faint"] + (visited & ~culled & ~hit).sum()
+        n["composited"] = n["composited"] + hit.sum()
+    work = {k: int(v) for k, v in n.items()}
+    work["bytes"] = 4 * (work["entries"] * NFEAT + 2 * num_tiles
+                         + num_tiles * PIX * (2 + NOUT)
+                         + NFEAT * feats.shape[1])
+    work["ops"] = sum(K3_OPS[k] * work[k] for k in K3_OPS)
     return work
 
 
@@ -144,37 +236,171 @@ def _check_args(feats, tile_start, tile_end, gx, max_chunks):
         raise ValueError(f"bad grid: {t} tiles, gx={gx}, max_chunks={max_chunks}")
     if feats.shape[1] >= 2 ** 31 // NFEAT:
         raise ValueError("feats too long for int32 entry indices")
+    if feats.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the tile rasterizer runs on cuda or cpu, not "
+                         f"{feats.device}")
+
+
+def _check_tile_rows(name, x, num_tiles, rows, dtype, device):
+    shape = (num_tiles, rows, PIX) if rows else (num_tiles, PIX)
+    if x.dtype != dtype or tuple(x.shape) != shape:
+        raise ValueError(f"{name} must be {dtype} {list(shape)}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.device != device or not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous on {device}")
+
+
+def _launch_fwd(feats, tile_start, tile_end, gx, max_chunks, save):
+    num_tiles = tile_start.shape[0]
+    dev = feats.device
+    out = torch.empty((num_tiles, NOUT, PIX), dtype=torch.float32, device=dev)
+    last = (torch.empty((num_tiles, PIX), dtype=torch.int32, device=dev)
+            if save else None)
+    if num_tiles == 0:
+        return out, last
+    ptrs = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    args = [feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
+            tile_end.data_ptr(), num_tiles, gx, max_chunks, out.data_ptr()]
+    if save:
+        ptrs.append(ctypes.c_void_p)
+        args.append(last.data_ptr())
+    name = "gs_raster_tiles_fwd_save" if save else "gs_raster_tiles_fwd"
+    fn = _cuda.function(SOURCE, name, ptrs + [ctypes.c_int, ctypes.c_void_p])
+    err = fn(*args, dev.index, _cuda.stream_ptr(dev))
+    _cuda.check(SOURCE, err, name)
+    return out, last
 
 
 def raster_tiles_fwd(feats: torch.Tensor, tile_start: torch.Tensor,
                      tile_end: torch.Tensor, gx: int,
                      max_chunks: int) -> torch.Tensor:
-    """[10, D] float32 sorted entry features, [T] int32 tile ranges ->
+    """K1. [10, D] float32 sorted entry features, [T] int32 tile ranges ->
     [T, 5, 256] float32 (r, g, b, invdepth, final T per tile pixel)."""
     _check_args(feats, tile_start, tile_end, gx, max_chunks)
     if feats.device.type == "cpu":
         return raster_tiles_fwd_plain(feats, tile_start, tile_end, gx,
                                       max_chunks)
-    if feats.device.type != "cuda":
-        raise ValueError(f"raster_tiles_fwd runs on cuda or cpu, not {feats.device}")
-    num_tiles = tile_start.shape[0]
-    out = torch.empty((num_tiles, NOUT, PIX), dtype=torch.float32,
-                      device=feats.device)
-    if num_tiles == 0:
-        return out
-    fn = _cuda.function(SOURCE, "gs_raster_tiles_fwd", [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p])
-    err = fn(feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
-             tile_end.data_ptr(), num_tiles, gx, max_chunks, out.data_ptr(),
-             feats.device.index, _cuda.stream_ptr(feats.device))
-    _cuda.check(SOURCE, err, "raster_tiles_fwd")
+    out, _ = _launch_fwd(feats, tile_start, tile_end, gx, max_chunks, False)
     raster_tiles_fwd.launches += 1
     return out
 
 
 raster_tiles_fwd.launches = 0
+
+
+def raster_tiles_fwd_save(feats: torch.Tensor, tile_start: torch.Tensor,
+                          tile_end: torch.Tensor, gx: int, max_chunks: int):
+    """K1g, the grad variant of K1: the same [T, 5, 256] image, bitwise,
+    and ``last`` [T, 256] int32, one past the last entry each pixel
+    composited (the tile's start if none) — what K3 walks back from."""
+    _check_args(feats, tile_start, tile_end, gx, max_chunks)
+    if feats.device.type == "cpu":
+        return raster_tiles_fwd_plain(feats, tile_start, tile_end, gx,
+                                      max_chunks, save=True)
+    out, last = _launch_fwd(feats, tile_start, tile_end, gx, max_chunks, True)
+    raster_tiles_fwd_save.launches += 1
+    return out, last
+
+
+raster_tiles_fwd_save.launches = 0
+
+
+def raster_tiles_bwd_plain(feats: torch.Tensor, tile_start: torch.Tensor,
+                           tile_end: torch.Tensor, gx: int, max_chunks: int,
+                           out: torch.Tensor, last: torch.Tensor,
+                           dout: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3, in the JAX formulation: a forward sweep
+    for the transmittance entering each chunk, then the chunks back to
+    front, each with its log1p/cumsum transmittance, the suffix sum
+    ``S_g = sum_{h>g} w_h cdot_h`` by a reversed cumsum plus the carry from
+    the chunks behind, and the TPU kernel's masks. Uses ``out``'s final T;
+    ``last`` is implied by the masks and not read."""
+    del last
+    num_tiles = tile_start.shape[0]
+    dev = feats.device
+    win = _windows(tile_start, tile_end, gx, max_chunks, dev)
+    U = torch.ones((num_tiles, PIX), device=dev)
+    U_in = []
+    for k in range(win.n_chunks):
+        _, valid, pk, power = _chunk(feats, win, k)
+        U_in.append(U)
+        U = transmittance(_chunk_alpha(valid, pk, power), U)[1][:, -1]
+    dC = dout[:, 0:3]                                    # [T, 3, PIX]
+    dI = dout[:, 3][:, None, :]                          # [T, 1, PIX]
+    dT_term = (dout[:, 4] * out[:, 4])[:, None, :]
+    S = torch.zeros((num_tiles, PIX), device=dev)
+    dfeats = torch.zeros((feats.shape[1], NFEAT), device=dev)
+    for k in reversed(range(win.n_chunks)):
+        idx, valid, pk, power = _chunk(feats, win, k)
+        alpha = _chunk_alpha(valid, pk, power)
+        g = torch.exp(power)
+        opg = pk[..., 5:6] * g
+        gate = (alpha > 0.0) & (opg < ALPHA_MAX)
+        U_before, U_after = transmittance(alpha, U_in[k])
+        live = U_after >= T_EPS
+        w = alpha * U_before * live
+        cdot = torch.einsum('tgc,tcp->tgp', pk[..., 6:9], dC) + pk[..., 9:10] * dI
+        wc = w * cdot
+        rc = torch.flip(torch.cumsum(torch.flip(wc, [1]), dim=1), [1])
+        suffix = torch.cat([rc[:, 1:], torch.zeros_like(rc[:, :1])], dim=1)
+        inv1ma = 1.0 / (1.0 - alpha)
+        dalpha = (cdot * U_before * live - (suffix + S[:, None, :]) * inv1ma
+                  - dT_term * inv1ma * live)
+        dpower = torch.where(gate, dalpha * opg, 0.0)
+        dx = pk[..., 0:1] - win.px[:, None, :]
+        dy = pk[..., 1:2] - win.py[:, None, :]
+        ca, cb, cc = pk[..., 2:3], pk[..., 3:4], pk[..., 4:5]
+        grads = torch.stack([
+            (-(ca * dx + cb * dy) * dpower).sum(-1),
+            (-(cc * dy + cb * dx) * dpower).sum(-1),
+            (-0.5 * dx * dx * dpower).sum(-1),
+            (-dx * dy * dpower).sum(-1),
+            (-0.5 * dy * dy * dpower).sum(-1),
+            torch.where(gate, dalpha * g, 0.0).sum(-1),
+        ], dim=-1)                                       # [T, CS, 6]
+        grads = torch.cat([
+            grads, torch.einsum('tgp,tcp->tgc', w, dC),
+            torch.einsum('tgp,tcp->tgc', w, dI)], dim=-1)  # [T, CS, 10]
+        dfeats.index_put_((idx[valid],), grads[valid], accumulate=True)
+        S = S + wc.sum(1)
+    return dfeats.T.contiguous()
+
+
+def raster_tiles_bwd(feats: torch.Tensor, tile_start: torch.Tensor,
+                     tile_end: torch.Tensor, gx: int, max_chunks: int,
+                     out: torch.Tensor, last: torch.Tensor,
+                     dout: torch.Tensor) -> torch.Tensor:
+    """K3. K1g's inputs and outputs (``out`` [T, 5, 256], ``last`` [T, 256])
+    and the gradients of ``out``, ``dout`` [T, 5, 256] -> [10, D] float32
+    gradients of ``feats``; entries no pixel composited get zeros."""
+    _check_args(feats, tile_start, tile_end, gx, max_chunks)
+    num_tiles = tile_start.shape[0]
+    for name, x, rows, dtype in (("out", out, NOUT, torch.float32),
+                                 ("last", last, 0, torch.int32),
+                                 ("dout", dout, NOUT, torch.float32)):
+        _check_tile_rows(name, x, num_tiles, rows, dtype, feats.device)
+    if feats.device.type == "cpu":
+        return raster_tiles_bwd_plain(feats, tile_start, tile_end, gx,
+                                      max_chunks, out, last, dout)
+    dfeats = torch.zeros_like(feats)
+    if num_tiles == 0:
+        return dfeats
+    fn = _cuda.function(SOURCE_BWD, "gs_raster_tiles_bwd", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p])
+    err = fn(feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
+             tile_end.data_ptr(), num_tiles, gx, max_chunks, out.data_ptr(),
+             last.data_ptr(), dout.data_ptr(), dfeats.data_ptr(),
+             feats.device.index, _cuda.stream_ptr(feats.device))
+    _cuda.check(SOURCE_BWD, err, "raster_tiles_bwd")
+    raster_tiles_bwd.launches += 1
+    return dfeats
+
+
+raster_tiles_bwd.launches = 0
 
 
 def max_chunks_for(max_per_tile: int) -> int:
@@ -185,22 +411,76 @@ def max_chunks_for(max_per_tile: int) -> int:
     return max(-(-(max_per_tile + CS - 1) // CS), 1)
 
 
+class _RasterTiles(torch.autograd.Function):
+    """K1g forward, K3 backward (``rasterize_pallas.py::_raster_tiles``)."""
+
+    @staticmethod
+    def forward(ctx, feats, tile_start, tile_end, gx, max_chunks):
+        out, last = raster_tiles_fwd_save(feats, tile_start, tile_end, gx,
+                                          max_chunks)
+        ctx.save_for_backward(feats, tile_start, tile_end, out, last)
+        ctx.grid = (gx, max_chunks)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, tile_start, tile_end, out, last = ctx.saved_tensors
+        dfeats = raster_tiles_bwd(feats, tile_start, tile_end, *ctx.grid,
+                                  out, last, dout.contiguous())
+        return dfeats, None, None, None, None
+
+
+class _BinWithPayload(torch.autograd.Function):
+    """Binning with the packets carried through the tile sort
+    (``rasterize_pallas.py::_bin_with_payload``). The geometry is integer
+    valued and passes no gradient; the sorted packets' gradient folds back
+    to the packets through K4, and is zero under capacity overflow, where
+    the truncated entry stream no longer lines up with the counts."""
+
+    @staticmethod
+    def forward(ctx, packets, proj, width, height, capacity, exact_cull):
+        bins, feats, plan = bin_gaussians_payload(
+            proj, packets, width, height, TILE, TILE, capacity,
+            exact_cull=exact_cull, fold_plan=True)
+        ctx.save_for_backward(plan.index, plan.offsets, bins.gauss_counts,
+                              bins.overflow)
+        ctx.mark_non_differentiable(*bins)
+        return (*bins, feats)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        index, offsets, counts, overflow = ctx.saved_tensors
+        d = fold_rows(grads[-1].contiguous(), offsets, counts, index)
+        d_packets = torch.where(overflow, 0.0, d.T)
+        return d_packets, None, None, None, None, None
+
+
 def rasterize(proj: Projected, width: int, height: int, bg: torch.Tensor, *,
               max_per_tile: int = 4096, dup_capacity: int = 1 << 20,
               exact_cull: bool = False):
-    """No-grad render through the kernels (16x16 tiles).
+    """Render through the kernels (16x16 tiles); differentiable with
+    respect to ``proj``'s float fields and ``bg``.
 
     Returns (image [3,H,W], invdepth [1,H,W], final_T [H,W],
     num_duplicates, max_tile_len, overflow, num_valid) — the last four as
     0-d device tensors, so a caller that does not read them never waits on
     the device."""
     gx, gy = tile_grid(width, height, TILE, TILE)
+    max_chunks = max_chunks_for(max_per_tile)
     packets = pack_projected(proj)                       # [N, 10]
-    bins, feats = bin_gaussians_payload(proj, packets, width, height,
-                                        TILE, TILE, dup_capacity,
-                                        exact_cull=exact_cull)
-    out = raster_tiles_fwd(feats, bins.tile_start, bins.tile_end, gx,
-                           max_chunks_for(max_per_tile))
+    if torch.is_grad_enabled() and packets.requires_grad:
+        proj_sg = Projected(*[None if t is None else t.detach() for t in proj])
+        *fields, feats = _BinWithPayload.apply(packets, proj_sg, width, height,
+                                               dup_capacity, exact_cull)
+        bins = TileBins(*fields)
+        out = _RasterTiles.apply(feats, bins.tile_start, bins.tile_end, gx,
+                                 max_chunks)
+    else:
+        bins, feats = bin_gaussians_payload(proj, packets, width, height,
+                                            TILE, TILE, dup_capacity,
+                                            exact_cull=exact_cull)
+        out = raster_tiles_fwd(feats, bins.tile_start, bins.tile_end, gx,
+                               max_chunks)
     img = out[:, 0:3] + out[:, 4:5] * bg[None, :, None]
     image = untile(img, gx, gy, TILE, TILE, width, height)
     rest = untile(out[:, 3:5], gx, gy, TILE, TILE, width, height)

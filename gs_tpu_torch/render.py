@@ -1,4 +1,4 @@
-"""Render facade — port of ``gs_tpu/render.py`` (forward only).
+"""Render facade — port of ``gs_tpu/render.py``.
 
 Takes a camera, the Gaussian parameters and a background color; returns
 ``image`` [3,H,W], ``invdepth`` [1,H,W], ``final_T`` [H,W], ``radii`` and
@@ -10,9 +10,10 @@ Backends: ``cuda`` (the kernels K2 and K1; ``auto`` means ``cuda``),
 camera's; parameters and background must be on it. A CPU camera runs each
 kernel's plain version, a CUDA camera the kernels.
 
-Gradients are not ported yet: the raster backward (K3) and the gradient
-fold (K4) come with the training slice, so a render that would need them
-raises ``NotImplementedError``.
+Every backend is differentiable with respect to the parameters, the
+background and the ``Projected`` fields: ``cuda`` through its custom
+backward (K1g forward, K3 raster backward, K4 gradient fold), ``binned``
+and ``depthwise`` through plain autograd, as the JAX package's oracles.
 """
 from __future__ import annotations
 
@@ -59,16 +60,6 @@ def raster_lever_kwargs(raster) -> dict:
     every caller runs the configured pipeline."""
     return dict(exact_cull=getattr(raster, "exact_cull", False),
                 bf16_features=getattr(raster, "bf16_features", False))
-
-
-def _check_no_grad(*tensors):
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "gs_tpu_torch renders forward only: gradients need the raster "
-            "backward (K3) and gradient fold (K4) kernels, which come with "
-            "the training slice of the port. Render under torch.no_grad() "
-            "or from tensors that do not require grad.")
 
 
 def render(camera: Camera, params: GaussianParams, bg: torch.Tensor, *,
@@ -127,7 +118,6 @@ def render_projected(proj: Projected, width: int, height: int,
                      chunk: int = 64, bf16_features: bool = False,
                      exact_cull: bool = False) -> RenderOutput:
     backend = resolve_backend(backend)
-    _check_no_grad(*proj, bg)
     if bf16_features:
         raise NotImplementedError(
             "bf16_features (bf16 feature streaming) is not ported yet")

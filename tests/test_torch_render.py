@@ -1,7 +1,8 @@
-"""gs_tpu_torch.render on the CPU: the committed golden renders, the
-reference's pipeline switches against gs_tpu, and the refusal of gradients.
-On a card, kernel K1 against its plain version. The comparison with the
-JAX Pallas render is in test_torch_render_pallas.py."""
+"""gs_tpu_torch.render on the CPU: the committed golden renders and
+parameter gradients, the reference's pipeline switches against gs_tpu, and
+gradients through every backend. On a card, kernel K1 against its plain
+version. The comparison with the JAX Pallas render is in
+test_torch_render_pallas.py."""
 import math
 import os
 
@@ -53,8 +54,11 @@ def _golden_cameras(device, W=128, H=96):
 @pytest.mark.parametrize("backend", ["cuda", "binned", "depthwise"])
 @pytest.mark.parametrize("ci", [0, 1])
 def test_golden_values(backend, ci):
+    """Values at 2e-5 and the loss's parameter gradients at 2e-4 * max, the
+    rules of tests/test_golden.py:67-81, without running JAX."""
     data = np.load(GOLDEN)
     params = params_from_numpy({k: data[f"p_{k}"] for k in FIELDS}, "cpu")
+    params = type(params)(*[t.requires_grad_(True) for t in params])
     cam = _golden_cameras("cpu")[ci]
     bg = torch.zeros(3) if ci == 0 else torch.ones(3)
     out = render(cam, params, bg, active_sh_degree=3, backend=backend,
@@ -62,8 +66,18 @@ def test_golden_values(backend, ci):
                  max_per_tile=512, exact_cull=True)
     assert not bool(out.overflow)
     for k, ref in (("image", "img"), ("invdepth", "invd"), ("final_T", "finalT")):
-        np.testing.assert_allclose(getattr(out, k).numpy(), data[f"{ref}_{ci}"],
-                                   atol=2e-5, rtol=0, err_msg=k)
+        np.testing.assert_allclose(getattr(out, k).detach().numpy(),
+                                   data[f"{ref}_{ci}"], atol=2e-5, rtol=0,
+                                   err_msg=k)
+    loss = (out.image - 0.5).abs().mean() + 0.1 * out.invdepth.mean()
+    np.testing.assert_allclose(float(loss.detach()), float(data[f"loss_{ci}"]),
+                               atol=1e-6)
+    grads = torch.autograd.grad(loss, list(params))
+    for k, g in zip(FIELDS, grads):
+        ref = data[f"g{ci}_{k}"]
+        scale = max(np.abs(ref).max(), 1e-3)
+        np.testing.assert_allclose(g.numpy(), ref, atol=2e-4 * scale, rtol=0,
+                                   err_msg=f"gradient of {k}")
 
 
 def small_scene():
@@ -93,16 +107,27 @@ def test_pipeline_switches_match_jax(flags):
                                    atol=2e-5, rtol=0, err_msg=k)
 
 
-def test_render_refuses_gradients():
+@pytest.mark.parametrize("backend", ["cuda", "binned", "depthwise"])
+def test_gradients_flow_through_every_backend(backend):
+    """Every parameter group and the background get a finite, nonzero
+    gradient; on CPU tensors the cuda backend runs the kernels' plain
+    versions and launches nothing."""
+    from gs_tpu_torch.ops.expand import expand_rows
+    from gs_tpu_torch.ops.fold import fold_rows
+    counters = (expand_rows, trast.raster_tiles_fwd,
+                trast.raster_tiles_fwd_save, trast.raster_tiles_bwd, fold_rows)
+    before = [c.launches for c in counters]
     _, _, tparams, tcam = small_scene()
-    xyz = tparams.xyz.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        render(tcam, tparams._replace(xyz=xyz), torch.zeros(3),
-               active_sh_degree=2)
-    with torch.no_grad():
-        out = render(tcam, tparams._replace(xyz=xyz), torch.zeros(3),
-                     active_sh_degree=2)
-    assert out.image.shape == (3, 48, 64)
+    leaves = [t.clone().requires_grad_(True) for t in tparams]
+    bg = torch.tensor([0.2, 0.5, 0.8], requires_grad=True)
+    out = render(tcam, type(tparams)(*leaves), bg, active_sh_degree=2,
+                 backend=backend, dup_capacity=1 << 14, max_per_tile=256)
+    loss = (out.image ** 2).sum() + out.invdepth.sum() + out.final_T.sum()
+    grads = torch.autograd.grad(loss, leaves + [bg])
+    for name, g in zip(FIELDS + ("bg",), grads):
+        assert bool(torch.isfinite(g).all()), name
+        assert float(g.abs().max()) > 0, name
+    assert [c.launches for c in counters] == before
 
 
 def test_render_rejects_mixed_devices_and_unknown_backend():
