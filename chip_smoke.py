@@ -7,14 +7,17 @@ Usage, from the repository root on a machine with one CUDA card and nvcc:
 
 Phases (each failure exits non-zero):
  1. print the card's name and power limit; build every kernel from
-    gs_tpu_torch/csrc (one nvcc per source, all at once);
+    gs_tpu_torch/csrc (one nvcc per source, all at once); static SASS
+    counts of K1, K1g and K3 (shuffles, shared loads and stores);
  2. K2 (expansion) against its plain version, bitwise: the three
     expansion test cases and the bench scene's [16, N] table into
     3,072,000 entries; kernel, plain and torch.repeat_interleave times;
  3. K1 (forward raster) against its plain version under the JAX package's
     backend rule (max |diff| < 2e-2, < 0.2 % of values beyond 1e-5): a
     300-gaussian 128x96 scene and one 1920x1080 frame; kernel and plain
-    times, and the work the frame's data needs (for the bound);
+    times, and the work the frame's data needs (for the bound); the
+    (8x4 pixel block, entry) pairs the block skip removes on the frame,
+    and K1's and K1g's registers, shared memory and spills;
  4. serve: the 500,000-gaussian bench scene (bench.py build_scene
     "uniform", rebuilt with the port) written as a trained-model directory,
     loaded back, 8 frames at 1920x1080 through gs_tpu_torch.render.render
@@ -26,8 +29,9 @@ Phases (each failure exits non-zero):
     version's but for at most 0.2 % of pixels at the T < 1e-4 cut;
  6. [K3] the raster backward against its plain version on the same three
     inputs with one upstream gradient drawn from a seed, per feature row
-    within 2e-4 * max |plain| (the JAX package's gradient rule); times and
-    the work for the bound;
+    within 2e-4 * max |plain| (the JAX package's gradient rule) and bitwise
+    from run to run; times, the work for the bound, the pairs the skip
+    removes, and K3's registers, shared memory and spills;
  7. [K4] the gradient fold against segment_sum_runend (in float64) within
     1e-6 of the largest sum, on the bench frame's entry gradients from K3;
     a render under capacity overflow folds to zero; kernel, plain and
@@ -144,6 +148,54 @@ def grads_match(got, ref, rel=2e-4):
     return ratio <= rel, ratio, float(diff.max())
 
 
+def sass_counts(path: str) -> dict:
+    """Static SASS instruction counts of the tile rasterizers in the kernel
+    library at ``path`` (``cuobjdump -sass``): per kernel (K1, K1g, K3) the
+    instructions in all, warp shuffles (SHFL), shared loads (LDS, of them
+    128-bit), shared stores (STS) and special-function ops (MUFU, expf and
+    the reciprocal's seed). {} when the toolkit has no cuobjdump."""
+    from gs_tpu_torch.ops import _cuda
+    tool = os.path.join(os.path.dirname(_cuda.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            name = ("K1" if "raster_fwd_kernelILb0" in fn else
+                    "K1g" if "raster_fwd_kernelILb1" in fn else
+                    "K3" if "raster_bwd_kernel" in fn else None)
+            if name:
+                counts[name] = dict.fromkeys(
+                    ("instructions", "SHFL", "LDS", "LDS.128", "STS", "MUFU"), 0)
+            continue
+        if name is None or "/*" not in line or ";" not in line:
+            continue
+        ins = line.split("*/", 1)[1].strip().split(";")[0].split()
+        if not ins:
+            continue
+        op = ins[1] if ins[0].startswith("@") and len(ins) > 1 else ins[0]
+        c = counts[name]
+        c["instructions"] += 1
+        for key in ("SHFL", "LDS", "STS", "MUFU"):
+            if op.split(".")[0] == key:
+                c[key] += 1
+        if op.startswith("LDS.128"):
+            c["LDS.128"] += 1
+    return counts
+
+
+def attributes_line(attrs, names):
+    return "; ".join(
+        f"{k}: {attrs[k]['registers']} registers, {attrs[k]['shared_bytes']} "
+        f"B shared per CTA, {attrs[k]['local_bytes']} B local (spills) per "
+        f"thread, {attrs[k]['ctas_per_sm']} CTAs of {attrs[k]['threads']} "
+        f"threads per SM"
+        for k in names)
+
+
 def bound_of(work_bytes, work_ops):
     b = work_bytes / HBM_BYTES_PER_S * 1e3
     o = work_ops / FP32_OPS_PER_S * 1e3
@@ -166,7 +218,8 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
     from gs_tpu_torch.ops.expand import expand_rows
     from gs_tpu_torch.ops.fold import fold_rows, fold_rows_plain
     from gs_tpu_torch.ops.losses import l1_loss
-    from gs_tpu_torch.ops.rasterize import (K3_OPS, max_chunks_for,
+    from gs_tpu_torch.ops.rasterize import (K3_OPS, block_skip_counts,
+                                            kernel_attributes, max_chunks_for,
                                             raster_tiles_bwd,
                                             raster_tiles_bwd_plain,
                                             raster_tiles_bwd_work,
@@ -258,6 +311,13 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
               f"{w3['bytes']} bytes; kernel {k3_ms:.4f} ms, plain "
               f"{k3_plain_ms:.4f} ms, bound {k3_bound:.4f} ms (bytes "
               f"{k3_b:.4f}, operations {k3_o:.4f})", flush=True)
+        skip = block_skip_counts(*args, last=last)
+        print(f"[K3] bench frame: the block skip removes "
+              f"{skip['skipped']} of the {skip['pairs']} (8x4 block, entry) "
+              f"pairs in front of each block's last composited entry "
+              f"({skip['skipped'] / max(skip['pairs'], 1):.2%}; "
+              f"ops/rasterize.py::block_skip_counts on the card); "
+              + attributes_line(kernel_attributes(dev), ["K3"]), flush=True)
 
         # ------------------------------------------------------------ 7
         d_sorted = raster_tiles_bwd(*args, out_g, last, dout)
@@ -493,7 +553,8 @@ def main() -> int:
     from gs_tpu_torch.ops.binning import (bin_gaussians_payload,
                                           expansion_table, tile_grid)
     from gs_tpu_torch.ops.expand import expand_rows, expand_rows_plain
-    from gs_tpu_torch.ops.rasterize import (K1_OPS, max_chunks_for,
+    from gs_tpu_torch.ops.rasterize import (K1_OPS, block_skip_counts,
+                                            kernel_attributes, max_chunks_for,
                                             raster_tiles_fwd,
                                             raster_tiles_fwd_plain,
                                             raster_tiles_fwd_work)
@@ -522,6 +583,10 @@ def main() -> int:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "error", "warning")):
                 print(f"[build] {src}: {line.strip()}")
+    for src in ("rasterize_fwd.cu", "rasterize_bwd.cu"):
+        for name, c in sass_counts(str(_cuda.library_path(src))).items():
+            print(f"[sass] {name} ({src}), static counts: " + ", ".join(
+                f"{k} {v}" for k, v in c.items()), flush=True)
 
     # the bench scene, rebuilt with the port, written and loaded back
     rng = np.random.default_rng(0)
@@ -653,6 +718,13 @@ def main() -> int:
               f"FP32 operations; kernel {k1_ms:.4f} ms, plain "
               f"{k1_plain_ms:.4f} ms, bound {k1_bound:.4f} ms (bytes "
               f"{k1_bound_b:.4f}, operations {k1_bound_o:.4f})", flush=True)
+        skip = block_skip_counts(*args)
+        print(f"[K1] bench frame: the block skip removes "
+              f"{skip['skipped']} of the {skip['pairs']} (8x4 block, entry) "
+              f"pairs of the windows ({skip['skipped'] / max(skip['pairs'], 1):.2%}"
+              f"; ops/rasterize.py::block_skip_counts on the card); "
+              + attributes_line(kernel_attributes(dev), ["K1", "K1g"]),
+              flush=True)
         del feats, bins, args, proj, packets
 
         # ------------------------------------------------------------ 4

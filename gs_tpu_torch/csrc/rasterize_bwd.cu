@@ -11,42 +11,165 @@
 // Per pixel, walking its composited entries back to front (last index from
 // K1g), with T the transmittance behind the entry (T_final at the start)
 // and S the sum of w_h * cdot_h over the entries behind it:
-//   T_excl = T / (1 - alpha)        (undoes K1's rounded product exactly)
+//   r      = 1 / (1 - alpha),  T_excl = T * r   (undoes K1's product)
 //   w      = alpha * T_excl,  cdot = c . dL/dC + invd * dL/dI
-//   dalpha = cdot * T_excl - (S + dL/dT_final * T_final) / (1 - alpha)
+//   dalpha = cdot * T_excl - (S + dL/dT_final * T_final) * r
 // which is the TPU kernel's suffix form (:341-347) with its live mask
 // implied: only composited pairs are visited. alpha's gradient reaches
 // op * exp(power) only below the 0.99 clamp (the TPU kernel's gate, :115),
 // and from there the opacity and, through the exponent, the mean and the
-// conic (the per-pair form of :368-383).
-//
-// Design: one CTA per tile and one thread per pixel, mirroring K1. Entries
-// are staged in shared memory 128 at a time from the back; every thread
-// walks the batch in the same order, so for each entry the 256 pixels'
-// 10 contributions are summed inside the block: a warp-shuffle tree, then
-// the 8 warps' partials added in warp order by one thread per (feature,
-// entry), and written once. Every entry belongs to one tile, so each
-// output value has exactly one writer: no atomics, and the result is the
-// same from run to run. A warp whose 32 pixels all skip an entry skips its
-// shuffles. Entries no pixel reaches, the exact-cull and padding tail, and
-// entries past the window are never written: the wrapper hands in zeros.
-// The TPU kernel's PEND write protocol, pixel-moment expansion, head
-// prefetch and triangular matmuls exist for the TPU's sequential grid and
-// lack of per-lane control flow, and are not carried over.
+// conic (the per-pair form of :368-383). One correctly rounded reciprocal
+// replaces the two divisions by (1 - alpha): T_excl carries one more
+// rounding per entry, which moves no visit (the walk's pairs are set by
+// `last` and alpha, not by T) and keeps the gradients far inside the 2e-4
+// rule.
 //
 // Bound on the H100: operations. Each composited (entry, pixel) pair costs
 // 68 FP32 operations (K3_OPS in ops/rasterize.py, with the 10 adds that
 // fold it into its entry's sums), against ~40 B per entry read and
 // ~28 B per pixel; chip_smoke.py computes both bounds from the run's data.
+//
+// Design: one CTA of 128 threads per tile, each thread two pixels, with
+// K1's packed entries, warp squares of two 8x4 blocks, per-block skip and
+// pre-filter (raster.cuh, rasterize_fwd.cu). Entries are staged 64 at a
+// time from the back; every warp walks the batch in the same order, so for
+// each entry the 256 pixels' 10 contributions are summed inside the block
+// and written once. Every entry belongs to one tile, so each output value
+// has one writer: no atomics, and the result is the same from run to run.
+// The first version (one thread per pixel) summed each of the 10 values
+// over the warp with its own 5-step shuffle tree (50 shuffles per entry a
+// warp touched) and had lane 0 store 10 partials per warp and entry,
+// touched or not; that was most of its time. Now:
+// - a warp skips an entry that both its blocks miss or that lies past
+//   every pixel's `last`, and one no pixel composites;
+// - a thread adds its two pixels' contributions in registers, and a
+//   reduce-scatter sums the 10 values over the warp in 12 shuffles
+//   (recursive halving: lanes 0-15 keep features 0-4 and lanes 16-31
+//   features 5-9, and so on), leaving each sum on one lane, which stores
+//   it: 12 shuffles per 64 pixels instead of 50 per 32;
+// - a per-(warp, entry) mask records which warps wrote, and one thread per
+//   (feature, entry) adds only those partials, in warp order.
+// 10 KB of partials and 3 KB of entries per CTA (the first version: 46 KB).
+// Entries no pixel reaches, the exact-cull and padding tail, and entries
+// past the window are never written: the wrapper hands in zeros. The TPU
+// kernel's PEND write protocol, pixel-moment expansion, head prefetch and
+// triangular matmuls exist for the TPU's sequential grid and lack of
+// per-lane control flow, and are not carried over.
 #include "raster.cuh"
 
 namespace {
 
 using namespace gs;
 
-constexpr int kBatch = 128;
+constexpr int kBatch = 64;
+constexpr int kThreads = 128;           // two pixels a thread
+constexpr int kBwdWarps = kThreads / 32;
 
-__global__ void __launch_bounds__(kPix)
+// The feature whose warp sum reduce_scatter leaves on `lane`, or -1 for
+// the lanes that hold a padding slot or the second copy of a sum.
+__device__ __forceinline__ int feature_of(int lane) {
+  const int upper = (lane >> 4) & 1, s2 = (lane >> 3) & 1;
+  const int k = ((lane >> 2) & 1) * 2 + ((lane >> 1) & 1);
+  if ((lane & 1) || k >= (s2 ? 2 : 3)) return -1;
+  return upper * 5 + s2 * 3 + k;
+}
+
+// Sums v[0..9] over the warp by recursive halving: at each step a lane
+// keeps half of its slots, sends the other half to the lane `offset` away
+// and adds what that lane sent for the kept half. 10 -> 5 (offset 16),
+// 5 (+1 pad) -> 3 (8), 3 (+1 pad) -> 2 (4), 2 -> 1 (2), then both lanes
+// of a pair add each other's (1): 12 shuffles. The sum of feature
+// feature_of(lane) is returned on that lane, in a fixed order.
+__device__ __forceinline__ float reduce_scatter(const float v[kFeat],
+                                                int lane) {
+  const bool upper = lane & 16;
+  float a[6];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const float send = upper ? v[k] : v[5 + k];
+    a[k] = (upper ? v[5 + k] : v[k]) + __shfl_xor_sync(kFull, send, 16);
+  }
+  a[5] = 0.0f;
+  const bool s2 = lane & 8;
+  float b[4];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float send = s2 ? a[k] : a[3 + k];
+    b[k] = (s2 ? a[3 + k] : a[k]) + __shfl_xor_sync(kFull, send, 8);
+  }
+  b[3] = 0.0f;
+  const bool s3 = lane & 4;
+  float c[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float send = s3 ? b[k] : b[2 + k];
+    c[k] = (s3 ? b[2 + k] : b[k]) + __shfl_xor_sync(kFull, send, 4);
+  }
+  const bool s4 = lane & 2;
+  const float e = (s4 ? c[1] : c[0]) +
+                  __shfl_xor_sync(kFull, s4 ? c[0] : c[1], 2);
+  return e + __shfl_xor_sync(kFull, e, 1);
+}
+
+// One pixel's side of the walk: its residual, upstream gradients and the
+// running T and S.
+struct PixelState {
+  float px, py;
+  int last;
+  float dr, dg, db, di, dT_term;
+  float T, S;
+};
+
+__device__ __forceinline__ PixelState load_pixel(const Pixel& pix, int t,
+                                                 const float* __restrict__ out_fwd,
+                                                 const int* __restrict__ last,
+                                                 const float* __restrict__ dout) {
+  const size_t row0 = static_cast<size_t>(t) * kOut * kPix + pix.index;
+  const float T_final = out_fwd[row0 + 4 * kPix];
+  return {pix.px, pix.py, last[static_cast<size_t>(t) * kPix + pix.index],
+          dout[row0], dout[row0 + kPix], dout[row0 + 2 * kPix],
+          dout[row0 + 3 * kPix], dout[row0 + 4 * kPix] * T_final,
+          T_final, 0.0f};
+}
+
+// One (entry, pixel) pair of the back-to-front walk: false when the pair
+// is skipped as K1 skips it; else updates T and S and adds the pair's 10
+// contributions to v.
+__device__ __forceinline__ bool contribution(float4 w0, float4 w1, float4 w2,
+                                             PixelState& s, float v[kFeat]) {
+  const float dx = w0.x - s.px;
+  const float dy = w0.y - s.py;
+  const float ca = w0.z, cb = w0.w, cc = w1.x;
+  const float power = splat_power(dx, dy, ca, cb, cc);
+  if (power > 0.0f || faint_by_power(power, w2.z)) return false;
+  const float gauss = expf(power);
+  const float opg = w1.y * gauss;
+  const float alpha = fminf(kAlphaMax, opg);
+  if (alpha < kAlphaMin) return false;
+  const float r = __frcp_rn(1.0f - alpha);
+  const float T_excl = s.T * r;
+  const float w = alpha * T_excl;
+  const float cdot = w1.z * s.dr + w1.w * s.dg + w2.x * s.db + w2.y * s.di;
+  const float dalpha = cdot * T_excl - (s.S + s.dT_term) * r;
+  s.S += w * cdot;
+  s.T = T_excl;
+  v[6] += w * s.dr;
+  v[7] += w * s.dg;
+  v[8] += w * s.db;
+  v[9] += w * s.di;
+  if (opg < kAlphaMax) {
+    const float dpower = dalpha * opg;
+    v[0] += -(ca * dx + cb * dy) * dpower;
+    v[1] += -(cc * dy + cb * dx) * dpower;
+    v[2] += -0.5f * dx * dx * dpower;
+    v[3] += -dx * dy * dpower;
+    v[4] += -0.5f * dy * dy * dpower;
+    v[5] += dalpha * gauss;
+  }
+  return true;
+}
+
+__global__ void __launch_bounds__(kThreads)
 raster_bwd_kernel(const float* __restrict__ feats, int d,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_end, int gx, int max_chunks,
@@ -54,110 +177,93 @@ raster_bwd_kernel(const float* __restrict__ feats, int d,
                   const int* __restrict__ last,
                   const float* __restrict__ dout,
                   float* __restrict__ dfeats) {
-  __shared__ float sf[kFeat][kBatch];
-  __shared__ float part[kWarps][kFeat][kBatch];   // 40 KB
+  __shared__ float4 words[kWords * kBatch];
+  __shared__ float part[kBwdWarps][kFeat][kBatch];
+  __shared__ unsigned wrote[kBatch / 32][kBwdWarps];
   __shared__ int s_end;
   const int t = blockIdx.x;
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
-  const float px = static_cast<float>((t % gx) * kTile + p % kTile);
-  const float py = static_cast<float>((t / gx) * kTile + p / kTile);
+  // warp w: blocks a = 4 (w / 2) + w % 2 and a + 2 below it, an 8x8 square
+  const int block_a = 4 * (warp >> 1) + (warp & 1);
+  const Pixel pa = pixel_of(t, gx, block_a, lane);
+  const Pixel pb = pixel_of(t, gx, block_a + 2, lane);
   const Window win = tile_window(tile_start, tile_end, t, max_chunks);
+  PixelState sa = load_pixel(pa, t, out_fwd, last, dout);
+  PixelState sb = load_pixel(pb, t, out_fwd, last, dout);
+  const int feat = feature_of(lane);
 
-  const size_t pix = static_cast<size_t>(t) * kPix + p;
-  const int my_last = last[pix];
-  const size_t row0 = static_cast<size_t>(t) * kOut * kPix + p;
-  const float T_final = out_fwd[row0 + 4 * kPix];
-  const float dr = dout[row0];
-  const float dg = dout[row0 + kPix];
-  const float db = dout[row0 + 2 * kPix];
-  const float di = dout[row0 + 3 * kPix];
-  const float dT_term = dout[row0 + 4 * kPix] * T_final;
-
-  // the block walks back from the last entry any of its pixels composited
+  // the block walks back from the last entry any of its pixels composited,
+  // each 8x4 block from the last any of its pixels did
+  const int last_a = __reduce_max_sync(kFull, sa.last);
+  const int last_b = __reduce_max_sync(kFull, sb.last);
   if (p == 0) s_end = win.start;
   __syncthreads();
-  atomicMax(&s_end, my_last);
+  if (lane == 0) atomicMax(&s_end, max(last_a, last_b));
   __syncthreads();
   const int end = min(s_end, win.limit);
 
-  float T = T_final;
-  float S = 0.0f;
   for (int b1 = end; b1 > win.start; b1 -= kBatch) {
     const int b0 = max(win.start, b1 - kBatch);
     const int cnt = b1 - b0;
     if (p < cnt) {
-#pragma unroll
-      for (int f = 0; f < kFeat; ++f)
-        sf[f][p] = __ldg(feats + static_cast<size_t>(f) * d + b0 + p);
-    }
-    __syncthreads();
-    for (int jj = cnt - 1; jj >= 0; --jj) {
       float v[kFeat];
-#pragma unroll
-      for (int f = 0; f < kFeat; ++f) v[f] = 0.0f;
-      bool hit = false;
-      if (b0 + jj < my_last) {
-        const float dx = sf[0][jj] - px;
-        const float dy = sf[1][jj] - py;
-        const float ca = sf[2][jj];
-        const float cb = sf[3][jj];
-        const float cc = sf[4][jj];
-        const float power = splat_power(dx, dy, ca, cb, cc);
-        if (power <= 0.0f) {
-          const float g = expf(power);
-          const float opg = sf[5][jj] * g;
-          const float alpha = fminf(kAlphaMax, opg);
-          if (alpha >= kAlphaMin) {
-            hit = true;
-            const float one_m = 1.0f - alpha;
-            const float T_excl = T / one_m;
-            const float w = alpha * T_excl;
-            const float cdot = sf[6][jj] * dr + sf[7][jj] * dg +
-                               sf[8][jj] * db + sf[9][jj] * di;
-            const float dalpha = cdot * T_excl - (S + dT_term) / one_m;
-            S += w * cdot;
-            T = T_excl;
-            v[6] = w * dr;
-            v[7] = w * dg;
-            v[8] = w * db;
-            v[9] = w * di;
-            if (opg < kAlphaMax) {
-              const float dpower = dalpha * opg;
-              v[0] = -(ca * dx + cb * dy) * dpower;
-              v[1] = -(cc * dy + cb * dx) * dpower;
-              v[2] = -0.5f * dx * dx * dpower;
-              v[3] = -dx * dy * dpower;
-              v[4] = -0.5f * dy * dy * dpower;
-              v[5] = dalpha * g;
-            }
-          }
-        }
-      }
-      if (__any_sync(0xffffffffu, hit)) {
-#pragma unroll
-        for (int f = 0; f < kFeat; ++f) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v[f] += __shfl_down_sync(0xffffffffu, v[f], off);
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int f = 0; f < kFeat; ++f) part[warp][f][jj] = v[f];
-      }
+      load_entry(feats, d, b0 + p, v);
+      store_entry(words, kBatch, p, v);
     }
     __syncthreads();
-    for (int i = p; i < kFeat * cnt; i += kPix) {
-      const int f = i / cnt;
-      const int jj = i - f * cnt;
-      float s = part[0][f][jj];
+    for (int g = (cnt - 1) & ~31; g >= 0; g -= 32) {
+      const int jl = g + lane;
+      const float4 c0 = words[jl], c1 = words[kBatch + jl],
+                   c2 = words[2 * kBatch + jl];
+      const bool in = jl < cnt;
+      const unsigned ma = __ballot_sync(
+          kFull, in && b0 + jl < last_a &&
+                     !block_misses(c0, c1, c2, pa.x0, pa.y0));
+      const unsigned mb = __ballot_sync(
+          kFull, in && b0 + jl < last_b &&
+                     !block_misses(c0, c1, c2, pb.x0, pb.y0));
+      unsigned written = 0;
+      for (unsigned m = ma | mb; m;) {
+        const int jb = 31 - __clz(m);
+        const unsigned bit = 1u << jb;
+        m ^= bit;
+        const int j = g + jb;
+        const float4 w0 = words[j], w1 = words[kBatch + j],
+                     w2 = words[2 * kBatch + j];
+        float v[kFeat];
 #pragma unroll
-      for (int w = 1; w < kWarps; ++w) s += part[w][f][jj];
-      dfeats[static_cast<size_t>(f) * d + b0 + jj] = s;
+        for (int f = 0; f < kFeat; ++f) v[f] = 0.0f;
+        bool hit = false;
+        if ((ma & bit) && b0 + j < sa.last && contribution(w0, w1, w2, sa, v))
+          hit = true;
+        if ((mb & bit) && b0 + j < sb.last && contribution(w0, w1, w2, sb, v))
+          hit = true;
+        if (__any_sync(kFull, hit)) {
+          const float sum = reduce_scatter(v, lane);
+          if (feat >= 0) part[warp][feat][j] = sum;
+          written |= bit;
+        }
+      }
+      if (lane == 0) wrote[g >> 5][warp] = written;
     }
-    // the next batch overwrites sf and part
+    __syncthreads();
+    for (int i = p; i < kFeat * cnt; i += kThreads) {
+      const int f = i / cnt;
+      const int j = i - f * cnt;
+      float sum = 0.0f;
+      bool any = false;
+#pragma unroll
+      for (int w = 0; w < kBwdWarps; ++w) {
+        if ((wrote[j >> 5][w] >> (j & 31)) & 1u) {
+          sum += part[w][f][j];
+          any = true;
+        }
+      }
+      if (any) dfeats[static_cast<size_t>(f) * d + b0 + j] = sum;
+    }
+    // the next batch overwrites words, part and wrote
     __syncthreads();
   }
 }
@@ -177,8 +283,17 @@ extern "C" int gs_raster_tiles_bwd(const float* feats, int d,
                                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  raster_bwd_kernel<<<num_tiles, kPix, 0, static_cast<cudaStream_t>(stream)>>>(
+  raster_bwd_kernel<<<num_tiles, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       feats, d, tile_start, tile_end, gx, max_chunks, out_fwd, last, dout,
       dfeats);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the compiler made of the kernel: see common.cuh::kernel_attributes.
+extern "C" int gs_raster_tiles_bwd_attributes(int device, int* attrs) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return kernel_attributes(reinterpret_cast<const void*>(raster_bwd_kernel),
+                           kThreads, attrs);
 }

@@ -66,6 +66,43 @@ def tile_grid(width: int, height: int, tile_x: int, tile_y: int):
     return gx, gy
 
 
+def quad_limit(opacity: torch.Tensor) -> torch.Tensor:
+    """``two_l = 2 ln(max(255 opacity, 1))``: the value of the conic
+    quadratic ``q = -2 power`` at which ``opacity * exp(-q / 2)`` falls to
+    1/255. A pair with a larger q is faint."""
+    return 2.0 * torch.log(torch.clamp_min(255.0 * opacity, 1.0))
+
+
+def quad_min_rect(ex, ey, ca, cb, cc, x_lo, x_hi, y_lo, y_hi):
+    """The minimum of ``q = ca dx^2 + 2 cb dx dy + cc dy^2`` over the
+    rectangle ``[x_lo, x_hi] x [y_lo, y_hi]``, ``(dx, dy) = point - mean``
+    (elementwise over broadcast tensors): 0 when the mean (ex, ey) is
+    inside, else the least of the four edges' values at their clamped 1-D
+    minimisers. Exact where each edge's restriction is convex (``ca``,
+    ``cc`` > 0). NaN propagates. The binning's exact tile cull and the
+    kernels' warp-block skip (``csrc/raster.cuh::quad_min_rect``, rounding
+    for rounding) both use it."""
+    ca = ca + 1e-20
+    cc = cc + 1e-20
+    dx0, dx1 = x_lo - ex, x_hi - ex
+    dy0, dy1 = y_lo - ey, y_hi - ey
+
+    def q(dx, dy):
+        return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
+
+    def clip(x, lo, hi):
+        return torch.minimum(torch.maximum(x, lo), hi)
+
+    cx0 = clip(-cb * dy0 / ca, dx0, dx1)
+    cx1 = clip(-cb * dy1 / ca, dx0, dx1)
+    cy0 = clip(-cb * dx0 / cc, dy0, dy1)
+    cy1 = clip(-cb * dx1 / cc, dy0, dy1)
+    qmin = torch.minimum(torch.minimum(q(cx0, dy0), q(cx1, dy1)),
+                         torch.minimum(q(dx0, cy0), q(dx1, cy1)))
+    inside = (dx0 <= 0) & (dx1 >= 0) & (dy0 <= 0) & (dy1 >= 0)
+    return torch.where(inside, 0.0, qmin)
+
+
 def expansion_table(proj: Projected, payload: Optional[torch.Tensor],
                     width: int, height: int, tile_x: int, tile_y: int):
     """Steps 1-2: the depth-ordered ``[16, N]`` float32 table for K2 (rows:
@@ -154,36 +191,17 @@ def bin_gaussians_payload(proj: Projected, payload: Optional[torch.Tensor],
     tile_id = t_row * gx + t_col
     valid = eidx < total
     if exact_cull:
-        # the conic quadratic's minimum over the 1px-dilated tile rect:
-        # 0 when the mean is inside, else on an edge at the clamped 1D
-        # minimizer; the tile is culled only on a confident miss
-        ex, ey = out16[6], out16[7]
-        ca = out16[8] + 1e-20
-        cb = out16[9]
-        cc = out16[10] + 1e-20
-        two_l = 2.0 * torch.log(torch.clamp_min(255.0 * out16[11], 1.0))
-        dx0 = (t_col * tile_x - 1).to(torch.float32) - ex
-        dx1 = (t_col * tile_x + tile_x).to(torch.float32) - ex
-        dy0 = (t_row * tile_y - 1).to(torch.float32) - ey
-        dy1 = (t_row * tile_y + tile_y).to(torch.float32) - ey
-
-        def q(dx, dy):
-            return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
-
-        def clip(x, lo, hi):
-            return torch.minimum(torch.maximum(x, lo), hi)
-
-        cx0 = clip(-cb * dy0 / ca, dx0, dx1)
-        cx1 = clip(-cb * dy1 / ca, dx0, dx1)
-        cy0 = clip(-cb * dx0 / cc, dy0, dy1)
-        cy1 = clip(-cb * dx1 / cc, dy0, dy1)
-        qmin = torch.minimum(torch.minimum(q(cx0, dy0), q(cx1, dy1)),
-                             torch.minimum(q(dx0, cy0), q(dx1, cy1)))
-        inside = (dx0 <= 0) & (dx1 >= 0) & (dy0 <= 0) & (dy1 >= 0)
-        qmin = torch.where(inside, 0.0, qmin)
+        # the conic quadratic's minimum over the 1px-dilated tile rect;
+        # the tile is culled only on a confident miss
+        qmin = quad_min_rect(
+            out16[6], out16[7], out16[8], out16[9], out16[10],
+            (t_col * tile_x - 1).to(torch.float32),
+            (t_col * tile_x + tile_x).to(torch.float32),
+            (t_row * tile_y - 1).to(torch.float32),
+            (t_row * tile_y + tile_y).to(torch.float32))
         # relative margin absorbs the kernel's operation order; NaN
         # compares false => kept
-        culled = qmin > two_l * (1.0 + 1e-4) + 1e-3
+        culled = qmin > quad_limit(out16[11]) * (1.0 + 1e-4) + 1e-3
         valid = valid & ~culled
     tile_key = torch.where(valid, tile_id, num_tiles).to(torch.int32)
     # padding entries get the sentinel gid; exact-culled ones keep theirs

@@ -29,6 +29,14 @@ through K2), K1 (K1g when a gradient is wanted), untile,
 ``image = color + T_final * bg``. Its gradient runs K3, then the fold K4
 (``ops/fold.py``) back to the per-Gaussian packets, as the JAX package's
 two custom VJPs do (``_raster_tiles`` and ``_bin_with_payload``).
+
+Both kernels skip work that cannot change their result: a warp works on
+whole 8x4 pixel blocks of its tile and skips an entry a block cannot reach,
+and a pair whose exponent is past the entry's cut is dropped before
+``expf``.
+:func:`block_misses`, :func:`block_cull_plain` and :func:`faint_by_power`
+are those tests in PyTorch, rounding for rounding (``csrc/raster.cuh``),
+for the tests and for counting what the skip removes.
 """
 from __future__ import annotations
 
@@ -39,7 +47,8 @@ import torch
 
 from . import _cuda
 from ..core.project import Projected
-from .binning import TileBins, bin_gaussians_payload, tile_grid
+from .binning import (TileBins, bin_gaussians_payload, quad_limit,
+                      quad_min_rect, tile_grid)
 from .composite import (ALPHA_MAX, T_EPS, alpha_from_power, composite_chunk,
                         splat_power, transmittance)
 from .fold import fold_rows
@@ -217,6 +226,126 @@ def raster_tiles_bwd_work(feats: torch.Tensor, tile_start: torch.Tensor,
                          + NFEAT * feats.shape[1])
     work["ops"] = sum(K3_OPS[k] * work[k] for k in K3_OPS)
     return work
+
+
+# The kernels' two conservative skips (csrc/raster.cuh), in PyTorch: a
+# warp skips, for a whole 8x4 pixel block, an entry whose conic quadratic
+# stays past the entry's cut over the block; a pair whose exponent is past
+# the cut is dropped before expf. Both drop only pairs whose alpha is below
+# 1/255 (tests/test_torch_raster_cull.py).
+BLOCK_W, BLOCK_H = 8, 4
+BLOCKS = PIX // (BLOCK_W * BLOCK_H)   # block b at (8 (b % 2), 4 (b // 2))
+
+
+def entry_cut(opacity: torch.Tensor) -> torch.Tensor:
+    """An entry's confident-miss limit on ``q = -2 power``: the binning's
+    ``quad_limit`` with its margin, ``two_l (1 + 1e-4) + 1e-3``."""
+    return quad_limit(opacity) * (1.0 + 1e-4) + 1e-3
+
+
+def faint_by_power(power: torch.Tensor, cut: torch.Tensor) -> torch.Tensor:
+    """The kernels' per-pair pre-filter: True where the pair is dropped as
+    faint before its alpha is computed."""
+    return -2.0 * power > cut
+
+
+def block_misses(pk, x0, y0) -> torch.Tensor:
+    """True where the 8x4 pixel block whose first pixel is (x0, y0) cannot
+    composite the entry: q's minimum over the rectangle of the block's
+    pixel centres exceeds the entry's cut by more than 1e-5 of the largest
+    term q has there (which bounds the rounding of both quadratics), for a
+    conic with positive diagonal. ``pk``: rows (x, y, conic a/b/c,
+    opacity, ...) broadcasting against x0, y0. NaN keeps the entry."""
+    ex, ey, ca, cb, cc, op = pk[0], pk[1], pk[2], pk[3], pk[4], pk[5]
+    x_lo = x0.to(torch.float32)
+    x_hi = (x0 + BLOCK_W - 1).to(torch.float32)
+    y_lo = y0.to(torch.float32)
+    y_hi = (y0 + BLOCK_H - 1).to(torch.float32)
+    qmin = quad_min_rect(ex, ey, ca, cb, cc, x_lo, x_hi, y_lo, y_hi)
+    mx = torch.maximum((x_lo - ex).abs(), (x_hi - ex).abs())
+    my = torch.maximum((y_lo - ey).abs(), (y_hi - ey).abs())
+    ab = cb.abs()
+    mag = (ca.abs() + ab) * mx * mx + (cc.abs() + ab) * my * my
+    return (ca > 0) & (cc > 0) & (qmin > entry_cut(op) + 1e-5 * mag)
+
+
+def _block_chunks(feats, tile_start, tile_end, gx, max_chunks):
+    """Per 128-entry chunk of every tile's window: (entry index [T, CS],
+    valid [T, CS], culled [T, CS, 8]) for the tile's 8x4 blocks."""
+    dev = feats.device
+    win = _windows(tile_start, tile_end, gx, max_chunks, dev)
+    t = torch.arange(tile_start.shape[0], device=dev)
+    b = torch.arange(BLOCKS, device=dev)
+    x0 = ((t % gx) * TILE)[:, None, None] + (b % 2) * BLOCK_W   # [T, 1, 8]
+    y0 = ((t // gx) * TILE)[:, None, None] + (b // 2) * BLOCK_H
+    lane = torch.arange(CS, device=dev)
+    for k in range(win.n_chunks):
+        idx = win.base[:, None] + k * CS + lane
+        valid = (idx >= win.start[:, None]) & (idx < win.limit[:, None])
+        pk = feats[:, idx.clamp(0, max(feats.shape[1] - 1, 0))]
+        yield idx, valid, block_misses(pk[..., None], x0, y0)
+
+
+def block_cull_plain(feats: torch.Tensor, tile_start: torch.Tensor,
+                     tile_end: torch.Tensor, gx: int,
+                     max_chunks: int) -> torch.Tensor:
+    """The kernels' block skip in PyTorch: [8, D] bool, True where 8x4
+    block b of entry e's tile skips e (False outside every window)."""
+    culled = torch.zeros((BLOCKS, feats.shape[1]), dtype=torch.bool,
+                         device=feats.device)
+    for idx, valid, miss in _block_chunks(feats, tile_start, tile_end, gx,
+                                          max_chunks):
+        culled[:, idx[valid]] = miss[valid].T
+    return culled
+
+
+def block_last(last: torch.Tensor) -> torch.Tensor:
+    """[T, 256] per-pixel ``last`` -> [T, 8]: per 8x4 block, the largest,
+    where K3 starts the block's walk back."""
+    t = last.shape[0]
+    return last.reshape(t, 4, BLOCK_H, 2, BLOCK_W).amax(dim=(2, 4)).reshape(t, 8)
+
+
+def block_skip_counts(feats: torch.Tensor, tile_start: torch.Tensor,
+                      tile_end: torch.Tensor, gx: int, max_chunks: int,
+                      last: torch.Tensor = None) -> dict:
+    """(8x4 block, entry) pairs of the windows, and how many of them the
+    block skip removes: every pair for K1 (which visits them all until its
+    pixels stop), or with K1g's ``last`` the pairs in front of the block's
+    largest ``last``, which K3 visits."""
+    zero = torch.zeros((), dtype=torch.int64, device=feats.device)
+    pairs, skipped = zero, zero
+    blast = None if last is None else block_last(last.to(torch.int64))
+    for idx, valid, miss in _block_chunks(feats, tile_start, tile_end, gx,
+                                          max_chunks):
+        seen = valid[..., None].expand_as(miss)
+        if blast is not None:
+            seen = seen & (idx[..., None] < blast[:, None, :])
+        pairs = pairs + seen.sum()
+        skipped = skipped + (seen & miss).sum()
+    return {"pairs": int(pairs), "skipped": int(skipped)}
+
+
+def kernel_attributes(device=None) -> dict:
+    """What the compiler made of K1, K1g and K3 on the card: per kernel
+    {registers, shared_bytes (static, per CTA), local_bytes (spills, per
+    thread), ctas_per_sm, threads (per CTA)}. Builds the kernels if
+    needed."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    keys = ("registers", "shared_bytes", "local_bytes", "ctas_per_sm",
+            "threads")
+    result = {}
+    for name, source, entry, lead in (
+            ("K1", SOURCE, "gs_raster_tiles_fwd_attributes", [0]),
+            ("K1g", SOURCE, "gs_raster_tiles_fwd_attributes", [1]),
+            ("K3", SOURCE_BWD, "gs_raster_tiles_bwd_attributes", [])):
+        attrs = (ctypes.c_int * 5)()
+        fn = _cuda.function(source, entry, [ctypes.c_int] * (len(lead) + 1)
+                            + [ctypes.c_void_p])
+        _cuda.check(source, fn(*lead, index, ctypes.addressof(attrs)), entry)
+        result[name] = dict(zip(keys, list(attrs)))
+    return result
 
 
 def _check_args(feats, tile_start, tile_end, gx, max_chunks):

@@ -8,7 +8,8 @@ at the JAX package's gradient rule, 2e-4 * max per feature row
 (tests/test_golden.py:75-81). K1g's residual against a numpy walk of each
 pixel's entries. On a card (marker ``cuda``): K1g's image bitwise equal to
 K1's, its residual equal to the plain one, and K3 against its plain
-version."""
+version and bitwise from run to run, on the hand-built tiles and on the
+adversarial scenes of test_torch_raster_cull.py."""
 import numpy as np
 import pytest
 import torch
@@ -18,6 +19,8 @@ import jax.numpy as jnp
 from gs_tpu.ops.rasterize_pallas import _raster_tiles, _Statics
 
 from gs_tpu_torch.ops import rasterize as trast
+
+from test_torch_raster_cull import SCENES, scene_tensors
 
 GX, GY = 3, 2
 MAX_CHUNKS = 8
@@ -196,3 +199,24 @@ def test_cuda_bwd_matches_plain(cuda_device, opaque):
     assert_grads_match(got.cpu().numpy(), ref.cpu().numpy(), "K3 vs plain")
     again = trast.raster_tiles_bwd(*args, out, last, d)
     assert torch.equal(got, again)          # one writer per value
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SCENES)
+def test_cuda_adversarial_scenes(cuda_device, kind):
+    """K1g bitwise K1 and within the backends' image rule of its plain
+    version, its residual the plain one's but for pixels at the T < 1e-4
+    cut; K3 within the gradient rule of its plain version and bitwise from
+    run to run."""
+    args, d = scene_tensors(kind, cuda_device)
+    out, last = trast.raster_tiles_fwd_save(*args)
+    assert torch.equal(out, trast.raster_tiles_fwd(*args))
+    plain_out, plain_last = trast.raster_tiles_fwd_plain(*args, save=True)
+    diff = (out - plain_out).abs()
+    assert float(diff.max()) < 2e-2
+    assert float((diff > 1e-5).float().mean()) < 2e-3
+    assert float((last != plain_last).float().mean()) < 2e-3
+    got = trast.raster_tiles_bwd(*args, out, last, d)
+    ref = trast.raster_tiles_bwd_plain(*args, out, last, d)
+    assert_grads_match(got.cpu().numpy(), ref.cpu().numpy(), f"K3 on {kind}")
+    assert torch.equal(got, trast.raster_tiles_bwd(*args, out, last, d))

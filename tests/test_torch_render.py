@@ -1,7 +1,8 @@
 """gs_tpu_torch.render on the CPU: the committed golden renders and
 parameter gradients, the reference's pipeline switches against gs_tpu, and
 gradients through every backend. On a card, kernel K1 against its plain
-version. The comparison with the JAX Pallas render is in
+version, on a render and on the adversarial scenes of
+test_torch_raster_cull.py. The comparison with the JAX Pallas render is in
 test_torch_render_pallas.py."""
 import math
 import os
@@ -21,6 +22,7 @@ from gs_tpu_torch.core.project import preprocess
 from gs_tpu_torch.render import render
 
 from utils import default_camera, random_params
+from test_torch_raster_cull import SCENES, scene_tensors
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "golden_small.npz")
 FIELDS = ("xyz", "sh_dc", "sh_rest", "log_scale", "quat", "logit_opacity")
@@ -213,6 +215,16 @@ def test_cuda_raster_matches_plain(cuda_device):
                                         exact_cull=True)
     gx, _ = tile_grid(cam.width, cam.height, 16, 16)
     args = (feats, bins.tile_start, bins.tile_end, gx, trast.max_chunks_for(512))
+    got = trast.raster_tiles_fwd(*args)
+    torch.cuda.synchronize()
+    ref = trast.raster_tiles_fwd_plain(*args)
+    assert_images_match(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SCENES)
+def test_cuda_raster_adversarial_scenes(cuda_device, kind):
+    args, _ = scene_tensors(kind, cuda_device)
     got = trast.raster_tiles_fwd(*args)
     torch.cuda.synchronize()
     ref = trast.raster_tiles_fwd_plain(*args)
