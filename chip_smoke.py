@@ -8,7 +8,7 @@ Usage, from the repository root on a machine with one CUDA card and nvcc:
 Phases (each failure exits non-zero):
  1. print the card's name and power limit; build every kernel from
     gs_tpu_torch/csrc (one nvcc per source, all at once); static SASS
-    counts of K1, K1g and K3 (shuffles, shared loads and stores);
+    counts of K1, K1g, K3 and K4 (shuffles, shared loads and stores);
  2. K2 (expansion) against its plain version, bitwise: the three
     expansion test cases and the bench scene's [16, N] table into
     3,072,000 entries; kernel, plain and torch.repeat_interleave times;
@@ -28,20 +28,25 @@ Phases (each failure exits non-zero):
     residual (one past each pixel's last composited entry) the plain
     version's but for at most 0.2 % of pixels at the T < 1e-4 cut;
  6. [K3] the raster backward against its plain version on the same three
-    inputs with one upstream gradient drawn from a seed, per feature row
-    within 2e-4 * max |plain| (the JAX package's gradient rule) and bitwise
-    from run to run; times, the work for the bound, the pairs the skip
-    removes, and K3's registers, shared memory and spills;
- 7. [K4] the gradient fold against segment_sum_runend (in float64) within
-    1e-6 of the largest sum, on the bench frame's entry gradients from K3;
-    a render under capacity overflow folds to zero; kernel, plain and
-    torch index_add_ times;
+    inputs with one upstream gradient drawn from a seed, each entry's row
+    written where the binning's FoldPlan.dest puts it (its position before
+    the tile sort), per feature row within 2e-4 * max |plain| (the JAX
+    package's gradient rule) and bitwise from run to run; times, the work
+    for the bound, the pairs the skip removes, and K3's registers, shared
+    memory and spills;
+ 7. [K4] the gradient fold of the bench frame's K3 rows over the
+    depth-ordered runs against segment_sum_runend (in float64) within
+    1e-6 of the largest sum, and bitwise from run to run; a render under
+    capacity overflow folds to zero; kernel, plain and torch index_add_
+    times, the bytes bound, K3 and K4 back to back, and K4's registers,
+    shared memory and spills;
  8. [train] 8 steps of the bench training configuration (bench.py's train
     probe: OptimizationConfig(iterations=30000), L1 + SSIM, Adam, a zero
     ground truth) through gs_tpu_torch.train.step.make_train_step after 2
-    warm-up steps: the loss finite and falling, no overflow, K1g, K2, K3
-    and K4 launched once per step each; ms per step by host clock; stage
-    times; one profiled step;
+    warm-up steps: the loss finite, falling and equal to REFERENCE_LOSSES
+    to 5 significant digits, no overflow, K1g, K2, K3 and K4 launched once
+    per step each; ms per step by host clock; stage times; the device's
+    busy time per step, the median of 5 steps profiled one by one;
  9. [grad] one step's parameter gradients on a 20,000-gaussian 256x192
     scene through the kernels against the plain binned path on the card,
     under the gradient rule;
@@ -71,8 +76,13 @@ DUP_CAPACITY, MAX_PER_TILE = 3_072_000, 1024       # bench.py CAPS["uniform"]
 TPU_NUM_DUPLICATES = 3_022_338                      # bench.py:100, same scene
 FRAMES = 8
 TRAIN_STEPS = 8
+PROFILED_STEPS = 5
 HBM_BYTES_PER_S = 3.35e12                           # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12
+# the bench training steps' losses on an NVIDIA H100 80GB HBM3 (700 W);
+# the steps must give them again to 5 significant digits
+REFERENCE_LOSSES = (0.560034, 0.552260, 0.544501, 0.536781, 0.529114,
+                    0.521514, 0.513999, 0.506575)
 
 
 def fail(msg: str):
@@ -149,11 +159,12 @@ def grads_match(got, ref, rel=2e-4):
 
 
 def sass_counts(path: str) -> dict:
-    """Static SASS instruction counts of the tile rasterizers in the kernel
-    library at ``path`` (``cuobjdump -sass``): per kernel (K1, K1g, K3) the
-    instructions in all, warp shuffles (SHFL), shared loads (LDS, of them
-    128-bit), shared stores (STS) and special-function ops (MUFU, expf and
-    the reciprocal's seed). {} when the toolkit has no cuobjdump."""
+    """Static SASS instruction counts of the tile rasterizers and the fold
+    in the kernel library at ``path`` (``cuobjdump -sass``): per kernel
+    (K1, K1g, K3, K4's 10-row variant) the instructions in all, warp
+    shuffles (SHFL), shared loads (LDS, of them 128-bit), shared stores
+    (STS) and special-function ops (MUFU, expf and the reciprocal's seed).
+    {} when the toolkit has no cuobjdump."""
     from gs_tpu_torch.ops import _cuda
     tool = os.path.join(os.path.dirname(_cuda.find_nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
@@ -166,7 +177,8 @@ def sass_counts(path: str) -> dict:
             fn = line.split("Function :")[1].strip()
             name = ("K1" if "raster_fwd_kernelILb0" in fn else
                     "K1g" if "raster_fwd_kernelILb1" in fn else
-                    "K3" if "raster_bwd_kernel" in fn else None)
+                    "K3" if "raster_bwd_kernel" in fn else
+                    "K4" if "fold_rows_kernelILi10E" in fn else None)
             if name:
                 counts[name] = dict.fromkeys(
                     ("instructions", "SHFL", "LDS", "LDS.128", "STS", "MUFU"), 0)
@@ -276,11 +288,11 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
             rng = np.random.default_rng(11)
             dout = torch.tensor(rng.normal(0, 1, tuple(out_g.shape)),
                                 dtype=torch.float32, device=dev)
-            got = raster_tiles_bwd(*args, out_g, last, dout)
+            got = raster_tiles_bwd(*args, out_g, last, dout, plan.dest)
             torch.cuda.synchronize()
-            again = raster_tiles_bwd(*args, out_g, last, dout)
-            ref = raster_tiles_bwd_plain(*args, out_g, last, dout)
-            ok, ratio, mx = grads_match(got, ref)
+            again = raster_tiles_bwd(*args, out_g, last, dout, plan.dest)
+            ref = raster_tiles_bwd_plain(*args, out_g, last, dout, plan.dest)
+            ok, ratio, mx = grads_match(got.T, ref.T)
             print(f"[K3] {label}: worst row max |kernel - plain| / max "
                   f"|plain| {ratio:.3e} (rule 2e-4), max abs {mx:.3e}; "
                   f"repeat bitwise {torch.equal(got, again)}", flush=True)
@@ -299,10 +311,10 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
         print(f"[K1g] bench frame: kernel {k1g_ms:.4f} ms, plain "
               f"{k1g_plain_ms:.4f} ms, bound {k1g_bound:.4f} ms ({k1g_by})",
               flush=True)
-        k3_ms = time_ms(torch, lambda: raster_tiles_bwd(*args, out_g, last,
-                                                        dout), 20)
+        bwd_args = (*args, out_g, last, dout, plan.dest)
+        k3_ms = time_ms(torch, lambda: raster_tiles_bwd(*bwd_args), 20)
         k3_plain_ms = time_ms(torch, lambda: raster_tiles_bwd_plain(
-            *args, out_g, last, dout), 2, 1)
+            *bwd_args), 2, 1)
         w3 = raster_tiles_bwd_work(*args, last)
         k3_bound, k3_by, k3_b, k3_o = bound_of(w3["bytes"], w3["ops"])
         pairs = ", ".join(f"{w3[k]} {k} (x{K3_OPS[k]})" for k in K3_OPS)
@@ -312,47 +324,65 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
               f"{k3_plain_ms:.4f} ms, bound {k3_bound:.4f} ms (bytes "
               f"{k3_b:.4f}, operations {k3_o:.4f})", flush=True)
         skip = block_skip_counts(*args, last=last)
+        attrs = kernel_attributes(dev)
         print(f"[K3] bench frame: the block skip removes "
               f"{skip['skipped']} of the {skip['pairs']} (8x4 block, entry) "
               f"pairs in front of each block's last composited entry "
               f"({skip['skipped'] / max(skip['pairs'], 1):.2%}; "
               f"ops/rasterize.py::block_skip_counts on the card); "
-              + attributes_line(kernel_attributes(dev), ["K3"]), flush=True)
+              + attributes_line(attrs, ["K3"]), flush=True)
 
         # ------------------------------------------------------------ 7
-        d_sorted = raster_tiles_bwd(*args, out_g, last, dout)
-        del out_g, last, dout
+        # K3's rows sit at each entry's position before the tile sort: one
+        # run per Gaussian, the runs in depth order
+        d_entries = raster_tiles_bwd(*bwd_args)
         counts = bins.gauss_counts
         n = counts.shape[0]
-        fold_args = (d_sorted, plan.offsets, counts, plan.index)
+        fold_args = (d_entries, plan.offsets, plan.counts, plan.gid)
         got = fold_rows(*fold_args)
         torch.cuda.synchronize()
-        ref64 = segment_sum_runend(d_sorted.double().T, bins.entry_gid,
-                                   counts, n).T
-        ref32 = segment_sum_runend(d_sorted.T, bins.entry_gid, counts, n).T
+        d_sorted = d_entries[plan.dest.to(torch.int64)]      # tile order
+        ref64 = segment_sum_runend(d_sorted.double(), bins.entry_gid,
+                                   counts, n)
+        ref32 = segment_sum_runend(d_sorted, bins.entry_gid, counts, n)
+        del d_sorted
         scale = float(ref64.abs().max())
         k4_err = float((got.double() - ref64).abs().max())
         err32 = float((ref32.double() - ref64).abs().max())
+        again = fold_rows(*fold_args)
         print(f"[K4] bench frame: {n} gaussians, {int(bins.num_duplicates)} "
-              f"entries; max |kernel - segment_sum_runend (float64)| "
-              f"{k4_err:.3e} = {k4_err / scale:.3e} of the largest sum "
-              f"(rule 1e-6); the float32 plain version is {err32 / scale:.3e} "
-              f"off; repeat bitwise {torch.equal(got, fold_rows(*fold_args))}",
-              flush=True)
+              f"entries, runs of up to {int(plan.counts.max())}; max |kernel "
+              f"- segment_sum_runend (float64)| {k4_err:.3e} = "
+              f"{k4_err / scale:.3e} of the largest sum (rule 1e-6); the "
+              f"float32 segment_sum_runend is {err32 / scale:.3e} off; "
+              f"repeat bitwise {torch.equal(got, again)}", flush=True)
         check(k4_err <= 1e-6 * scale, f"K4 != segment_sum_runend ({k4_err})")
-        check(torch.equal(got, fold_rows(*fold_args)), "K4 not deterministic")
-        gid = bins.entry_gid.to(torch.int64)
+        check(torch.equal(got, again), "K4 not deterministic")
+        # index_add_ needs each entry's Gaussian in K3's row order
+        gid_e = torch.full((d_entries.shape[0],), n, dtype=torch.int64,
+                           device=dev)
+        gid_e[plan.dest.to(torch.int64)] = bins.entry_gid.to(torch.int64)
         k4_ms = time_ms(torch, lambda: fold_rows(*fold_args), 20)
         k4_plain_ms = time_ms(torch, lambda: fold_rows_plain(*fold_args), 5)
         k4_lib_ms = time_ms(torch, lambda: torch.zeros(
-            (10, n + 1), device=dev).index_add_(1, gid, d_sorted), 20)
-        in_runs = min(int(bins.num_duplicates), d_sorted.shape[1])
-        k4_bound, k4_by, _, _ = bound_of(in_runs * (10 * 4 + 4) + n * (8 + 40),
+            (n + 1, 10), device=dev).index_add_(0, gid_e, d_entries), 20)
+        k34_ms = time_ms(torch, lambda: fold_rows(
+            raster_tiles_bwd(*bwd_args), *fold_args[1:]), 20)
+        # each row of a run read once, 12 B of offset, count and gid and
+        # 40 B of sums per Gaussian; the index layout read 44 B per entry
+        # and 48 B per Gaussian
+        in_runs = min(int(bins.num_duplicates), d_entries.shape[0])
+        k4_bound, k4_by, _, _ = bound_of(in_runs * 40 + n * (12 + 40),
                                          in_runs * 10)
+        k4_index_bound = (in_runs * 44 + n * 48) / HBM_BYTES_PER_S * 1e3
         print(f"[K4] bench frame: kernel {k4_ms:.4f} ms, plain "
               f"{k4_plain_ms:.4f} ms, index_add_ {k4_lib_ms:.4f} ms, bound "
-              f"{k4_bound:.4f} ms ({k4_by})", flush=True)
-        del got, ref64, ref32, d_sorted, fold_args, gid, bins, plan, args
+              f"{k4_bound:.4f} ms ({k4_by}; {k4_bound / k4_ms:.1%} of it; "
+              f"the index layout's bytes {k4_index_bound:.4f} ms); K3 then "
+              f"K4 {k34_ms:.4f} ms (K3 {k3_ms:.4f} + K4 {k4_ms:.4f}); "
+              + attributes_line(attrs, ["K4"]), flush=True)
+        del (got, again, ref64, ref32, d_entries, fold_args, gid_e, bins,
+             plan, args, bwd_args, out_g, last, dout)
 
     # a render under capacity overflow: the fold runs and returns zeros
     leaves = [t.clone().requires_grad_(True) for t in small]
@@ -403,6 +433,8 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
           f"{int(metrics[-1].n_visible)}", flush=True)
     check(all(math.isfinite(x) for x in losses), "non-finite loss")
     check(all(b < a for a, b in zip(losses, losses[1:])), "loss not falling")
+    check(all(abs(x - r) <= 1e-5 * r for x, r in zip(losses, REFERENCE_LOSSES)),
+          f"losses {losses} != REFERENCE_LOSSES to 5 significant digits")
     check(not any(bool(m.overflow) for m in metrics), "training overflow")
     check(all(launches[k] == TRAIN_STEPS for k in ("K1g", "K2", "K3", "K4"))
           and launches["K1"] == 0, f"train launches {launches}")
@@ -443,18 +475,27 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
     del grads, img
 
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(state, 0, gt, iteration=11)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    run = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in run) / 1e3
+    # one step's device time moves by ~2 % from run to run: profile several
+    # steps one by one and take the median
+    busy = []
+    for _ in range(PROFILED_STEPS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(state, 0, gt, iteration=11)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        run = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy.append(sum(e.self_device_time_total for e in run) / 1e3)
+    busy_ms = float(np.median(busy))
     step_ms = 1e3 * float(np.median(step_s))
-    print(f"[train profile] one step: device busy {busy_ms:.4f} ms in "
+    print(f"[train profile] one step: device busy {busy_ms:.4f} ms, the "
+          f"median of {PROFILED_STEPS} steps profiled one by one ("
+          + ", ".join(f"{x:.4f}" for x in busy) + f"), in "
           f"{sum(e.count for e in run)} kernel launches; against the "
           f"{step_ms:.3f} ms median step the device is idle "
-          f"{1 - busy_ms / step_ms:.1%}", flush=True)
+          f"{1 - busy_ms / step_ms:.1%}; the table is the last step's",
+          flush=True)
     print(events.table(sort_by="cuda_time_total", row_limit=15,
                        max_name_column_width=60), flush=True)
     del state, leaves
@@ -583,7 +624,7 @@ def main() -> int:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "error", "warning")):
                 print(f"[build] {src}: {line.strip()}")
-    for src in ("rasterize_fwd.cu", "rasterize_bwd.cu"):
+    for src in ("rasterize_fwd.cu", "rasterize_bwd.cu", "fold.cu"):
         for name, c in sass_counts(str(_cuda.library_path(src))).items():
             print(f"[sass] {name} ({src}), static counts: " + ", ".join(
                 f"{k} {v}" for k, v in c.items()), flush=True)

@@ -6,7 +6,9 @@
 // conic a/b/c, opacity, r, g, b, invdepth) from the upstream gradients of
 // K1's outputs dout [tiles, 5, 256] (dL/dr, dL/dg, dL/db, dL/dinvdepth,
 // dL/dT_final per pixel; the last row already holds bg . dL/dimage from
-// the background blend).
+// the background blend), as one 40-byte row at the entry's position before
+// the tile sort, dest[e]: there the expansion laid each Gaussian's entries
+// out as one run, which the fold K4 reads as one stream.
 //
 // Per pixel, walking its composited entries back to front (last index from
 // K1g), with T the transmittance behind the entry (T_final at the start)
@@ -49,6 +51,10 @@
 //   it: 12 shuffles per 64 pixels instead of 50 per 32;
 // - a per-(warp, entry) mask records which warps wrote, and one thread per
 //   (feature, entry) adds only those partials, in warp order.
+// - the partials are kept entry by entry, 10 features side by side, so the
+//   final pass maps 10 neighbouring threads to one entry's features: they
+//   read neighbouring words and write the entry's row at dest[e] as one
+//   40-byte piece.
 // 10 KB of partials and 3 KB of entries per CTA (the first version: 46 KB).
 // Entries no pixel reaches, the exact-cull and padding tail, and entries
 // past the window are never written: the wrapper hands in zeros. The TPU
@@ -176,10 +182,12 @@ raster_bwd_kernel(const float* __restrict__ feats, int d,
                   const float* __restrict__ out_fwd,
                   const int* __restrict__ last,
                   const float* __restrict__ dout,
+                  const int* __restrict__ dest,
                   float* __restrict__ dfeats) {
   __shared__ float4 words[kWords * kBatch];
-  __shared__ float part[kBwdWarps][kFeat][kBatch];
+  __shared__ float part[kBwdWarps][kBatch][kFeat];
   __shared__ unsigned wrote[kBatch / 32][kBwdWarps];
+  __shared__ int s_dest[kBatch];
   __shared__ int s_end;
   const int t = blockIdx.x;
   const int p = threadIdx.x;
@@ -211,6 +219,7 @@ raster_bwd_kernel(const float* __restrict__ feats, int d,
       float v[kFeat];
       load_entry(feats, d, b0 + p, v);
       store_entry(words, kBatch, p, v);
+      s_dest[p] = dest[b0 + p];
     }
     __syncthreads();
     for (int g = (cnt - 1) & ~31; g >= 0; g -= 32) {
@@ -242,7 +251,7 @@ raster_bwd_kernel(const float* __restrict__ feats, int d,
           hit = true;
         if (__any_sync(kFull, hit)) {
           const float sum = reduce_scatter(v, lane);
-          if (feat >= 0) part[warp][feat][j] = sum;
+          if (feat >= 0) part[warp][j][feat] = sum;
           written |= bit;
         }
       }
@@ -250,20 +259,20 @@ raster_bwd_kernel(const float* __restrict__ feats, int d,
     }
     __syncthreads();
     for (int i = p; i < kFeat * cnt; i += kThreads) {
-      const int f = i / cnt;
-      const int j = i - f * cnt;
+      const int j = i / kFeat;
+      const int f = i - j * kFeat;
       float sum = 0.0f;
       bool any = false;
 #pragma unroll
       for (int w = 0; w < kBwdWarps; ++w) {
         if ((wrote[j >> 5][w] >> (j & 31)) & 1u) {
-          sum += part[w][f][j];
+          sum += part[w][j][f];
           any = true;
         }
       }
-      if (any) dfeats[static_cast<size_t>(f) * d + b0 + j] = sum;
+      if (any) dfeats[static_cast<size_t>(s_dest[j]) * kFeat + f] = sum;
     }
-    // the next batch overwrites words, part and wrote
+    // the next batch overwrites words, part, wrote and s_dest
     __syncthreads();
   }
 }
@@ -272,21 +281,22 @@ raster_bwd_kernel(const float* __restrict__ feats, int d,
 
 // feats [10, d] float32, tile_start/tile_end [num_tiles] int32, out_fwd
 // [num_tiles, 5, 256] float32 and last [num_tiles, 256] int32 from the grad
-// variant of K1, dout [num_tiles, 5, 256] float32, dfeats [10, d] float32
-// holding zeros: all contiguous on `device`. Launches on `stream`,
-// allocates nothing, does not synchronise. Returns cudaGetLastError().
+// variant of K1, dout [num_tiles, 5, 256] float32, dest [d] int32 (a
+// permutation of [0, d)), dfeats [d, 10] float32 holding zeros: all
+// contiguous on `device`. Launches on `stream`, allocates nothing, does not
+// synchronise. Returns cudaGetLastError().
 extern "C" int gs_raster_tiles_bwd(const float* feats, int d,
                                    const int* tile_start, const int* tile_end,
                                    int num_tiles, int gx, int max_chunks,
                                    const float* out_fwd, const int* last,
-                                   const float* dout, float* dfeats,
-                                   int device, void* stream) {
+                                   const float* dout, const int* dest,
+                                   float* dfeats, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   raster_bwd_kernel<<<num_tiles, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       feats, d, tile_start, tile_end, gx, max_chunks, out_fwd, last, dout,
-      dfeats);
+      dest, dfeats);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,8 +13,9 @@ port of ``gs_tpu/ops/binning.py`` (single-device path).
 6. per-tile [start, end) ranges via searchsorted.
 
 For a differentiable render the binning also hands back a :class:`FoldPlan`:
-what the gradient fold (K4, ``ops/fold.py``) needs to sum the sorted
-entries' gradients per Gaussian without sorting them by gid.
+where the raster backward (K3) writes each sorted entry's gradient, and the
+runs the gradient fold (K4, ``ops/fold.py``) sums per Gaussian, without
+sorting them by gid.
 
 Integers are int32/int64 tensors throughout; the one exception is the K2
 table, which keeps the JAX layout (integers as exact float32 values) so that
@@ -51,13 +52,18 @@ class TileBins(NamedTuple):
 
 
 class FoldPlan(NamedTuple):
-    """Where each Gaussian's entries are, for the gradient fold. Before the
-    tile sort the expansion lays Gaussian g's entries out as one run
-    ``[offsets[g], offsets[g] + gauss_counts[g])``; ``index[e]`` is the
-    position the tile sort moved entry e to."""
-    index: torch.Tensor    # [capacity] int32 sorted position of each
-    # pre-sort entry (the inverse of the tile sort's permutation)
-    offsets: torch.Tensor  # [N] int32 run start per gaussian, original order
+    """Where each Gaussian's entries are, for the render's backward. Before
+    the tile sort the expansion lays the entries out in depth order, each
+    Gaussian's as one run. The raster backward writes the gradient of
+    sorted entry e to row ``dest[e]``, its position before the sort, so
+    the fold reads run i, rows ``[offsets[i], offsets[i] + counts[i])``,
+    as one contiguous stream and sums it into Gaussian ``gid[i]``."""
+    dest: torch.Tensor     # [capacity] int32 pre-sort position of each
+    # sorted entry (the tile sort's permutation)
+    offsets: torch.Tensor  # [N] int32 run start, depth order
+    counts: torch.Tensor   # [N] int32 run length, depth order
+    gid: torch.Tensor      # [N] int32 the Gaussian of each run: the depth
+    # order, a permutation of [0, N)
 
 
 def tile_grid(width: int, height: int, tile_x: int, tile_y: int):
@@ -227,11 +233,9 @@ def bin_gaussians_payload(proj: Projected, payload: Optional[torch.Tensor],
     )
     if not fold_plan:
         return bins, sorted_cols
-    index = torch.empty(capacity, dtype=torch.int32, device=dev)
-    index[perm] = eidx
-    run_offsets = torch.empty(n, dtype=torch.int32, device=dev)
-    run_offsets[comb[5].to(torch.int64)] = offsets
-    return bins, sorted_cols, FoldPlan(index=index, offsets=run_offsets)
+    return bins, sorted_cols, FoldPlan(
+        dest=perm.to(torch.int32), offsets=offsets,
+        counts=comb[1].to(torch.int32), gid=comb[5].to(torch.int32))
 
 
 def bin_gaussians(proj: Projected, width: int, height: int,

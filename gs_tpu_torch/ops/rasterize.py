@@ -19,16 +19,18 @@ backends (``tests/test_rasterize.py::assert_images_match``).
 backward needs: per pixel, one past the last entry it composited.
 ``raster_tiles_bwd`` (K3, ``csrc/rasterize_bwd.cu``, replacing
 ``_bwd_kernel``) turns the gradients of the five output rows into the
-gradients of the ``[10, D]`` entry features; its plain version
-:func:`raster_tiles_bwd_plain` keeps the JAX formulation (per-chunk
-log1p/cumsum transmittance, the suffix sum by a reversed cumsum, the same
-masks).
+gradients of the ``[10, D]`` entry features, written entry-major as
+``[D, 10]`` rows at each entry's position before the tile sort (``dest``);
+its plain version :func:`raster_tiles_bwd_plain` keeps the JAX formulation
+(per-chunk log1p/cumsum transmittance, the suffix sum by a reversed cumsum,
+the same masks) and scatters its rows the same way.
 
 :func:`rasterize` is the ``cuda`` render backend: pack, bin (expansion
 through K2), K1 (K1g when a gradient is wanted), untile,
 ``image = color + T_final * bg``. Its gradient runs K3, then the fold K4
 (``ops/fold.py``) back to the per-Gaussian packets, as the JAX package's
-two custom VJPs do (``_raster_tiles`` and ``_bin_with_payload``).
+two custom VJPs do (``_raster_tiles`` and ``_bin_with_payload``), here one
+``torch.autograd.Function``.
 
 Both kernels skip work that cannot change their result: a warp works on
 whole 8x4 pixel blocks of its tile and skips an entry a block cannot reach,
@@ -51,7 +53,7 @@ from .binning import (TileBins, bin_gaussians_payload, quad_limit,
                       quad_min_rect, tile_grid)
 from .composite import (ALPHA_MAX, T_EPS, alpha_from_power, composite_chunk,
                         splat_power, transmittance)
-from .fold import fold_rows
+from .fold import SOURCE as FOLD_SOURCE, fold_rows
 from .rasterize_plain import tile_pixels, pack_projected, untile
 
 TILE = 16            # the kernel's tile edge (16x16 pixels, one CTA)
@@ -203,9 +205,9 @@ def raster_tiles_bwd_work(feats: torch.Tensor, tile_start: torch.Tensor,
     """The work K3 must do on these inputs, for its bound: the entries in
     front of some pixel's ``last`` (each read once), and the (entry, pixel)
     pairs in front of the pixel's ``last``, by class of :data:`K3_OPS`.
-    ``bytes`` counts those entries, the ranges, per pixel the final T, its
-    ``last`` and the five upstream gradients, and the [10, D] output
-    written once."""
+    ``bytes`` counts those entries and their ``dest``, the ranges, per
+    pixel the final T, its ``last`` and the five upstream gradients, and
+    the [D, 10] output written once."""
     num_tiles = tile_start.shape[0]
     zero = torch.zeros((), dtype=torch.int64, device=feats.device)
     n = dict(entries=zero, culled=zero, faint=zero, composited=zero)
@@ -221,7 +223,7 @@ def raster_tiles_bwd_work(feats: torch.Tensor, tile_start: torch.Tensor,
         n["faint"] = n["faint"] + (visited & ~culled & ~hit).sum()
         n["composited"] = n["composited"] + hit.sum()
     work = {k: int(v) for k, v in n.items()}
-    work["bytes"] = 4 * (work["entries"] * NFEAT + 2 * num_tiles
+    work["bytes"] = 4 * (work["entries"] * (NFEAT + 1) + 2 * num_tiles
                          + num_tiles * PIX * (2 + NOUT)
                          + NFEAT * feats.shape[1])
     work["ops"] = sum(K3_OPS[k] * work[k] for k in K3_OPS)
@@ -327,10 +329,10 @@ def block_skip_counts(feats: torch.Tensor, tile_start: torch.Tensor,
 
 
 def kernel_attributes(device=None) -> dict:
-    """What the compiler made of K1, K1g and K3 on the card: per kernel
-    {registers, shared_bytes (static, per CTA), local_bytes (spills, per
-    thread), ctas_per_sm, threads (per CTA)}. Builds the kernels if
-    needed."""
+    """What the compiler made of K1, K1g, K3 and K4 (its 10-row variant)
+    on the card: per kernel {registers, shared_bytes (static, per CTA),
+    local_bytes (spills, per thread), ctas_per_sm, threads (per CTA)}.
+    Builds the kernels if needed."""
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     keys = ("registers", "shared_bytes", "local_bytes", "ctas_per_sm",
@@ -339,7 +341,8 @@ def kernel_attributes(device=None) -> dict:
     for name, source, entry, lead in (
             ("K1", SOURCE, "gs_raster_tiles_fwd_attributes", [0]),
             ("K1g", SOURCE, "gs_raster_tiles_fwd_attributes", [1]),
-            ("K3", SOURCE_BWD, "gs_raster_tiles_bwd_attributes", [])):
+            ("K3", SOURCE_BWD, "gs_raster_tiles_bwd_attributes", []),
+            ("K4", FOLD_SOURCE, "gs_fold_rows_attributes", [])):
         attrs = (ctypes.c_int * 5)()
         fn = _cuda.function(source, entry, [ctypes.c_int] * (len(lead) + 1)
                             + [ctypes.c_void_p])
@@ -438,13 +441,30 @@ raster_tiles_fwd_save.launches = 0
 def raster_tiles_bwd_plain(feats: torch.Tensor, tile_start: torch.Tensor,
                            tile_end: torch.Tensor, gx: int, max_chunks: int,
                            out: torch.Tensor, last: torch.Tensor,
-                           dout: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K3, in the JAX formulation: a forward sweep
-    for the transmittance entering each chunk, then the chunks back to
-    front, each with its log1p/cumsum transmittance, the suffix sum
-    ``S_g = sum_{h>g} w_h cdot_h`` by a reversed cumsum plus the carry from
-    the chunks behind, and the TPU kernel's masks. Uses ``out``'s final T;
-    ``last`` is implied by the masks and not read."""
+                           dout: torch.Tensor,
+                           dest: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3: :func:`raster_tiles_bwd_sorted_plain`'s
+    rows, row e moved to ``dest[e]``."""
+    rows = raster_tiles_bwd_sorted_plain(feats, tile_start, tile_end, gx,
+                                         max_chunks, out, last, dout)
+    dfeats = torch.zeros_like(rows)
+    dfeats[dest.to(torch.int64)] = rows
+    return dfeats
+
+
+def raster_tiles_bwd_sorted_plain(feats: torch.Tensor,
+                                  tile_start: torch.Tensor,
+                                  tile_end: torch.Tensor, gx: int,
+                                  max_chunks: int, out: torch.Tensor,
+                                  last: torch.Tensor,
+                                  dout: torch.Tensor) -> torch.Tensor:
+    """K3's arithmetic in the JAX formulation, [D, 10] rows in the entries'
+    (tile) order: a forward sweep for the transmittance entering each
+    chunk, then the chunks back to front, each with its log1p/cumsum
+    transmittance, the suffix sum ``S_g = sum_{h>g} w_h cdot_h`` by a
+    reversed cumsum plus the carry from the chunks behind, and the TPU
+    kernel's masks. Uses ``out``'s final T; ``last`` is implied by the
+    masks and not read."""
     del last
     num_tiles = tile_start.shape[0]
     dev = feats.device
@@ -493,37 +513,46 @@ def raster_tiles_bwd_plain(feats: torch.Tensor, tile_start: torch.Tensor,
             torch.einsum('tgp,tcp->tgc', w, dI)], dim=-1)  # [T, CS, 10]
         dfeats.index_put_((idx[valid],), grads[valid], accumulate=True)
         S = S + wc.sum(1)
-    return dfeats.T.contiguous()
+    return dfeats
 
 
 def raster_tiles_bwd(feats: torch.Tensor, tile_start: torch.Tensor,
                      tile_end: torch.Tensor, gx: int, max_chunks: int,
                      out: torch.Tensor, last: torch.Tensor,
-                     dout: torch.Tensor) -> torch.Tensor:
-    """K3. K1g's inputs and outputs (``out`` [T, 5, 256], ``last`` [T, 256])
-    and the gradients of ``out``, ``dout`` [T, 5, 256] -> [10, D] float32
-    gradients of ``feats``; entries no pixel composited get zeros."""
+                     dout: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
+    """K3. K1g's inputs and outputs (``out`` [T, 5, 256], ``last`` [T, 256]),
+    the gradients of ``out``, ``dout`` [T, 5, 256], and ``dest`` [D] int32,
+    a permutation of [0, D) -> [D, 10] float32: the gradient of entry e's
+    10 features (``feats[:, e]``) in row ``dest[e]``; entries no pixel
+    composited get zeros."""
     _check_args(feats, tile_start, tile_end, gx, max_chunks)
     num_tiles = tile_start.shape[0]
     for name, x, rows, dtype in (("out", out, NOUT, torch.float32),
                                  ("last", last, 0, torch.int32),
                                  ("dout", dout, NOUT, torch.float32)):
         _check_tile_rows(name, x, num_tiles, rows, dtype, feats.device)
+    d = feats.shape[1]
+    if dest.dtype != torch.int32 or tuple(dest.shape) != (d,):
+        raise ValueError(f"dest must be int32 [{d}], got {dest.dtype} "
+                         f"{tuple(dest.shape)}")
+    if dest.device != feats.device or not dest.is_contiguous():
+        raise ValueError(f"dest must be contiguous on {feats.device}")
     if feats.device.type == "cpu":
         return raster_tiles_bwd_plain(feats, tile_start, tile_end, gx,
-                                      max_chunks, out, last, dout)
-    dfeats = torch.zeros_like(feats)
+                                      max_chunks, out, last, dout, dest)
+    dfeats = torch.zeros((d, NFEAT), dtype=torch.float32, device=feats.device)
     if num_tiles == 0:
         return dfeats
     fn = _cuda.function(SOURCE_BWD, "gs_raster_tiles_bwd", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p])
-    err = fn(feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p])
+    err = fn(feats.data_ptr(), d, tile_start.data_ptr(),
              tile_end.data_ptr(), num_tiles, gx, max_chunks, out.data_ptr(),
-             last.data_ptr(), dout.data_ptr(), dfeats.data_ptr(),
-             feats.device.index, _cuda.stream_ptr(feats.device))
+             last.data_ptr(), dout.data_ptr(), dest.data_ptr(),
+             dfeats.data_ptr(), feats.device.index,
+             _cuda.stream_ptr(feats.device))
     _cuda.check(SOURCE_BWD, err, "raster_tiles_bwd")
     raster_tiles_bwd.launches += 1
     return dfeats
@@ -540,48 +569,42 @@ def max_chunks_for(max_per_tile: int) -> int:
     return max(-(-(max_per_tile + CS - 1) // CS), 1)
 
 
-class _RasterTiles(torch.autograd.Function):
-    """K1g forward, K3 backward (``rasterize_pallas.py::_raster_tiles``)."""
+class _RasterizeBinned(torch.autograd.Function):
+    """Binning with the packets carried through the tile sort, then K1g:
+    ``rasterize_pallas.py::_bin_with_payload`` and ``::_raster_tiles`` in
+    one function. The geometry is integer valued and passes no gradient.
+    The backward runs K3, which writes each sorted entry's gradient at the
+    entry's position before the tile sort, then K4, which sums each
+    Gaussian's run of them back to its packet. One function, because the
+    gradient of the sorted entries never exists in their sorted order,
+    the shape autograd would ask of it. The packets' gradient is zero
+    under capacity overflow, where the truncated entry stream no longer
+    lines up with the counts."""
 
     @staticmethod
-    def forward(ctx, feats, tile_start, tile_end, gx, max_chunks):
-        out, last = raster_tiles_fwd_save(feats, tile_start, tile_end, gx,
-                                          max_chunks)
-        ctx.save_for_backward(feats, tile_start, tile_end, out, last)
-        ctx.grid = (gx, max_chunks)
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        feats, tile_start, tile_end, out, last = ctx.saved_tensors
-        dfeats = raster_tiles_bwd(feats, tile_start, tile_end, *ctx.grid,
-                                  out, last, dout.contiguous())
-        return dfeats, None, None, None, None
-
-
-class _BinWithPayload(torch.autograd.Function):
-    """Binning with the packets carried through the tile sort
-    (``rasterize_pallas.py::_bin_with_payload``). The geometry is integer
-    valued and passes no gradient; the sorted packets' gradient folds back
-    to the packets through K4, and is zero under capacity overflow, where
-    the truncated entry stream no longer lines up with the counts."""
-
-    @staticmethod
-    def forward(ctx, packets, proj, width, height, capacity, exact_cull):
+    def forward(ctx, packets, proj, width, height, capacity, exact_cull,
+                max_chunks):
         bins, feats, plan = bin_gaussians_payload(
             proj, packets, width, height, TILE, TILE, capacity,
             exact_cull=exact_cull, fold_plan=True)
-        ctx.save_for_backward(plan.index, plan.offsets, bins.gauss_counts,
-                              bins.overflow)
+        gx, _ = tile_grid(width, height, TILE, TILE)
+        out, last = raster_tiles_fwd_save(feats, bins.tile_start,
+                                          bins.tile_end, gx, max_chunks)
+        ctx.save_for_backward(feats, bins.tile_start, bins.tile_end, out,
+                              last, *plan, bins.overflow)
+        ctx.grid = (gx, max_chunks)
         ctx.mark_non_differentiable(*bins)
-        return (*bins, feats)
+        return (*bins, out)
 
     @staticmethod
     def backward(ctx, *grads):
-        index, offsets, counts, overflow = ctx.saved_tensors
-        d = fold_rows(grads[-1].contiguous(), offsets, counts, index)
-        d_packets = torch.where(overflow, 0.0, d.T)
-        return d_packets, None, None, None, None, None
+        (feats, tile_start, tile_end, out, last, dest, offsets, counts, gid,
+         overflow) = ctx.saved_tensors
+        d_entries = raster_tiles_bwd(feats, tile_start, tile_end, *ctx.grid,
+                                     out, last, grads[-1].contiguous(), dest)
+        d = fold_rows(d_entries, offsets, counts, gid)
+        d_packets = torch.where(overflow, 0.0, d)
+        return d_packets, None, None, None, None, None, None
 
 
 def rasterize(proj: Projected, width: int, height: int, bg: torch.Tensor, *,
@@ -599,11 +622,10 @@ def rasterize(proj: Projected, width: int, height: int, bg: torch.Tensor, *,
     packets = pack_projected(proj)                       # [N, 10]
     if torch.is_grad_enabled() and packets.requires_grad:
         proj_sg = Projected(*[None if t is None else t.detach() for t in proj])
-        *fields, feats = _BinWithPayload.apply(packets, proj_sg, width, height,
-                                               dup_capacity, exact_cull)
+        *fields, out = _RasterizeBinned.apply(packets, proj_sg, width, height,
+                                              dup_capacity, exact_cull,
+                                              max_chunks)
         bins = TileBins(*fields)
-        out = _RasterTiles.apply(feats, bins.tile_start, bins.tile_end, gx,
-                                 max_chunks)
     else:
         bins, feats = bin_gaussians_payload(proj, packets, width, height,
                                             TILE, TILE, dup_capacity,

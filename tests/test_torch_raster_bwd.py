@@ -1,14 +1,18 @@
 """The raster backward K3 and the grad variant K1g of the forward.
 
-On the CPU: K3's plain version against the JAX package's Pallas VJP
+K3 writes entry e's 10 gradients as row ``dest[e]`` of a [D, 10] array
+(``dest`` a permutation: the render passes the tile sort's, each entry's
+position before the sort). On the CPU: K3's plain version, its rows moved
+back by ``dest`` and transposed, against the JAX package's Pallas VJP
 (``rasterize_pallas._raster_tiles`` in interpret mode) and against torch
 autograd of the plain forward, on hand-built tiles — a translucent case,
 an opaque case where pixels stop, and tiles that share 128-entry chunks —
 at the JAX package's gradient rule, 2e-4 * max per feature row
-(tests/test_golden.py:75-81). K1g's residual against a numpy walk of each
-pixel's entries. On a card (marker ``cuda``): K1g's image bitwise equal to
-K1's, its residual equal to the plain one, and K3 against its plain
-version and bitwise from run to run, on the hand-built tiles and on the
+(tests/test_golden.py:75-81); ``dest`` moves rows and changes no bit.
+K1g's residual against a numpy walk of each pixel's entries. On a card
+(marker ``cuda``): K1g's image bitwise equal to K1's, its residual equal
+to the plain one, and K3 with a random ``dest`` against its plain version
+and bitwise from run to run, on the hand-built tiles and on the
 adversarial scenes of test_torch_raster_cull.py."""
 import numpy as np
 import pytest
@@ -88,6 +92,17 @@ def port_inputs(f, ts, te, device="cpu"):
             torch.tensor(te, device=device), GX, MAX_CHUNKS)
 
 
+def random_dest(d, seed, device="cpu"):
+    """A seeded permutation of [0, d) for K3's ``dest``."""
+    return torch.tensor(np.random.default_rng(seed).permutation(d),
+                        dtype=torch.int32, device=device)
+
+
+def sorted_rows(got, dest):
+    """K3's [D, 10] output moved back to the entries' order, as [10, D]."""
+    return got[dest.to(torch.int64)].T
+
+
 def assert_grads_match(got, ref, what):
     for r in range(10):
         scale = max(float(np.abs(ref[r]).max()), 1e-6)
@@ -106,15 +121,38 @@ def test_bwd_plain_matches_jax_vjp_and_autograd(opaque):
     stopped = float((out[:, 4] < 2e-4).float().mean())
     assert (stopped > 0.2) == opaque, stopped
 
-    got = trast.raster_tiles_bwd(*args, out, last, torch.tensor(dout))
-    assert got.shape == (10, D)
-    assert float(got[:, 700:].abs().max()) == 0.0      # the padding tail
-    assert_grads_match(got.numpy(), jgrad, "plain vs Pallas VJP")
+    dest = random_dest(D, 7 + opaque)
+    got = trast.raster_tiles_bwd(*args, out, last, torch.tensor(dout), dest)
+    assert got.shape == (D, 10)
+    got = sorted_rows(got, dest).numpy()
+    assert float(np.abs(got[:, 700:]).max()) == 0.0    # the padding tail
+    assert_grads_match(got, jgrad, "plain vs Pallas VJP")
 
     feats = args[0].clone().requires_grad_(True)
     fwd = trast.raster_tiles_fwd_plain(feats, *args[1:])
     (ref,) = torch.autograd.grad((fwd * torch.tensor(dout)).sum(), feats)
-    assert_grads_match(got.numpy(), ref.numpy(), "plain vs autograd")
+    assert_grads_match(got, ref.numpy(), "plain vs autograd")
+
+
+def test_bwd_dest_only_moves_rows():
+    """With ``dest`` the identity K3's output is the [D, 10] rows in the
+    entries' order (the transposed [10, D] gradients of ``feats``),
+    bitwise; any other permutation moves those rows and changes no bit."""
+    f, ts, te, dout = hand_built(3, False)
+    args = port_inputs(f, ts, te)
+    out, last = trast.raster_tiles_fwd_save(*args)
+    d = torch.tensor(dout)
+    rows = trast.raster_tiles_bwd_sorted_plain(*args, out, last, d)
+    ident = torch.arange(D, dtype=torch.int32)
+    assert torch.equal(trast.raster_tiles_bwd(*args, out, last, d, ident),
+                       rows)
+    dest = random_dest(D, 9)
+    got = trast.raster_tiles_bwd(*args, out, last, d, dest)
+    assert torch.equal(got[dest.to(torch.int64)], rows)
+    with pytest.raises(ValueError):
+        trast.raster_tiles_bwd(*args, out, last, d, dest.to(torch.int64))
+    with pytest.raises(ValueError):
+        trast.raster_tiles_bwd(*args, out, last, d, dest[:-1])
 
 
 def numpy_last(f, ts, te):
@@ -193,11 +231,13 @@ def test_cuda_bwd_matches_plain(cuda_device, opaque):
     args = port_inputs(f, ts, te, cuda_device)
     out, last = trast.raster_tiles_fwd_save(*args)
     d = torch.tensor(dout, device=cuda_device)
-    got = trast.raster_tiles_bwd(*args, out, last, d)
+    dest = random_dest(D, 7 + opaque, cuda_device)
+    got = trast.raster_tiles_bwd(*args, out, last, d, dest)
     torch.cuda.synchronize()
-    ref = trast.raster_tiles_bwd_plain(*args, out, last, d)
-    assert_grads_match(got.cpu().numpy(), ref.cpu().numpy(), "K3 vs plain")
-    again = trast.raster_tiles_bwd(*args, out, last, d)
+    ref = trast.raster_tiles_bwd_plain(*args, out, last, d, dest)
+    assert_grads_match(got.T.cpu().numpy(), ref.T.cpu().numpy(),
+                       "K3 vs plain")
+    again = trast.raster_tiles_bwd(*args, out, last, d, dest)
     assert torch.equal(got, again)          # one writer per value
 
 
@@ -216,7 +256,9 @@ def test_cuda_adversarial_scenes(cuda_device, kind):
     assert float(diff.max()) < 2e-2
     assert float((diff > 1e-5).float().mean()) < 2e-3
     assert float((last != plain_last).float().mean()) < 2e-3
-    got = trast.raster_tiles_bwd(*args, out, last, d)
-    ref = trast.raster_tiles_bwd_plain(*args, out, last, d)
-    assert_grads_match(got.cpu().numpy(), ref.cpu().numpy(), f"K3 on {kind}")
-    assert torch.equal(got, trast.raster_tiles_bwd(*args, out, last, d))
+    dest = random_dest(args[0].shape[1], 11, cuda_device)
+    got = trast.raster_tiles_bwd(*args, out, last, d, dest)
+    ref = trast.raster_tiles_bwd_plain(*args, out, last, d, dest)
+    assert_grads_match(got.T.cpu().numpy(), ref.T.cpu().numpy(),
+                       f"K3 on {kind}")
+    assert torch.equal(got, trast.raster_tiles_bwd(*args, out, last, d, dest))
