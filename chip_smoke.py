@@ -50,7 +50,22 @@ Phases (each failure exits non-zero):
  9. [grad] one step's parameter gradients on a 20,000-gaussian 256x192
     scene through the kernels against the plain binned path on the card,
     under the gradient rule;
-10. a JSON line of the kernels' numbers, then the result line
+10. [trainer] the training driver at full width: a COLMAP dataset of the
+    bench scene (its 500,000 centres and colours in points3D.bin, 8 views
+    at 1920x1080 around the bench camera's axis, 3 units behind it, each
+    image the port's own K1 render of the scene) trained for 300 iterations
+    through gs_tpu_torch.apps.train.main (-r 1, --eval, two densifies, one
+    opacity reset, a --dup_capacity far below the frame's so the first
+    sync overflows, grows the buffer and replays its window); checks: losses
+    finite at every sync, the test PSNR up, a densify cloned or split,
+    one launch each of K1g, K2, K3 and K4 per iteration over a steady
+    window, the PLY and the checkpoint written, the checkpoint bitwise the
+    trained state, a --start_checkpoint resume, the render and metrics
+    CLIs' outputs; prints ms per iteration beside the bare step's, one
+    profiled iteration's device busy time, the densify and replay times;
+    then the 20,000-gaussian scene of [grad] trained twice, with an ample
+    and a too-small --dup_capacity, to the same state;
+11. a JSON line of the kernels' numbers, then the result line
     {"ok": true, "device": {...}}.
 
 It exits non-zero without a CUDA device, or when run outside the repository.
@@ -217,7 +232,8 @@ def bound_of(work_bytes, work_ops):
 def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
     """Phases 5-9: the training slice's kernels against their plain
     versions, the bench training steps and the gradient check. Returns the
-    K1g, K3 and K4 entries of the kernels line."""
+    K1g, K3 and K4 entries of the kernels line, the bare step's median ms
+    and the [grad] phase's 20,000-gaussian scene."""
     from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
                                      PipelineConfig, RasterConfig)
     from gs_tpu_torch.core.camera import make_camera, stack_cameras
@@ -548,7 +564,7 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
           f"{worst:.3e} (rule 2e-4)", flush=True)
     check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), "[grad] loss")
 
-    return [
+    return step_ms, mid, [
         {"name": "raster_tiles_fwd_save", "id": "K1g", "route": "cuda",
          "source": "gs_tpu_torch/csrc/rasterize_fwd.cu",
          "replaces": "gs_tpu/ops/rasterize_pallas.py:125",
@@ -568,6 +584,401 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
          "ms": k4_ms, "kernel_ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": k4_lib_ms},
     ]
+
+
+TRAINER_ITERS = 300
+TRAINER_DUP = 262_144          # far below the ~3 M entries a view needs
+STEADY = (251, 299)            # no densify, sync or eval in 252..299
+TRAINER_BACK = 3.0             # the views' distance behind the bench camera
+
+
+def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
+    """Phase 10: the training driver through its CLIs. Returns the kernel
+    launch counts of the training CLI's run."""
+    from gs_tpu_torch.apps import metrics as metrics_app
+    from gs_tpu_torch.apps import render as render_app
+    from gs_tpu_torch.apps import train as train_app
+    from gs_tpu_torch.apps.render import save_png
+    from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
+                                     PipelineConfig, RasterConfig)
+    from gs_tpu_torch.core.camera import focal2fov, make_camera
+    from gs_tpu_torch.core.sh import sh2rgb
+    from gs_tpu_torch.data import colmap
+    from gs_tpu_torch.data.camera_utils import LoadedCamera
+    from gs_tpu_torch.data.dataset_readers import CameraInfo
+    from gs_tpu_torch.ops.expand import expand_rows
+    from gs_tpu_torch.ops.fold import fold_rows
+    from gs_tpu_torch.ops.rasterize import (raster_tiles_bwd,
+                                            raster_tiles_fwd,
+                                            raster_tiles_fwd_save)
+    from gs_tpu_torch.render import render
+    from gs_tpu_torch.train import loop
+    from gs_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    counters = {"K2": expand_rows, "K1": raster_tiles_fwd,
+                "K1g": raster_tiles_fwd_save, "K3": raster_tiles_bwd,
+                "K4": fold_rows}
+
+    def counts():
+        return {k: c.launches for k, c in counters.items()}
+
+    def leaves(state):
+        return [t for x in state for t in (x if isinstance(x, tuple) else (x,))]
+
+    tmp = tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_")
+    root = os.path.join(tmp.name, "dataset")
+    model = os.path.join(tmp.name, "model")
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse)
+    os.makedirs(os.path.join(root, "images"))
+
+    # ------------------------------------------------------ the dataset
+    # camera centres on an ellipse around the bench camera's axis, each
+    # looking down +z as it does, TRAINER_BACK behind it: from the bench
+    # camera's own position the trainer's first render (create_from_pcd's
+    # scales, 3.3x the bench scene's) needs 17.2 M entries, past the
+    # binning's 2^24 limit with the trainer's 1.2x headroom; from 3 units
+    # back, 10.2-10.5 M. The extent (1.1 x the largest distance from the
+    # centres' mean, ~1.65) keeps the world-size prune to splats larger
+    # than ~0.17
+    fovx = math.radians(70.0)
+    focal = W / (2 * math.tan(fovx / 2))
+    fovy = focal2fov(focal, H)
+    centres = [np.array([1.5 * math.cos(2 * math.pi * i / 8),
+                         0.75 * math.sin(2 * math.pi * i / 8), -TRAINER_BACK])
+               for i in range(8)]
+    t0 = time.perf_counter()
+    extr = {}
+    with torch.no_grad():
+        for i, c in enumerate(centres):
+            cam = make_camera(np.eye(3), -c, fovx, fovy, W, H, device=dev)
+            out = render(cam, p0, torch.zeros(3, device=dev),
+                         active_sh_degree=3, alive=alive0,
+                         dup_capacity=1 << 23, max_per_tile=4096,
+                         exact_cull=True)
+            check(not bool(out.overflow), f"[trainer] view {i} overflow")
+            name = f"view_{i:02d}.png"
+            save_png(os.path.join(root, "images", name),
+                     out.image.cpu().numpy())
+            extr[i + 1] = colmap.Extrinsics(
+                i + 1, np.array([1.0, 0.0, 0.0, 0.0]), -c, 1, name,
+                np.zeros((0, 2)), np.zeros((0,), np.int64))
+            del out
+    colmap.write_intrinsics_binary(
+        {1: colmap.Intrinsics(1, "PINHOLE", W, H,
+                              np.array([focal, focal, W / 2, H / 2]))},
+        os.path.join(sparse, "cameras.bin"))
+    colmap.write_extrinsics_binary(extr, os.path.join(sparse, "images.bin"))
+    images_s = time.perf_counter() - t0
+    rgb = np.clip(np.round(cols * 255.0), 0, 255).astype(np.uint8)
+    bin_path = os.path.join(sparse, "points3D.bin")
+    t0 = time.perf_counter()
+    colmap.write_points3D_binary(pts, rgb, np.zeros((len(pts), 1)), bin_path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xyz_r, rgb_r, _ = colmap.read_points3D_binary(bin_path)
+    read_s = time.perf_counter() - t0
+    check(np.array_equal(xyz_r, pts) and np.array_equal(rgb_r, rgb),
+          "points3D.bin round trip")
+    print(f"[trainer] dataset: 8 views {W}x{H} rendered by K1 and written "
+          f"as PNG in {images_s:.2f} s; points3D.bin of {len(pts)} points "
+          f"written in {write_s:.2f} s and read back by the pure-Python "
+          f"record loop (colmap.read_points3D_binary) in {read_s:.2f} s",
+          flush=True)
+
+    # ------------------------------------------- train through the CLI
+    T = loop.Trainer
+    names = ("step", "_densify", "_maybe_grow", "_replay_window",
+             "sync_metrics", "evaluate")
+    orig = {k: getattr(T, k) for k in names}
+    rec = dict(steady={}, densify=[], grow=[], replay=[], syncs=[], evals=[])
+
+    def step(self, sync=False):
+        if self.iteration == STEADY[0]:
+            torch.cuda.synchronize()
+            rec["steady"].update(t0=time.perf_counter(), c0=counts())
+        out = orig["step"](self, sync)
+        if self.iteration == STEADY[1]:
+            torch.cuda.synchronize()
+            rec["steady"].update(t1=time.perf_counter(), c1=counts())
+        return out
+
+    def densify(self, state, use_size_threshold):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        new, info = orig["_densify"](self, state, use_size_threshold)
+        torch.cuda.synchronize()
+        rec["densify"].append(dict(
+            iteration=self.iteration, replay=self._replaying,
+            ms=1e3 * (time.perf_counter() - t), capacity=state.capacity,
+            use_size=bool(use_size_threshold),
+            **{k: int(v) for k, v in info._asdict().items()}))
+        return new, info
+
+    def maybe_grow(self, *a, **kw):
+        orig["_maybe_grow"](self, *a, **kw)
+        rec["grow"].append((self.iteration, self.state.capacity))
+
+    def replay(self):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start = self._snapshot["iteration"]
+        out = orig["_replay_window"](self)
+        torch.cuda.synchronize()
+        rec["replay"].append(dict(window=(start, self.iteration),
+                                  ms=1e3 * (time.perf_counter() - t),
+                                  dup_capacity=self.raster.dup_capacity))
+        return out
+
+    def sync(self):
+        orig["sync_metrics"](self)
+        if self._last_metrics is not None and (
+                not rec["syncs"] or rec["syncs"][-1][0] != self.iteration):
+            m = self._last_metrics
+            rec["syncs"].append((self.iteration, float(m.loss),
+                                 int(m.num_duplicates)))
+
+    def evaluate(self, cams, max_views=None):
+        out = orig["evaluate"](self, cams, max_views)
+        if cams is self.test_cams:
+            rec["evals"].append((self.iteration, out["psnr"]))
+        return out
+
+    for k, f in zip(names, (step, densify, maybe_grow, replay, sync,
+                            evaluate)):
+        setattr(T, k, f)
+    args = ["-s", root, "-m", model, "-r", "1", "--eval",
+            "--iterations", str(TRAINER_ITERS),
+            "--densify_from_iter", "50", "--densification_interval", "50",
+            "--densify_until_iter", "160", "--opacity_reset_interval", "100",
+            "--test_iterations", "10", str(TRAINER_ITERS),
+            "--save_iterations", str(TRAINER_ITERS),
+            "--checkpoint_iterations", str(TRAINER_ITERS),
+            "--dup_capacity", str(TRAINER_DUP), "--disable_viewer",
+            "--data_device", dev.type]
+    log = io.StringIO()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            trainer = train_app.main(args)
+        torch.cuda.synchronize()
+    finally:
+        for k, f in orig.items():
+            setattr(T, k, f)
+        print("\n".join(ln for ln in log.getvalue().splitlines()
+                        if any(w in ln for w in (
+                            "overflow", "capacity", "Evaluating",
+                            "Converting", "Training complete", "WARNING"))),
+              flush=True)
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    print(f"[trainer] {TRAINER_ITERS} iterations through "
+          f"gs_tpu_torch.apps.train.main in {run_s:.2f} s (dataset load, "
+          f"replays and evals included); launches {launches}; "
+          f"dup_capacity {TRAINER_DUP} -> {trainer.raster.dup_capacity}; "
+          f"{int(trainer.state.num_alive)} alive of {trainer.state.capacity}",
+          flush=True)
+    for d in rec["densify"]:
+        print(f"[trainer] densify at {d['iteration']}"
+              f"{' (replayed)' if d['replay'] else ''}: DensifyInfo("
+              f"n_cloned={d['n_cloned']}, n_split={d['n_split']}, "
+              f"n_pruned={d['n_pruned']}, n_dropped={d['n_dropped']}, "
+              f"n_alive={d['n_alive']}) of capacity {d['capacity']}, "
+              f"size prune {d['use_size']}; {d['ms']:.3f} ms", flush=True)
+    print(f"[trainer] capacity after each densify: {rec['grow']}", flush=True)
+    for r in rec["replay"]:
+        n = r["window"][1] - r["window"][0]
+        print(f"[trainer] replayed iterations {r['window'][0] + 1}.."
+              f"{r['window'][1]} ({n}) with dup_capacity "
+              f"{r['dup_capacity']} in {r['ms']:.2f} ms "
+              f"({r['ms'] / max(n, 1):.3f} ms per iteration)", flush=True)
+    print(f"[trainer] loss at each sync (the window's largest entry "
+          f"count): " + ", ".join(f"{i}: {x:.6f} ({d})"
+                                  for i, x, d in rec["syncs"]), flush=True)
+    print(f"[trainer] test PSNR: " + ", ".join(
+        f"{i}: {x:.4f}" for i, x in rec["evals"]), flush=True)
+    st = rec["steady"]
+    n_steady = STEADY[1] - STEADY[0]
+    steady_ms = 1e3 * (st["t1"] - st["t0"]) / n_steady
+    per_it = {k: (st["c1"][k] - st["c0"][k]) / n_steady for k in counters}
+    check(all(math.isfinite(x) for _, x, _ in rec["syncs"]) and rec["syncs"],
+          "[trainer] non-finite loss at a sync")
+    check(len(rec["evals"]) == 2 and rec["evals"][1][1] > rec["evals"][0][1],
+          f"[trainer] test PSNR did not rise: {rec['evals']}")
+    check(any(d["n_cloned"] + d["n_split"] > 0 for d in rec["densify"]),
+          "[trainer] densify neither cloned nor split")
+    check(rec["replay"] and trainer.raster.dup_capacity > TRAINER_DUP,
+          "[trainer] no overflow replay")
+    check(trainer.overflow_exhausted == 0, "[trainer] replay exhausted")
+    check(all(per_it[k] == 1 for k in ("K1g", "K2", "K3", "K4"))
+          and per_it["K1"] == 0, f"[trainer] launches per iteration {per_it}")
+
+    # the bare step at the trainer's own shapes, and one profiled iteration
+    bare = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.train_step(trainer.state, 0, trainer.images[0], None, None,
+                           None, 0.0, 280, generator=trainer.generator)
+        torch.cuda.synchronize()
+        bare.append(1e3 * (time.perf_counter() - t))
+    own_bare_ms = float(np.median(bare[2:]))
+    print(f"[trainer] ms per iteration over iterations {STEADY[0] + 1}.."
+          f"{STEADY[1]} (host clock, synchronised at both ends): "
+          f"{steady_ms:.3f}; launches per iteration {per_it}; the bare step "
+          f"at the trainer's capacity {trainer.state.capacity}: "
+          f"{own_bare_ms:.3f} ms (median of 5), so the trainer adds "
+          f"{steady_ms - own_bare_ms:.3f} ms per iteration; [train]'s bare "
+          f"step at 510976 slots: {bare_step_ms:.3f} ms "
+          f"(difference {steady_ms - bare_step_ms:.3f} ms)", flush=True)
+
+    # the checkpoint is the trained state, bitwise, and survives a round trip
+    ckpt = os.path.join(model, f"chkpnt{TRAINER_ITERS}.pth")
+    ply = os.path.join(model, "point_cloud", f"iteration_{TRAINER_ITERS}",
+                       "point_cloud.ply")
+    check(os.path.isfile(ply) and os.path.isfile(ckpt),
+          "[trainer] PLY snapshot or checkpoint missing")
+    state, it, slrs = load_checkpoint(ckpt, device=dev)
+    check(it == TRAINER_ITERS and all(
+        torch.equal(a, b) for a, b in zip(leaves(state),
+                                          leaves(trainer.state))),
+          "[trainer] checkpoint != trained state")
+    again_path = os.path.join(tmp.name, "again.pth")
+    save_checkpoint(again_path, state, it, slrs)
+    again, _, _ = load_checkpoint(again_path, device=dev)
+    check(all(torch.equal(a, b) for a, b in zip(leaves(state), leaves(again))),
+          "[trainer] checkpoint round trip")
+    del state, again
+
+    from torch.profiler import ProfilerActivity, profile
+    busy = []
+    for _ in range(PROFILED_STEPS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.step()
+            torch.cuda.synchronize()
+        busy.append(sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+                    / 1e3)
+    busy_ms = float(np.median(busy))
+    events = prof.key_averages()
+    n_launch = sum(e.count for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"[trainer profile] one trainer iteration: device busy "
+          f"{busy_ms:.4f} ms, the median of {PROFILED_STEPS} profiled one "
+          f"by one (" + ", ".join(f"{x:.4f}" for x in busy) + f"), in "
+          f"{n_launch} kernel launches; against the {steady_ms:.3f} ms "
+          f"iteration the device is idle {1 - busy_ms / steady_ms:.1%}; the "
+          f"table is the last iteration's", flush=True)
+    print(events.table(sort_by="cuda_time_total", row_limit=15,
+                       max_name_column_width=60), flush=True)
+    dup = trainer.raster.dup_capacity
+    del trainer
+
+    # resume, then the render and metrics CLIs
+    model2 = os.path.join(tmp.name, "resumed")
+    with contextlib.redirect_stdout(io.StringIO()):
+        resumed = train_app.main([
+            "-s", root, "-m", model2, "-r", "1", "--eval",
+            "--iterations", str(TRAINER_ITERS + 5),
+            "--start_checkpoint", ckpt, "--densify_until_iter", "160",
+            "--opacity_reset_interval", "100",
+            "--test_iterations", str(TRAINER_ITERS + 5),
+            "--save_iterations", str(TRAINER_ITERS + 5),
+            "--dup_capacity", str(dup), "--disable_viewer", "--quiet",
+            "--data_device", dev.type])
+    check(resumed.iteration == TRAINER_ITERS + 5 and os.path.isfile(
+        os.path.join(model2, "point_cloud",
+                     f"iteration_{TRAINER_ITERS + 5}", "point_cloud.ply")),
+          "[trainer] resume")
+    print(f"[trainer] resumed from chkpnt{TRAINER_ITERS}.pth for 5 "
+          f"iterations: loss {resumed.ema_loss:.6f}, Adam step "
+          f"{int(resumed.state.step)}", flush=True)
+    del resumed
+    for c in counters.values():
+        c.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        render_app.main(["-m", model, "--skip_train", "--dup_capacity",
+                         str(dup), "--max_per_tile", "4096"])
+    render_launches = counts()
+    out_dir = os.path.join(model, "test", f"ours_{TRAINER_ITERS}")
+    outs = {k: sorted(os.listdir(os.path.join(out_dir, k)))
+            for k in ("renders", "gt")}
+    check(outs["renders"] == outs["gt"] == ["00000.png"],
+          f"[trainer] render CLI wrote {outs}")
+    check(render_launches["K2"] == render_launches["K1"] == 1,
+          f"[trainer] render CLI launches {render_launches}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        metrics_app.main(["-m", model, "--no_lpips", "--data_device",
+                          dev.type])
+    with open(os.path.join(model, "results.json")) as f:
+        results = json.load(f)[f"ours_{TRAINER_ITERS}"]
+    check(results["PSNR"] > 0, f"[trainer] metrics {results}")
+    print(f"[trainer] render CLI: test view {outs['renders']}, launches "
+          f"{render_launches}; metrics CLI: {results}", flush=True)
+
+    # ------------------- overflow replay leaves the state of no overflow
+    n = mid.capacity
+    mfovx = math.radians(60)
+    mfovy = 2 * math.atan(math.tan(mfovx / 2) * 192 / 256)
+    views = []
+    with torch.no_grad():
+        for i in range(4):
+            c = np.array([0.3 * math.cos(math.pi * i / 2),
+                          0.2 * math.sin(math.pi * i / 2), 0.0])
+            cam = make_camera(np.eye(3), -c, mfovx, mfovy, 256, 192,
+                              device=dev)
+            img = render(cam, mid, torch.zeros(3, device=dev),
+                         active_sh_degree=3, dup_capacity=1 << 20,
+                         max_per_tile=4096, exact_cull=True).image
+            views.append(LoadedCamera(
+                camera=cam, info=CameraInfo(
+                    uid=i, R=np.eye(3), T=-c, fovx=mfovx, fovy=mfovy,
+                    image_path="", image_name=f"v{i}", width=256,
+                    height=192),
+                image=img.clamp(0, 1).cpu().numpy(),
+                alpha_mask=np.ones((1, 192, 256), np.float32), invdepth=None,
+                depth_mask=None, depth_reliable=False))
+    pcd = (mid.xyz.cpu().numpy(),
+           sh2rgb(mid.sh_dc[:, 0]).clamp(0, 1).cpu().numpy(),
+           np.zeros((n, 3), np.float32))
+    runs = []
+    for dup_cap in (1 << 20, 8192):
+        tr = loop.Trainer(
+            views, pcd, spatial_lr_scale=1.0,
+            model_cfg=ModelConfig(sh_degree=3, data_device=dev.type),
+            opt=OptimizationConfig(
+                iterations=30, position_lr_max_steps=30, densify_from_iter=5,
+                densification_interval=10, densify_until_iter=25,
+                opacity_reset_interval=1000),
+            pipe=PipelineConfig(),
+            raster=RasterConfig(dup_capacity=dup_cap, max_per_tile=4096),
+            seed=7)
+        tr.sync_every = 10
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr.train(iterations=30)
+        runs.append(tr)
+    ctl, ovf = runs
+    check(ctl.raster.dup_capacity == 1 << 20 and ovf.raster.dup_capacity > 8192,
+          "[trainer replay] the small buffer never overflowed")
+    check(torch.equal(ctl.state.alive, ovf.state.alive),
+          "[trainer replay] alive masks differ")
+    worst = 0.0
+    for name, a, b in zip(ctl.state.params._fields, ovf.state.params,
+                          ctl.state.params):
+        ratio = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        worst = max(worst, ratio)
+        check(ratio <= 2e-4, f"[trainer replay] {name}: {ratio} > 2e-4")
+    print(f"[trainer replay] 20000 gaussians, 4 views 256x192, 30 "
+          f"iterations: dup_capacity 8192 grew to {ovf.raster.dup_capacity} "
+          f"and replayed; {int(ctl.state.num_alive)} alive in both, equal "
+          f"masks; worst parameter leaf max |diff| / max |ample| {worst:.3e} "
+          f"(rule 2e-4)", flush=True)
+    del ctl, ovf, runs, views
+    tmp.cleanup()
+    return launches
 
 
 def main() -> int:
@@ -897,8 +1308,10 @@ def main() -> int:
                        max_name_column_width=60), flush=True)
     tmp.cleanup()
 
-    kernels_train = train_phases(torch, dev, small, scam, p0, alive0,
-                                 bench_camera)
+    bare_step_ms, mid, kernels_train = train_phases(
+        torch, dev, small, scam, p0, alive0, bench_camera)
+    trainer_launches = trainer_phase(torch, dev, pts, cols, p0, alive0,
+                                     bare_step_ms, mid)
 
     # --------------------------------------------------------------- 10
     kernels = [
@@ -919,6 +1332,8 @@ def main() -> int:
          "bound_by": "bytes" if k1_bound_b >= k1_bound_o else "operations",
          "library_ms": None},
     ] + kernels_train
+    for k in kernels:
+        k["trainer_launches"] = trainer_launches[k["id"]]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,6 +8,8 @@ convention (``--source_path/-s`` etc., ref: arguments/__init__.py:49-63), and
 ``get_combined_args`` merges CLI overrides on top of the training-time config
 persisted in the model dir (ref: arguments/__init__.py:95-115 — we read the
 JSON config first and fall back to parsing the reference-style ``cfg_args``).
+``resolve_data_device`` turns ``ModelConfig.data_device`` into the torch
+device every CLI runs on.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import json
 import os
 import sys
 from typing import Optional
+
+import torch
 
 from ..config import (ModelConfig, OptimizationConfig, PipelineConfig,
                       RasterConfig, from_dict)
@@ -30,6 +34,14 @@ SHORTHANDS = {
     "resolution": "r",
     "white_background": "w",
 }
+
+
+def resolve_data_device(name: str) -> torch.device:
+    """The torch device of ``ModelConfig.data_device``. ``"tpu"``, the JAX
+    package's name for its accelerator (its default, stored in the
+    ``config.json``/``cfg_args`` of every model it trains), is read as the
+    port's accelerator, ``cuda``; any name torch does not know raises."""
+    return torch.device("cuda" if name == "tpu" else name)
 
 
 def add_dataclass_args(parser: argparse.ArgumentParser, cls, *,

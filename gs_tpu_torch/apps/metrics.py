@@ -1,0 +1,87 @@
+"""Evaluation CLI — port of ``gs_tpu/apps/metrics.py`` (ref: metrics.py:24-103).
+
+Usage: ``python -m gs_tpu_torch.apps.metrics -m <model_dir> [...] [--data_device cuda]``
+
+Walks ``<model>/test/ours_<it>/{renders,gt}``, computes SSIM and PSNR on
+``--data_device`` (``cuda`` by default) and writes ``results.json`` +
+``per_view.json``. LPIPS is not ported yet (``ROADMAP.md`` queue 1 item 8):
+the CLI says so and reports SSIM/PSNR, as the JAX package does when its
+LPIPS weights are missing.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+import torch
+
+from ..ops.losses import psnr as psnr_fn
+from ..ops.ssim import ssim as ssim_fn
+from .args import resolve_data_device
+
+
+def read_images(renders_dir: str, gt_dir: str):
+    """ref: metrics.py:24-34 (readImages)."""
+    from PIL import Image
+    renders, gts, names = [], [], []
+    for fname in sorted(os.listdir(renders_dir)):
+        with Image.open(os.path.join(renders_dir, fname)) as r:
+            renders.append(np.asarray(r.convert("RGB"), np.float32) / 255.0)
+        with Image.open(os.path.join(gt_dir, fname)) as g:
+            gts.append(np.asarray(g.convert("RGB"), np.float32) / 255.0)
+        names.append(fname)
+    return renders, gts, names
+
+
+@torch.no_grad()
+def evaluate(model_paths: list[str], use_lpips: bool = True, device="cuda"):
+    """ref: metrics.py:36-93 (evaluate)."""
+    if use_lpips:
+        print("LPIPS unavailable (not ported yet); reporting SSIM/PSNR only")
+    full_dict, per_view_dict = {}, {}
+    for scene_dir in model_paths:
+        print("Scene:", scene_dir)
+        full_dict[scene_dir] = {}
+        per_view_dict[scene_dir] = {}
+        test_dir = os.path.join(scene_dir, "test")
+        for method in sorted(os.listdir(test_dir)):
+            print("Method:", method)
+            method_dir = os.path.join(test_dir, method)
+            renders, gts, names = read_images(
+                os.path.join(method_dir, "renders"),
+                os.path.join(method_dir, "gt"))
+            ssims, psnrs = [], []
+            for r, g in zip(renders, gts):
+                rc = torch.from_numpy(r.transpose(2, 0, 1).copy()).to(device)
+                gc = torch.from_numpy(g.transpose(2, 0, 1).copy()).to(device)
+                ssims.append(float(ssim_fn(rc, gc)))
+                psnrs.append(float(psnr_fn(rc[None], gc[None])[0, 0]))
+            print(f"  SSIM : {np.mean(ssims):>12.7f}")
+            print(f"  PSNR : {np.mean(psnrs):>12.7f}")
+            full_dict[scene_dir][method] = {"SSIM": float(np.mean(ssims)),
+                                            "PSNR": float(np.mean(psnrs))}
+            per_view_dict[scene_dir][method] = {
+                "SSIM": dict(zip(names, map(float, ssims))),
+                "PSNR": dict(zip(names, map(float, psnrs)))}
+        with open(os.path.join(scene_dir, "results.json"), "w") as f:
+            json.dump(full_dict[scene_dir], f, indent=True)
+        with open(os.path.join(scene_dir, "per_view.json"), "w") as f:
+            json.dump(per_view_dict[scene_dir], f, indent=True)
+    return full_dict
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Metrics script parameters")
+    parser.add_argument("--model_paths", "-m", required=True, nargs="+",
+                        type=str)
+    parser.add_argument("--no_lpips", action="store_true")
+    parser.add_argument("--data_device", default="cuda", type=str)
+    args = parser.parse_args(argv)
+    evaluate(args.model_paths, use_lpips=not args.no_lpips,
+             device=resolve_data_device(args.data_device))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,255 @@
+"""Offline training CLI — port of ``gs_tpu/apps/train.py``, the reference
+``train.py`` (ref: train.py:43-273).
+
+Usage: ``python -m gs_tpu_torch.apps.train -s <dataset> [-m <model_dir>] [...]``
+
+Dataset load, the 30k-iteration schedule with densify/prune, periodic test
+PSNR reports, PLY saves at --save_iterations, checkpoints at
+--checkpoint_iterations (``chkpnt{i}.pth``), resume via --start_checkpoint
+or --resume, TensorBoard scalars when ``torch.utils.tensorboard`` imports,
+and a ``torch.profiler`` trace of warm iterations with --profile. The model
+dir has the JAX package's layout (``cfg_args``, ``config.json``,
+``cameras.json``, ``input.ply``, ``point_cloud/iteration_N/``).
+
+Training runs on ``--data_device`` (``cuda`` by default), where the training
+images live. Step mode is the default; --block_scan runs schedule-aligned
+blocks with one sync each. Not ported yet: the network viewer (a run
+without --disable_viewer says so and trains on) and several devices
+(--mesh above 1 and --multihost raise).
+"""
+from __future__ import annotations
+
+import glob
+import os
+import random
+import re
+import time
+import uuid
+
+import torch
+
+from ..config import (ModelConfig, OptimizationConfig, PipelineConfig,
+                      RasterConfig, save_config)
+from ..core.gaussians import get_opacity
+from ..data.scene import Scene
+from ..train.checkpoint import load_checkpoint, save_checkpoint
+from ..train.loop import Trainer
+from .args import extract_dataclass, make_parser, resolve_data_device
+
+MULTI_DEVICE = "ROADMAP.md queue 1 item 9 (multi-GPU) is not ported yet"
+
+
+def prepare_output_dir(model_cfg: ModelConfig) -> str:
+    """ref: train.py:185-205 (prepare_output_and_logger)."""
+    path = model_cfg.model_path
+    if not path:
+        unique = os.getenv("OAR_JOB_ID") or str(uuid.uuid4())
+        path = os.path.join("./output/", unique[:10])
+    print(f"Output folder: {path}")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def main(argv=None):
+    parser = make_parser("Training script parameters")
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=6009)
+    parser.add_argument("--disable_viewer", action="store_true")
+    parser.add_argument("--test_iterations", nargs="+", type=int,
+                        default=[7_000, 30_000])
+    parser.add_argument("--save_iterations", nargs="+", type=int,
+                        default=[7_000, 30_000])
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
+                        default=[])
+    parser.add_argument("--checkpoint_every", type=int, default=0,
+                        help="periodic checkpoint interval (recovery story: "
+                             "crash -> --resume restarts from the latest)")
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the newest chkpnt*.pth in the "
+                             "model dir, if any")
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--detect_anomaly", action="store_true")
+    parser.add_argument("--block_scan", action="store_true",
+                        help="run schedule-aligned blocks of steps with one "
+                             "sync each")
+    parser.add_argument("--no_block_scan", action="store_true")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--profile", type=str, default="",
+                        help="directory for a torch.profiler trace (Chrome "
+                             "trace JSON) of --profile_steps iterations, "
+                             "started once training is warm")
+    parser.add_argument("--profile_steps", type=int, default=50)
+    parser.add_argument("--initial_capacity", type=int, default=0,
+                        help="starting gaussian capacity (0 = auto)")
+    parser.add_argument("--mesh", type=str, default="0",
+                        help="0/1 = one device; more is not ported yet")
+    parser.add_argument("--multihost", action="store_true",
+                        help="not ported yet")
+    args = parser.parse_args(argv)
+
+    if args.mesh not in ("", "0", "1"):
+        raise NotImplementedError(f"--mesh {args.mesh}: {MULTI_DEVICE}")
+    if args.multihost:
+        raise NotImplementedError(f"--multihost: {MULTI_DEVICE}")
+    if args.detect_anomaly:
+        torch.autograd.set_detect_anomaly(True)   # ref: train.py:253,269
+
+    model_cfg = extract_dataclass(ModelConfig, args)
+    model_cfg.data_device = str(resolve_data_device(model_cfg.data_device))
+    opt = extract_dataclass(OptimizationConfig, args)
+    pipe = extract_dataclass(PipelineConfig, args)
+    raster = extract_dataclass(RasterConfig, args)
+    args.save_iterations.append(opt.iterations)
+
+    model_cfg.model_path = prepare_output_dir(model_cfg)
+    save_config(model_cfg.model_path, model_cfg, pipe, opt)
+
+    tb_writer = None
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+        tb_writer = SummaryWriter(model_cfg.model_path)
+    except ImportError:
+        print("Tensorboard not available: not logging progress")
+
+    # the Scene's camera shuffle uses Python's global RNG
+    random.seed(args.seed)
+
+    print(f"Optimizing {model_cfg.model_path}")
+    scene = Scene(model_cfg.source_path, model_cfg.model_path,
+                  images=model_cfg.images, depths=model_cfg.depths,
+                  resolution=model_cfg.resolution,
+                  white_background=model_cfg.white_background,
+                  eval_split=model_cfg.eval,
+                  train_test_exp=model_cfg.train_test_exp,
+                  device=model_cfg.data_device)
+
+    start_state, start_iter = None, 0
+    ckpt_path = args.start_checkpoint
+    if args.resume and not ckpt_path:
+        cands = glob.glob(os.path.join(model_cfg.model_path, "chkpnt*.pth"))
+        if cands:
+            ckpt_path = max(cands, key=lambda p: int(
+                re.search(r"chkpnt(\d+)", p).group(1)))
+    if ckpt_path:
+        start_state, start_iter, _ = load_checkpoint(
+            ckpt_path, device=model_cfg.data_device)
+        print(f"Resumed from {ckpt_path} at iteration {start_iter}")
+
+    trainer = Trainer(
+        scene.get_train_cameras(), scene.point_cloud,
+        spatial_lr_scale=scene.cameras_extent,
+        model_cfg=model_cfg, opt=opt, pipe=pipe, raster=raster,
+        test_cams=scene.get_test_cameras(),
+        start_state=start_state, start_iteration=start_iter, seed=args.seed,
+        initial_capacity=args.initial_capacity or None)
+
+    if not args.disable_viewer:
+        print(f"Viewer server unavailable: the network viewer is not ported "
+              f"yet (ROADMAP.md queue 1 item 5); training without "
+              f"{args.ip}:{args.port}")
+
+    save_at = set(args.save_iterations)
+    ckpt_at = set(args.checkpoint_iterations)
+    t_start = time.perf_counter()
+    last_log = [t_start, start_iter]
+
+    # a torch.profiler trace over a warm window of the run, so it shows
+    # steady-state steps and not the first kernel build
+    prof = {"profiler": None, "start": None}
+
+    def stop_profile():
+        prof["profiler"].stop()
+        path = os.path.join(args.profile, "trace.json")
+        prof["profiler"].export_chrome_trace(path)
+        prof["profiler"] = None
+        print(f"[profile] trace written to {path}")
+
+    def profile_tick(i):
+        if not args.profile:
+            return
+        if prof["profiler"] is None and prof["start"] is None \
+                and i >= start_iter + 2:
+            os.makedirs(args.profile, exist_ok=True)
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.device(model_cfg.data_device).type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof["profiler"] = torch.profiler.profile(activities=acts)
+            prof["profiler"].start()
+            prof["start"] = i
+            print(f"[profile] tracing {args.profile_steps} iterations "
+                  f"to {args.profile}")
+        elif prof["profiler"] is not None \
+                and i >= prof["start"] + args.profile_steps:
+            stop_profile()
+
+    def on_step(i, metrics, tr):
+        profile_tick(i)
+        now = time.perf_counter()
+        if tb_writer is not None and i % 10 == 0:
+            tb_writer.add_scalar("train_loss_patches/total_loss",
+                                 float(metrics.loss), i)
+            tb_writer.add_scalar("train_loss_patches/l1_loss",
+                                 float(metrics.l1), i)
+            tb_writer.add_scalar("total_points", int(tr.state.num_alive), i)
+            if tr.overflow_exhausted:
+                tb_writer.add_scalar("overflow_replay_exhausted",
+                                     tr.overflow_exhausted, i)
+        if not args.quiet and i % 100 == 0:
+            its = (i - last_log[1]) / max(now - last_log[0], 1e-9)
+            last_log[0], last_log[1] = now, i
+            print(f"[{i}/{opt.iterations}] loss={tr.ema_loss:.5f} "
+                  f"pts={int(tr.state.num_alive)} {its:.2f} it/s",
+                  flush=True)
+        periodic = (args.checkpoint_every > 0 and
+                    i % args.checkpoint_every == 0 and i != start_iter)
+        if i in save_at or i in ckpt_at or periodic:
+            tr.sync_metrics()   # replay any overflow before saving
+        if i in save_at:
+            print(f"\n[ITER {i}] Saving Gaussians")
+            scene.save(i, tr.state.params, tr.state.alive,
+                       exposure=tr.state.exposure
+                       if model_cfg.train_test_exp else None)
+        if i in ckpt_at or periodic:
+            print(f"\n[ITER {i}] Saving Checkpoint")
+            save_checkpoint(os.path.join(model_cfg.model_path,
+                                         f"chkpnt{i}.pth"),
+                            tr.state, i, tr.spatial_lr_scale)
+
+    def on_test(i, report, tr):
+        for split, r in report.items():
+            if not r:
+                continue
+            print(f"\n[ITER {i}] Evaluating {split}: L1 {r['l1']:.4f} "
+                  f"PSNR {r['psnr']:.2f}")
+            if tb_writer is not None:
+                tb_writer.add_scalar(f"{split}/loss_viewpoint - l1_loss",
+                                     r["l1"], i)
+                tb_writer.add_scalar(f"{split}/loss_viewpoint - psnr",
+                                     r["psnr"], i)
+        if tb_writer is not None:
+            # opacity histogram + total points (ref: train.py:239-241)
+            alive = tr.state.alive
+            op = get_opacity(tr.state.params)[alive]
+            tb_writer.add_histogram("scene/opacity_histogram",
+                                    op.cpu().numpy(), i)
+            tb_writer.add_scalar("total_points", int(alive.sum()), i)
+
+    boundaries = set(save_at) | set(ckpt_at)
+    if args.checkpoint_every > 0:
+        boundaries |= set(range(args.checkpoint_every, opt.iterations + 1,
+                                args.checkpoint_every))
+    elapsed = trainer.train(test_iterations=set(args.test_iterations),
+                            on_step=on_step, on_test=on_test, log_every=1,
+                            block_scan=args.block_scan and not args.no_block_scan,
+                            boundary_iterations=boundaries)
+    print(f"\nTraining complete ({elapsed:.1f}s).")
+    if prof["profiler"] is not None:   # the run ended inside the window
+        stop_profile()
+    if tb_writer is not None:
+        tb_writer.close()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

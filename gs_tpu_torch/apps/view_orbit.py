@@ -5,7 +5,8 @@ without needing the dataset.
 
 Usage: ``python -m gs_tpu_torch.apps.view_orbit -m <model_dir> [--frames 120]``
 
-The device is ``--data_device`` (``cuda`` by default). A frame whose
+The device is ``--data_device`` (``cuda`` by default; a stored ``tpu``, the
+JAX package's default, reads as ``cuda``). A frame whose
 entries did not fit ``--dup_capacity`` / ``--max_per_tile`` is reported on
 stdout.
 """
@@ -23,7 +24,8 @@ from ..config import ModelConfig, RasterConfig
 from ..core.camera import focal2fov, make_camera
 from ..data.ply import load_gaussian_ply, search_max_iteration
 from ..render import raster_lever_kwargs, render
-from .args import extract_dataclass, get_combined_args, make_parser
+from .args import (extract_dataclass, get_combined_args, make_parser,
+                   resolve_data_device)
 from .render import params_from_ply, save_png
 
 
@@ -68,7 +70,7 @@ def main(argv=None):
 
     model_cfg = extract_dataclass(ModelConfig, args)
     raster = extract_dataclass(RasterConfig, args)
-    device = torch.device(model_cfg.data_device)
+    device = resolve_data_device(model_cfg.data_device)
     pc_dir = os.path.join(model_cfg.model_path, "point_cloud")
     iteration = (args.iteration if args.iteration != -1
                  else search_max_iteration(pc_dir))

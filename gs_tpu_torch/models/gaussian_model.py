@@ -1,7 +1,7 @@
 """Training-state Gaussian model — port of
 ``gs_tpu/models/gaussian_model.py``: initial Gaussians from a point cloud,
-the training state, per-group Adam, the exposure optimizer and the
-densification statistics.
+the training state, per-group Adam, the exposure optimizer, the
+densification statistics and density control.
 
 Tensors are padded to a capacity with an ``alive`` mask, as in the JAX
 package (dead slots: tiny scale, near-zero opacity, identity rotation).
@@ -11,8 +11,13 @@ f_rest = feature_lr / 20, one step count shared by all groups; sparse Adam
 updates only the rows visible in the last render. Updates are functional:
 each returns a new state, as the JAX package's do.
 
-Density control (``densify_and_prune``, ``reset_opacity``, ``compact``,
-``grow_capacity``) belongs to the training loop and is not ported yet.
+Density control (ref: scene/gaussian_model.py:367-433, train.py:157-167)
+works at a fixed capacity, as in the JAX package: clones and split
+children go into free slots, pruned rows die, and the capacity changes only
+through ``compact`` and ``grow_capacity``. Every function returns a new state
+and writes into none of its inputs, so a caller may keep the old state (the
+trainer's overflow replay does). The split noise is an argument: JAX's and
+torch's generators differ, so the tests feed both packages the same draws.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ import numpy as np
 import torch
 
 from ..config import OptimizationConfig
-from ..core.gaussians import GaussianParams, inverse_sigmoid
+from ..core.gaussians import (GaussianParams, get_opacity, get_scaling,
+                              inverse_sigmoid, quat_to_rotmat)
 from ..core.sh import rgb2sh
 from ..core.spatial import mean_sq_dist_to_3nn
 from ..utils.schedules import expon_lr
@@ -59,6 +65,14 @@ class TrainState(NamedTuple):
 
 def _zeros_like_params(p: GaussianParams) -> GaussianParams:
     return GaussianParams(*[torch.zeros_like(t) for t in p])
+
+
+def map_state(fn, state: TrainState) -> TrainState:
+    """``fn`` applied to every tensor of the state (the JAX package's
+    ``jax.tree.map`` over a TrainState)."""
+    return TrainState(*[GaussianParams(*[fn(t) for t in x])
+                        if isinstance(x, GaussianParams) else fn(x)
+                        for x in state])
 
 
 def init_state(params: GaussianParams, alive: torch.Tensor,
@@ -204,3 +218,222 @@ def add_densification_stats(state: TrainState, mean2d_grad: torch.Tensor,
                                 torch.maximum(state.max_radii2D, radii),
                                 state.max_radii2D),
     )
+
+
+# ----------------------------------------------------- density control
+
+class DensifyInfo(NamedTuple):
+    n_cloned: torch.Tensor
+    n_split: torch.Tensor
+    n_pruned: torch.Tensor
+    n_dropped: torch.Tensor   # new Gaussians that found no free slot
+    n_alive: torch.Tensor
+
+
+def _nonzero_padded(mask: torch.Tensor, fill: int) -> torch.Tensor:
+    """Indices of ``mask``'s true entries in order, padded with ``fill`` to
+    the mask's length (``jnp.nonzero(mask, size=c, fill_value=fill)``).
+    Reads the count back from the device."""
+    idx = torch.nonzero(mask).squeeze(1)
+    out = torch.full(mask.shape, fill, dtype=torch.int64, device=mask.device)
+    out[:idx.shape[0]] = idx
+    return out
+
+
+def densify_and_prune(state: TrainState, noise: Optional[torch.Tensor] = None,
+                      *, grad_threshold: float, min_opacity: float,
+                      extent: float, percent_dense: float,
+                      use_size_threshold: bool,
+                      generator: Optional[torch.Generator] = None,
+                      ) -> tuple[TrainState, DensifyInfo]:
+    """One densify/clone/split/prune pass at fixed capacity.
+
+    ``noise`` [C, 3] is the standard-normal draw that places split children
+    (ref: :376-378); without it one is drawn from ``generator``. The
+    reference enables size pruning only after the first opacity reset
+    (train.py:163): ``use_size_threshold``.
+    """
+    p = state.params
+    c = p.capacity
+    dev = p.xyz.device
+    alive = state.alive
+    if noise is None:
+        noise = torch.randn((c, 3), generator=generator, device=dev)
+
+    grads = state.grad_accum / state.denom
+    grads = torch.where(torch.isnan(grads), 0.0, grads)  # ref: gaussian_model.py:413-414
+
+    scaling = get_scaling(p)
+    max_scale = torch.max(scaling, dim=1).values
+    opacity = get_opacity(p)[:, 0]
+
+    grad_ok = grads >= grad_threshold
+    small = max_scale <= percent_dense * extent
+    clone_mask = alive & grad_ok & small                 # ref: :393-397
+    split_mask = alive & grad_ok & ~small                # ref: :367-374
+
+    # prune condition for existing rows. The view-space radii term reads the
+    # post-postfix (zeroed) max_radii2D in the reference, so it is always
+    # False — reproduced deliberately, as in the JAX package.
+    ws_prune = max_scale > 0.1 * extent
+    use_st = bool(use_size_threshold)
+    prune_cond = (opacity < min_opacity) | (use_st & ws_prune)
+
+    keep = alive & ~prune_cond & ~split_mask
+    n_pruned = torch.sum(alive & prune_cond & ~split_mask)
+
+    # --- candidate lists -------------------------------------------------
+    clone_create = clone_mask & ~prune_cond
+    split_create = split_mask
+    n_clone = torch.sum(clone_create)
+    n_split = torch.sum(split_create)
+
+    clone_src_list = _nonzero_padded(clone_create, 0)
+    split_src_list = _nonzero_padded(split_create, 0)
+    free_slots = _nonzero_padded(~keep, c)
+    n_free = torch.sum(~keep)
+
+    r = torch.arange(c, device=dev)
+    is_clone = r < n_clone
+    is_split_a = (r >= n_clone) & (r < n_clone + n_split)
+    is_split_b = (r >= n_clone + n_split) & (r < n_clone + 2 * n_split)
+    src = torch.where(
+        is_clone, clone_src_list[r],
+        torch.where(is_split_a,
+                    split_src_list[torch.clamp(r - n_clone, 0, c - 1)],
+                    split_src_list[torch.clamp(r - n_clone - n_split, 0, c - 1)]))
+    is_split_child = is_split_a | is_split_b
+    valid_new = is_clone | is_split_child
+
+    n_new = n_clone + 2 * n_split
+    n_dropped = torch.clamp_min(n_new - n_free, 0)
+
+    # --- new values ------------------------------------------------------
+    src_xyz = p.xyz[src]
+    src_scale = scaling[src]
+    R = quat_to_rotmat(p.quat[src])
+    offset = torch.einsum('nij,nj->ni', R, noise * src_scale)
+    new_xyz = torch.where(is_split_child[:, None], src_xyz + offset, src_xyz)
+    child_log_scale = torch.log(src_scale / (0.8 * 2))   # ref: :381
+    new_log_scale = torch.where(is_split_child[:, None],
+                                child_log_scale, p.log_scale[src])
+
+    # children may themselves violate the prune conditions (the reference
+    # prunes right after creating them, ref: :420-425)
+    child_max_scale = max_scale[src] / (0.8 * 2)
+    child_prune = (opacity[src] < min_opacity) | (
+        use_st & (child_max_scale > 0.1 * extent))
+    valid_new = valid_new & ~(is_split_child & child_prune)
+
+    # slot c is a spare row that takes every new row without a free slot
+    target = torch.where(valid_new, free_slots[r], c)
+
+    def place(arr, new_rows):
+        out = torch.cat([arr, arr[:1]])
+        out[target] = new_rows
+        return out[:c]
+
+    new_params = GaussianParams(
+        xyz=place(p.xyz, new_xyz),
+        sh_dc=place(p.sh_dc, p.sh_dc[src]),
+        sh_rest=place(p.sh_rest, p.sh_rest[src]),
+        log_scale=place(p.log_scale, new_log_scale),
+        quat=place(p.quat, p.quat[src]),
+        logit_opacity=place(p.logit_opacity, p.logit_opacity[src]),
+    )
+    new_alive = place(keep, torch.ones_like(keep))
+    # optimizer state of new slots is zeroed (ref: :324-344); slots that were
+    # pruned and not refilled also reset so stale moments never leak back in
+    changed = new_alive != keep
+    reset_rows = changed | (~new_alive & alive)
+
+    def reset(x):
+        mask = reset_rows.reshape((-1,) + (1,) * (x.dim() - 1))
+        return torch.where(mask, 0.0, x)
+
+    info = DensifyInfo(n_cloned=n_clone, n_split=n_split, n_pruned=n_pruned,
+                       n_dropped=n_dropped, n_alive=torch.sum(new_alive))
+    new_state = state._replace(
+        params=new_params, alive=new_alive,
+        m=GaussianParams(*[reset(t) for t in state.m]),
+        v=GaussianParams(*[reset(t) for t in state.v]),
+        grad_accum=torch.zeros_like(state.grad_accum),
+        denom=torch.zeros_like(state.denom),
+        max_radii2D=torch.zeros_like(state.max_radii2D),
+    )
+    return new_state, info
+
+
+def reset_opacity(state: TrainState) -> TrainState:
+    """Clamp opacity to <= 0.01 and reset its Adam state
+    (ref: gaussian_model.py:226-229, :274-287)."""
+    op = get_opacity(state.params)
+    new_logit = inverse_sigmoid(torch.clamp_max(op, 0.01))
+    return state._replace(
+        params=state.params._replace(logit_opacity=new_logit),
+        m=state.m._replace(logit_opacity=torch.zeros_like(state.m.logit_opacity)),
+        v=state.v._replace(logit_opacity=torch.zeros_like(state.v.logit_opacity)),
+    )
+
+
+# -------------------------------------------------- capacity management
+
+def _dead_slot_fills(state: TrainState, n: int) -> TrainState:
+    """Rows from ``n`` on render as nothing: identity rotation, log scale
+    and logit opacity -10."""
+    p = state.params
+    quat, log_scale, logit_op = (p.quat.clone(), p.log_scale.clone(),
+                                 p.logit_opacity.clone())
+    quat[n:, 0] = 1.0
+    log_scale[n:] = -10.0
+    logit_op[n:] = -10.0
+    return state._replace(params=p._replace(quat=quat, log_scale=log_scale,
+                                            logit_opacity=logit_op))
+
+
+def compact(state: TrainState, capacity: Optional[int] = None) -> TrainState:
+    """Gather alive rows to the front and optionally shrink capacity.
+
+    Host-side: reads the alive mask back. Used after heavy pruning or
+    before serving, so dead slots stop costing preprocess work and memory.
+    Order of alive gaussians is preserved; the capacity rule is
+    ``create_from_pcd``'s.
+    """
+    idx = np.flatnonzero(state.alive.cpu().numpy())
+    n = len(idx)
+    if capacity is None:
+        capacity = max(1 << int(math.ceil(math.log2(max(n, 1) * 2))), 1024)
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} < {n} alive gaussians")
+    c = state.capacity
+    dev = state.alive.device
+    take = torch.tensor(np.concatenate([idx, np.zeros(capacity - n, np.int64)]),
+                        device=dev)
+    keep = torch.arange(capacity, device=dev) < n
+
+    def pick(x):
+        if x.dim() >= 1 and x.shape[0] == c:
+            out = x[take]
+            mask = keep.reshape((-1,) + (1,) * (out.dim() - 1))
+            return torch.where(mask, out, torch.zeros_like(out))
+        return x
+
+    new = map_state(pick, state)._replace(alive=keep)
+    return _dead_slot_fills(new, n)
+
+
+def grow_capacity(state: TrainState, new_capacity: int) -> TrainState:
+    """Host-side re-pad of every [C, ...] tensor to ``new_capacity``; the new
+    rows are dead slots."""
+    c = state.capacity
+    if new_capacity < c:
+        raise ValueError(f"new capacity {new_capacity} < capacity {c}")
+
+    def pad(x):
+        if x.dim() >= 1 and x.shape[0] == c:
+            out = x.new_zeros((new_capacity,) + tuple(x.shape[1:]))
+            out[:c] = x
+            return out
+        return x
+
+    return _dead_slot_fills(map_state(pad, state), c)

@@ -72,9 +72,11 @@ def test_params_round_trip_through_ply_and_numpy(tmp_path):
 
 
 def test_orbit_cli_refuses_unknown_device(tmp_path):
+    """A device name torch does not know raises (``tpu``, the JAX
+    package's, reads as ``cuda``: tests/test_torch_apps.py)."""
     root = _model_dir(tmp_path, _arrays(n=20))
     with pytest.raises(RuntimeError):
-        torch_orbit.main(["-m", root, "--data_device", "tpu", "--frames", "1"])
+        torch_orbit.main(["-m", root, "--data_device", "gpu0", "--frames", "1"])
 
 
 @pytest.mark.parametrize("flag", [
