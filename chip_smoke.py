@@ -63,10 +63,36 @@ Phases (each failure exits non-zero):
     trained state, a --start_checkpoint resume, the render and metrics
     CLIs' outputs; prints ms per iteration beside the bare step's, one
     profiled iteration's device busy time, the densify and replay times;
-    then the 20,000-gaussian scene of [grad] trained twice, with an ample
-    and a too-small --dup_capacity, to the same state;
-11. a JSON line of the kernels' numbers, then the result line
-    {"ok": true, "device": {...}}.
+    [render CLI default]: the render CLI at its default --dup_capacity,
+    which the test view overflows, renders it again (K2 and K1 twice) and
+    writes the PNG an ample render writes, byte for byte; then the
+    20,000-gaussian scene of [grad] trained twice, with an ample and a
+    too-small --dup_capacity, to the same state;
+11. [viewer], this slice's main path: the training CLI on the [trainer]
+    dataset for 80 iterations with its viewer server on a free local port,
+    and a client thread asking for 1920x1080 frames (two sent together
+    with train=false, served before training resumes, then 8 more); every
+    frame's shape and source path, one K2 and one K1 launch per frame and
+    evaluated view beyond the trainer's own, the last iteration reached,
+    and after training a frame over the wire bitwise Trainer.render_view;
+    ms per frame on the client's clock, ms per iteration with the client
+    attached and idle, the bytes per frame, a poll's cost with no client
+    and with the client attached and idle; [viewer kernels]: at the run's
+    shapes (the trained state, ~10 M entries), K2 and K1 of a render_view
+    of the client's pose and K2, K1g, K3 and K4 of one more training step,
+    each on the inputs it was given there, against its plain version
+    under the rules of phases 2-7;
+12. [lpips]: seeded random weights in the npz layout; LPIPS on the card
+    against the same module on the CPU for a 256x192 pair (rel 1e-4, abs
+    1e-6; an identical pair 0 within 1e-8), one 1080p pair timed against
+    its FP32 bound, and the metrics CLI on the [trainer] model with a
+    finite LPIPS;
+13. [full_eval]: gs_tpu_torch.apps.full_eval -tat over two scene folders
+    that link to the [trainer] dataset, 30 iterations each at 1920x1080:
+    each scene's cfg_args, PLY, test renders and results.json (SSIM, PSNR,
+    LPIPS), and the wall time of each stage;
+14. a JSON line of the kernels' numbers, then the card's name and power
+    limit, then the result line {"ok": true, "device": {...}}.
 
 It exits non-zero without a CUDA device, or when run outside the repository.
 """
@@ -594,7 +620,9 @@ TRAINER_BACK = 3.0             # the views' distance behind the bench camera
 
 def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
     """Phase 10: the training driver through its CLIs. Returns the kernel
-    launch counts of the training CLI's run."""
+    launch counts of the training CLI's run, the temporary directory that
+    holds the dataset and the trained model (for the later phases), their
+    paths, and the trainer's grown dup_capacity."""
     from gs_tpu_torch.apps import metrics as metrics_app
     from gs_tpu_torch.apps import render as render_app
     from gs_tpu_torch.apps import train as train_app
@@ -611,7 +639,7 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
     from gs_tpu_torch.ops.rasterize import (raster_tiles_bwd,
                                             raster_tiles_fwd,
                                             raster_tiles_fwd_save)
-    from gs_tpu_torch.render import render
+    from gs_tpu_torch.render import MAX_DUP_CAPACITY, render
     from gs_tpu_torch.train import loop
     from gs_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 
@@ -897,27 +925,52 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
           f"iterations: loss {resumed.ema_loss:.6f}, Adam step "
           f"{int(resumed.state.step)}", flush=True)
     del resumed
-    for c in counters.values():
-        c.launches = 0
-    with contextlib.redirect_stdout(io.StringIO()):
-        render_app.main(["-m", model, "--skip_train", "--dup_capacity",
-                         str(dup), "--max_per_tile", "4096"])
-    render_launches = counts()
+
+    # [render CLI default]: the render CLI at its default --dup_capacity
+    # (1,048,576), which the test view overflows: it must render the view
+    # again at grown buffers and write the PNG of an ample render
     out_dir = os.path.join(model, "test", f"ours_{TRAINER_ITERS}")
+    png = os.path.join(out_dir, "renders", "00000.png")
+    runs = {}
+    for name, extra in (("default", []),
+                        ("ample", ["--dup_capacity", str(MAX_DUP_CAPACITY)])):
+        for c in counters.values():
+            c.launches = 0
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            render_app.main(["-m", model, "--skip_train"] + extra)
+        with open(png, "rb") as f:
+            runs[name] = dict(launches=counts(), png=f.read(),
+                              log=log.getvalue())
     outs = {k: sorted(os.listdir(os.path.join(out_dir, k)))
             for k in ("renders", "gt")}
     check(outs["renders"] == outs["gt"] == ["00000.png"],
-          f"[trainer] render CLI wrote {outs}")
-    check(render_launches["K2"] == render_launches["K1"] == 1,
-          f"[trainer] render CLI launches {render_launches}")
+          f"[render CLI default] wrote {outs}")
+    regrow = [ln.strip() for ln in runs["default"]["log"].splitlines()
+              if "rendering again" in ln]
+    print(f"[render CLI default] {regrow[0] if regrow else 'no regrow'}; "
+          f"launches {runs['default']['launches']}; at --dup_capacity "
+          f"{MAX_DUP_CAPACITY}: launches {runs['ample']['launches']}; the PNGs "
+          f"{'are' if runs['default']['png'] == runs['ample']['png'] else 'are NOT'}"
+          f" byte for byte equal ({len(runs['ample']['png'])} bytes)",
+          flush=True)
+    check(len(regrow) == 1 and "WARNING" not in runs["default"]["log"],
+          "[render CLI default] the test view did not regrow once")
+    check(runs["default"]["launches"]["K2"] ==
+          runs["default"]["launches"]["K1"] == 2,
+          f"[render CLI default] launches {runs['default']['launches']}")
+    check(runs["ample"]["launches"]["K2"] ==
+          runs["ample"]["launches"]["K1"] == 1,
+          f"[render CLI default] ample launches {runs['ample']['launches']}")
+    check(runs["default"]["png"] == runs["ample"]["png"],
+          "[render CLI default] PNG differs from the ample render's")
     with contextlib.redirect_stdout(io.StringIO()):
         metrics_app.main(["-m", model, "--no_lpips", "--data_device",
                           dev.type])
     with open(os.path.join(model, "results.json")) as f:
         results = json.load(f)[f"ours_{TRAINER_ITERS}"]
     check(results["PSNR"] > 0, f"[trainer] metrics {results}")
-    print(f"[trainer] render CLI: test view {outs['renders']}, launches "
-          f"{render_launches}; metrics CLI: {results}", flush=True)
+    print(f"[trainer] metrics CLI: {results}", flush=True)
 
     # ------------------- overflow replay leaves the state of no overflow
     n = mid.capacity
@@ -977,8 +1030,462 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
           f"masks; worst parameter leaf max |diff| / max |ample| {worst:.3e} "
           f"(rule 2e-4)", flush=True)
     del ctl, ovf, runs, views
-    tmp.cleanup()
-    return launches
+    return launches, tmp, root, model, dup, steady_ms
+
+
+VIEWER_ITERS = 80             # the [viewer] run's iterations
+VIEWER_IDLE = (50, 79)         # client attached and idle in 51..79
+VIEWER_FRAMES = 8              # frames requested while training, besides
+#                                the two of the pause
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def kernel_calls():
+    """Record the arguments and result of the last launch of each kernel
+    the render and training paths make, by wrapping the names those paths
+    call (K2 in ops/binning.py, K1, K1g, K3 and K4 in ops/rasterize.py).
+    A kernel defined in ops/rasterize.py counts its launches by its module
+    name, so these land on the wrapper's own count, not the path's."""
+    from gs_tpu_torch.ops import binning, rasterize
+    names = [(binning, "expand_rows", "K2"),
+             (rasterize, "raster_tiles_fwd", "K1"),
+             (rasterize, "raster_tiles_fwd_save", "K1g"),
+             (rasterize, "raster_tiles_bwd", "K3"),
+             (rasterize, "fold_rows", "K4")]
+    seen = {}
+    orig = {k: getattr(mod, name) for mod, name, k in names}
+
+    def wrap(k):
+        def call(*args):
+            out = orig[k](*args)
+            seen[k] = (args, out)
+            return out
+        call.launches = 0
+        return call
+
+    for mod, name, k in names:
+        setattr(mod, name, wrap(k))
+    try:
+        yield seen
+    finally:
+        for mod, name, k in names:
+            setattr(mod, name, orig[k])
+
+
+def path_kernels_match(torch, trainer, cam):
+    """Each kernel against its plain version at the shapes the viewer's run
+    gives it: K2 and K1 as they ran in ``Trainer.render_view`` of ``cam``,
+    K2, K1g, K3 and K4 as they ran in one more training step, each on the
+    inputs it was given there, under the rules of the bench-frame checks
+    (K2 bitwise; K1 and K1g the backend rule, K1g's image bitwise K1's and
+    its residual off on at most 0.2 % of pixels; K3 the gradient rule and
+    K3 and K4 bitwise from run to run; K4 within 1e-6 of the largest sum,
+    against fold_rows_plain's float64 run sums). Returns each kernel's
+    largest absolute error."""
+    from gs_tpu_torch.ops.expand import expand_rows, expand_rows_plain
+    from gs_tpu_torch.ops.fold import fold_rows, fold_rows_plain
+    from gs_tpu_torch.ops.rasterize import (raster_tiles_bwd,
+                                            raster_tiles_bwd_plain,
+                                            raster_tiles_fwd,
+                                            raster_tiles_fwd_plain)
+    errs = {}
+
+    def k2_matches(calls, label):
+        (comb, offsets, capacity), got = calls["K2"]
+        check(torch.equal(got, expand_rows_plain(comb, offsets, capacity)),
+              f"[viewer kernels] K2 != plain on {label}")
+        entries = int(comb[1].to(torch.int64).sum())
+        check(entries <= capacity, f"[viewer kernels] {label} overflowed")
+        errs["K2"] = 0.0
+        return f"[16, {comb.shape[1]}] -> {capacity} entries ({entries} owned)"
+
+    with torch.no_grad():
+        with kernel_calls() as calls:
+            out = trainer.render_view(cam)
+        check(not bool(out.overflow), "[viewer kernels] the view overflowed")
+        shape = k2_matches(calls, "the client's view")
+        args, got = calls["K1"]
+        ok, errs["K1"], frac = images_match(got, raster_tiles_fwd_plain(*args))
+        check(ok, f"[viewer kernels] K1 != plain (max {errs['K1']}, frac "
+                  f"{frac})")
+        print(f"[viewer kernels] the client's view of the trained state "
+              f"({trainer.state.capacity} slots): K2 {shape}, bitwise equal; "
+              f"K1 over {args[1].shape[0]} tiles, windows of up to "
+              f"{args[4]} chunks: max |kernel - plain| {errs['K1']:.3e}, "
+              f"{frac:.4%} of values beyond 1e-5", flush=True)
+        del calls, out, args, got
+
+    with kernel_calls() as calls:
+        m = trainer.step(sync=True)
+    check(not bool(m.overflow), "[viewer kernels] the training step overflowed")
+    with torch.no_grad():
+        shape = k2_matches(calls, "a training step")
+        args, (out_g, last) = calls["K1g"]
+        out_p, last_p = raster_tiles_fwd_plain(*args, save=True)
+        ok, errs["K1g"], _ = images_match(out_g, out_p)
+        differ = float((last != last_p).double().mean())
+        check(ok and differ <= 2e-3, "[viewer kernels] K1g != plain")
+        check(torch.equal(raster_tiles_fwd(*args), out_g),
+              "[viewer kernels] K1g image != K1")
+        del out_p, last_p
+        args, got = calls["K3"]
+        ok, ratio, errs["K3"] = grads_match(
+            got.T, raster_tiles_bwd_plain(*args).T)
+        check(ok, f"[viewer kernels] K3 != plain (ratio {ratio})")
+        check(torch.equal(raster_tiles_bwd(*args), got),
+              "[viewer kernels] K3 not deterministic")
+        args, got = calls["K4"]
+        ref = fold_rows_plain(*args)
+        errs["K4"] = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(errs["K4"] <= 1e-6 * scale, "[viewer kernels] K4 != plain")
+        check(torch.equal(fold_rows(*args), got),
+              "[viewer kernels] K4 not deterministic")
+    print(f"[viewer kernels] training step {trainer.iteration} on the same "
+          f"state: K2 {shape}, bitwise equal; K1g max |kernel - plain| "
+          f"{errs['K1g']:.3e}, image bitwise K1's, residual differs on "
+          f"{differ:.4%} of pixels; K3 worst row {ratio:.3e} of max |plain| "
+          f"(rule 2e-4), max abs {errs['K3']:.3e}, repeat bitwise; K4 max "
+          f"|kernel - plain| {errs['K4']:.3e} = {errs['K4'] / scale:.3e} of "
+          f"the largest sum (rule 1e-6), repeat bitwise", flush=True)
+    return errs
+
+
+def viewer_phase(torch, dev, root, dup, steady_ms, counters):
+    """[viewer], the slice's main path: the training CLI on the [trainer]
+    dataset with its viewer server on, and a client thread that requests
+    1080p frames from the dataset's central pose and poses around it.
+    Returns the launch counts of the run."""
+    import threading
+    from gs_tpu_torch.apps import train as train_app
+    from gs_tpu_torch.core.camera import focal2fov, make_camera
+    from gs_tpu_torch.train import loop
+    from gs_tpu_torch.viewer.client import ViewerClient
+    from gs_tpu_torch.viewer.server import ViewerServer, frame_bytes
+
+    fovx = math.radians(70.0)
+    fovy = focal2fov(W / (2 * math.tan(fovx / 2)), H)
+    # the [trainer] views look down +z from an ellipse TRAINER_BACK behind
+    # the bench camera; the client asks for the ellipse's centre and poses
+    # around it (from the bench camera itself the untrained Gaussians need
+    # 17.2 M entries, past the binning's limit)
+    poses = [np.array([0.0, 0.0, -TRAINER_BACK])] + [
+        np.array([0.75 * math.cos(2 * math.pi * k / 7),
+                  0.4 * math.sin(2 * math.pi * k / 7), -TRAINER_BACK])
+        for k in range(7)]
+    cams = [make_camera(np.eye(3), -c, fovx, fovy, W, H, device=dev)
+            for c in poses]
+    port = free_port()
+
+    T, S = loop.Trainer, ViewerServer
+    orig = {"step": T.step, "render_view": T.render_view,
+            "_render_view": S._render_view}
+    rec = dict(idle={}, served=[], views=0)
+
+    def step(self, sync=False):
+        if self.iteration == VIEWER_IDLE[0]:
+            torch.cuda.synchronize()
+            rec["idle"]["t0"] = time.perf_counter()
+        out = orig["step"](self, sync)
+        if self.iteration == VIEWER_IDLE[1]:
+            torch.cuda.synchronize()
+            rec["idle"]["t1"] = time.perf_counter()
+        return out
+
+    def render_view(self, cam, scaling_modifier=1.0):
+        rec["views"] += 1
+        return orig["render_view"](self, cam, scaling_modifier)
+
+    def serve(self, cam, scaling_modifier):
+        t = time.perf_counter()
+        out = orig["_render_view"](self, cam, scaling_modifier)
+        rec["served"].append(dict(
+            iteration=self.trainer.iteration, bytes=len(out),
+            ms=1e3 * (time.perf_counter() - t)))
+        return out
+
+    client = dict(frames=[], ms=[], error=None)
+    frames_done, training_done = threading.Event(), threading.Event()
+
+    def client_thread():
+        try:
+            deadline = time.time() + 300
+            while True:
+                try:
+                    c = ViewerClient("127.0.0.1", port, timeout=300)
+                    break
+                except OSError:
+                    if time.time() > deadline:
+                        raise
+                    time.sleep(0.05)
+            # a paused client: two train=false requests sent together are
+            # both served before training resumes
+            t = time.perf_counter()
+            sizes = [c.send_request(cams[0], train=False, keep_alive=True)
+                     for _ in range(2)]
+            client["pause"] = [c.read_reply(*s) for s in sizes]
+            client["pause_ms"] = 1e3 * (time.perf_counter() - t)
+            for k in range(VIEWER_FRAMES):
+                t = time.perf_counter()
+                img, src = c.request_frame(cams[k % len(cams)])
+                client["ms"].append(1e3 * (time.perf_counter() - t))
+                client["frames"].append((img, src))
+            frames_done.set()
+            training_done.wait(600)     # attached and idle until the end
+            c.close()
+        except Exception as e:          # reported and failed below
+            client["error"] = repr(e)
+            frames_done.set()
+
+    model = os.path.join(os.path.dirname(root), "viewer_model")
+    args = ["-s", root, "-m", model, "-r", "1", "--eval",
+            "--iterations", str(VIEWER_ITERS),
+            "--test_iterations", str(VIEWER_ITERS),
+            "--save_iterations", str(VIEWER_ITERS),
+            "--dup_capacity", str(dup), "--ip", "127.0.0.1",
+            "--port", str(port), "--data_device", dev.type]
+    T.step, T.render_view, S._render_view = step, render_view, serve
+    th = threading.Thread(target=client_thread, daemon=True)
+    for c in counters.values():
+        c.launches = 0
+    th.start()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            trainer = train_app.main(args)
+        torch.cuda.synchronize()
+    finally:
+        training_done.set()
+        T.step, T.render_view = orig["step"], orig["render_view"]
+        S._render_view = orig["_render_view"]
+        th.join(timeout=60)
+    run_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    text = log.getvalue()
+    print("\n".join(ln for ln in text.splitlines() if any(
+        w in ln for w in ("GUI server", "Connected", "overflow", "WARNING",
+                          "Evaluating", "unavailable", "Traceback"))),
+          flush=True)
+    check(client["error"] is None, f"[viewer] client: {client['error']}")
+    check(not th.is_alive(), "[viewer] the client thread did not end")
+    check(trainer.iteration == VIEWER_ITERS,
+          f"[viewer] training stopped at {trainer.iteration}")
+    frames = [f for f, _ in client["pause"]] + [f for f, _ in client["frames"]]
+    srcs = {s for _, s in client["pause"]} | {s for _, s in client["frames"]}
+    check(len(frames) == VIEWER_FRAMES + 2 and all(
+        f is not None and f.shape == (H, W, 3) for f in frames),
+        "[viewer] frames missing or misshapen")
+    check(srcs == {root}, f"[viewer] source paths {srcs}")
+    served = rec["served"]
+    check(len(served) == VIEWER_FRAMES + 2, f"[viewer] served {len(served)}")
+    check(served[0]["iteration"] == served[1]["iteration"],
+          "[viewer] training ran between the two paused frames")
+    check(served[-1]["iteration"] < VIEWER_IDLE[0],
+          f"[viewer] frames served as late as iteration "
+          f"{served[-1]['iteration']}")
+    n_views = rec["views"]
+    evals = n_views - len(served)
+    # each served frame and each evaluated view: one K2 and one K1 beyond
+    # the trainer's one K2, K1g, K3 and K4 per iteration (no regrow, no
+    # replay at this dup_capacity)
+    want = {"K1": n_views, "K2": VIEWER_ITERS + n_views, "K1g": VIEWER_ITERS,
+            "K3": VIEWER_ITERS, "K4": VIEWER_ITERS}
+    check(launches == want, f"[viewer] launches {launches}, want {want}")
+    ms = client["ms"]
+    idle = rec["idle"]
+    idle_ms = 1e3 * (idle["t1"] - idle["t0"]) / (VIEWER_IDLE[1] - VIEWER_IDLE[0])
+    print(f"[viewer] {VIEWER_ITERS} iterations through "
+          f"gs_tpu_torch.apps.train.main with the viewer on port {port} in "
+          f"{run_s:.2f} s; {len(served)} frames {W}x{H} served at iterations "
+          f"{[s['iteration'] for s in served]}; {evals} evaluated views; "
+          f"launches {launches} (K2 and K1 once per frame and view)",
+          flush=True)
+    print(f"[viewer] ms per frame on the client's clock, request to last "
+          f"byte: median {float(np.median(ms)):.3f}, largest {max(ms):.3f} "
+          f"(" + ", ".join(f"{x:.2f}" for x in ms) + f"); the two paused "
+          f"frames {client['pause_ms']:.2f} ms together; on the server, "
+          f"render + bytes + send: median "
+          f"{float(np.median([s['ms'] for s in served])):.3f} ms; "
+          f"{served[0]['bytes']} bytes to the host per frame", flush=True)
+    print(f"[viewer] ms per iteration over {VIEWER_IDLE[0] + 1}.."
+          f"{VIEWER_IDLE[1]} with the client attached and idle (host clock, "
+          f"synchronised at both ends): {idle_ms:.3f}; [trainer]'s steady "
+          f"window: {steady_ms:.3f}", flush=True)
+
+    # the cost of a poll with no client: a non-blocking accept
+    server = ViewerServer("127.0.0.1", 0, trainer=trainer, source_path=root)
+    t = time.perf_counter()
+    for _ in range(1000):
+        server.poll()
+    poll_us = 1e3 * (time.perf_counter() - t)
+    # after training: one frame over the wire, bitwise a direct render_view;
+    # then the client stays attached and idle while polls are timed
+    got, release = {}, threading.Event()
+
+    def one_frame():
+        c = ViewerClient("127.0.0.1", server.port)
+        got["img"], _ = c.request_frame(cams[0])
+        release.wait(60)
+        c.close()
+
+    th = threading.Thread(target=one_frame, daemon=True)
+    th.start()
+    for c in counters.values():
+        c.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        for _ in range(20000):
+            server.poll()
+            if "img" in got:
+                break
+            time.sleep(0.001)
+        # the cost of a poll with the client attached and idle: one
+        # non-blocking MSG_PEEK
+        t = time.perf_counter()
+        for _ in range(1000):
+            server.poll()
+        idle_poll_us = 1e3 * (time.perf_counter() - t)
+        attached = server.conn is not None
+    release.set()
+    th.join(timeout=60)
+    server.close()
+    after = {k: c.launches for k, c in counters.items()}
+    check(attached, "[viewer] the idle client was dropped while polled")
+    direct = frame_bytes(trainer.render_view(cams[0]).image)
+    check("img" in got and got["img"].tobytes() == direct,
+          "[viewer] a frame over the wire != Trainer.render_view, bitwise")
+    check(after["K2"] == after["K1"] == 1, f"[viewer] one frame {after}")
+    print(f"[viewer] a poll (mean of 1000): with no client {poll_us:.3f} "
+          f"us, with the client attached and idle {idle_poll_us:.3f} us; "
+          f"after training, a frame over the wire equals Trainer.render_view "
+          f"of the same state and pose bitwise (launches {after})", flush=True)
+    errs = path_kernels_match(torch, trainer, cams[0])
+    del trainer
+    return launches, errs
+
+
+def lpips_weights(path: str, seed: int = 123):
+    """Seeded random LPIPS weights in the npz layout (the JAX package's
+    tests/utils.py::lpips_random_weights draws, made here with numpy)."""
+    from gs_tpu_torch.ops.lpips import TAP_CHANNELS, VGG16_CFG
+    rng = np.random.default_rng(seed)
+    arrays, cin, i = {}, 3, 0
+    for c in VGG16_CFG:
+        if c == "M":
+            continue
+        arrays[f"conv{i}_w"] = rng.normal(0, 0.05, (c, cin, 3, 3)).astype(
+            np.float32)
+        arrays[f"conv{i}_b"] = rng.normal(0, 0.05, (c,)).astype(np.float32)
+        cin, i = c, i + 1
+    for k, nc in enumerate(TAP_CHANNELS):
+        arrays[f"lin{k}"] = np.abs(rng.normal(0, 0.1, (1, nc))).astype(
+            np.float32)
+    np.savez(path, **arrays)
+
+
+def lpips_phase(torch, dev, tmpdir, model):
+    """[lpips]: the port's LPIPS on the card against the same module on the
+    CPU, one 1080p pair timed, and the metrics CLI with a weights file."""
+    from gs_tpu_torch.apps import metrics as metrics_app
+    from gs_tpu_torch.ops.lpips import lpips_vgg
+    path = os.path.join(tmpdir, "lpips_vgg.npz")
+    lpips_weights(path)
+    os.environ["GS_TPU_LPIPS_WEIGHTS"] = path
+    on_card, on_cpu = lpips_vgg(device=dev), lpips_vgg(device="cpu")
+    rng = np.random.default_rng(9)
+    a = rng.uniform(0, 1, (3, 192, 256)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    got = float(on_card(ta.to(dev), tb.to(dev)))
+    want = float(on_cpu(ta, tb))
+    same = float(on_card(ta.to(dev), ta.to(dev)))
+    err = abs(got - want)
+    print(f"[lpips] 256x192 pair, seeded random weights: card {got:.9f}, "
+          f"CPU {want:.9f}, |diff| {err:.3e} (rule rel 1e-4, abs 1e-6); "
+          f"identical pair {same:.3e}", flush=True)
+    check(err <= 1e-6 + 1e-4 * abs(want), "[lpips] card != CPU")
+    check(abs(same) <= 1e-8, "[lpips] identical pair != 0")
+    big = torch.rand((2, 3, H, W), generator=torch.Generator().manual_seed(1))
+    x, y = big[0].to(dev), big[1].to(dev)
+    ms = time_ms(torch, lambda: on_card(x, y), 5, 1)
+    # two VGG16 conv trunks: 2 FLOP per multiply-add over every conv's
+    # output pixels, at the data sheet's FP32 rate (TF32 off)
+    flops, cin, h, w = 0, 3, H, W
+    from gs_tpu_torch.ops.lpips import VGG16_CFG
+    for c in VGG16_CFG:
+        if c == "M":
+            h, w = h // 2, w // 2
+            continue
+        flops += 2 * 2 * 9 * cin * c * h * w
+        cin = c
+    bound = flops / FP32_OPS_PER_S * 1e3
+    print(f"[lpips] one {W}x{H} pair on the card: {ms:.3f} ms (CUDA events, "
+          f"mean of 5); {flops / 1e12:.3f} TFLOP of convolution, bound "
+          f"{bound:.3f} ms at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s "
+          f"({bound / ms:.1%})", flush=True)
+    del on_card, on_cpu, big, x, y
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        metrics_app.main(["-m", model, "--data_device", dev.type])
+    with open(os.path.join(model, "results.json")) as f:
+        results = json.load(f)[f"ours_{TRAINER_ITERS}"]
+    check("LPIPS" in results and math.isfinite(results["LPIPS"]),
+          f"[lpips] metrics CLI {results}")
+    print(f"[lpips] metrics CLI on the [trainer] model with "
+          f"GS_TPU_LPIPS_WEIGHTS set: {results}", flush=True)
+    return ms
+
+
+FULL_EVAL_ITERS = 30
+
+
+def full_eval_phase(torch, dev, tmpdir, root, dup, counters):
+    """[full_eval]: gs_tpu_torch.apps.full_eval over two Tanks&Temples
+    scene folders that link to the [trainer] dataset, at full width."""
+    from gs_tpu_torch.apps import full_eval
+    tat = os.path.join(tmpdir, "tandt")
+    os.makedirs(tat)
+    for name in ("truck", "train"):
+        os.symlink(root, os.path.join(tat, name))
+    out = os.path.join(tmpdir, "eval")
+    for c in counters.values():
+        c.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        full_eval.main(["-tat", tat, "--output_path", out, "--iterations",
+                        str(FULL_EVAL_ITERS), "--data_device", dev.type,
+                        "-r", "1", "--dup_capacity", str(dup)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    stages = [ln.strip() for ln in log.getvalue().splitlines()
+              if " total:" in ln]
+    results = {}
+    for name in ("truck", "train"):
+        m = os.path.join(out, name)
+        renders = os.path.join(m, "test", f"ours_{FULL_EVAL_ITERS}",
+                               "renders")
+        check(os.path.isfile(os.path.join(m, "cfg_args")) and os.path.isfile(
+            os.path.join(m, "point_cloud", f"iteration_{FULL_EVAL_ITERS}",
+                         "point_cloud.ply")), f"[full_eval] {name}: outputs")
+        check(os.listdir(renders) == ["00000.png"],
+              f"[full_eval] {name}: renders {os.listdir(renders)}")
+        with open(os.path.join(m, "results.json")) as f:
+            results[name] = json.load(f)[f"ours_{FULL_EVAL_ITERS}"]
+        check(set(results[name]) == {"SSIM", "PSNR", "LPIPS"} and all(
+            math.isfinite(v) for v in results[name].values()),
+            f"[full_eval] {name}: {results[name]}")
+    print(f"[full_eval] two scenes of {FULL_EVAL_ITERS} iterations at "
+          f"{W}x{H} in {wall:.2f} s: " + "; ".join(stages) + f"; launches "
+          f"{launches}; results {results}", flush=True)
 
 
 def main() -> int:
@@ -1310,8 +1817,20 @@ def main() -> int:
 
     bare_step_ms, mid, kernels_train = train_phases(
         torch, dev, small, scam, p0, alive0, bench_camera)
-    trainer_launches = trainer_phase(torch, dev, pts, cols, p0, alive0,
-                                     bare_step_ms, mid)
+    trainer_launches, trainer_tmp, root, model, dup, steady_ms = \
+        trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid)
+    del p0, alive0, mid
+    from gs_tpu_torch.ops.fold import fold_rows
+    from gs_tpu_torch.ops.rasterize import (raster_tiles_bwd,
+                                            raster_tiles_fwd_save)
+    counters = {"K2": expand_rows, "K1": raster_tiles_fwd,
+                "K1g": raster_tiles_fwd_save, "K3": raster_tiles_bwd,
+                "K4": fold_rows}
+    viewer_launches, viewer_errs = viewer_phase(torch, dev, root, dup,
+                                                steady_ms, counters)
+    lpips_phase(torch, dev, trainer_tmp.name, model)
+    full_eval_phase(torch, dev, trainer_tmp.name, root, dup, counters)
+    trainer_tmp.cleanup()
 
     # --------------------------------------------------------------- 10
     kernels = [
@@ -1334,6 +1853,8 @@ def main() -> int:
     ] + kernels_train
     for k in kernels:
         k["trainer_launches"] = trainer_launches[k["id"]]
+        k["viewer_launches"] = viewer_launches[k["id"]]
+        k["max_abs_err"] = max(k["max_abs_err"], viewer_errs[k["id"]])
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

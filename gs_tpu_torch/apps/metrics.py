@@ -2,11 +2,12 @@
 
 Usage: ``python -m gs_tpu_torch.apps.metrics -m <model_dir> [...] [--data_device cuda]``
 
-Walks ``<model>/test/ours_<it>/{renders,gt}``, computes SSIM and PSNR on
-``--data_device`` (``cuda`` by default) and writes ``results.json`` +
-``per_view.json``. LPIPS is not ported yet (``ROADMAP.md`` queue 1 item 8):
-the CLI says so and reports SSIM/PSNR, as the JAX package does when its
-LPIPS weights are missing.
+Walks ``<model>/test/ours_<it>/{renders,gt}``, computes SSIM, PSNR and
+LPIPS-vgg on ``--data_device`` (``cuda`` by default) and writes
+``results.json`` + ``per_view.json``. LPIPS needs its weights file
+(``ops/lpips.py``: ``$GS_TPU_LPIPS_WEIGHTS`` or
+``~/.cache/gs_tpu/lpips_vgg.npz``); without it the CLI says so and reports
+SSIM/PSNR, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.losses import psnr as psnr_fn
+from ..ops.lpips import lpips_vgg
 from ..ops.ssim import ssim as ssim_fn
 from .args import resolve_data_device
 
@@ -38,8 +40,12 @@ def read_images(renders_dir: str, gt_dir: str):
 @torch.no_grad()
 def evaluate(model_paths: list[str], use_lpips: bool = True, device="cuda"):
     """ref: metrics.py:36-93 (evaluate)."""
+    lpips_fn = None
     if use_lpips:
-        print("LPIPS unavailable (not ported yet); reporting SSIM/PSNR only")
+        try:
+            lpips_fn = lpips_vgg(device=device)
+        except FileNotFoundError as e:
+            print(f"LPIPS unavailable ({e}); reporting SSIM/PSNR only")
     full_dict, per_view_dict = {}, {}
     for scene_dir in model_paths:
         print("Scene:", scene_dir)
@@ -52,19 +58,27 @@ def evaluate(model_paths: list[str], use_lpips: bool = True, device="cuda"):
             renders, gts, names = read_images(
                 os.path.join(method_dir, "renders"),
                 os.path.join(method_dir, "gt"))
-            ssims, psnrs = [], []
+            ssims, psnrs, lpipss = [], [], []
             for r, g in zip(renders, gts):
                 rc = torch.from_numpy(r.transpose(2, 0, 1).copy()).to(device)
                 gc = torch.from_numpy(g.transpose(2, 0, 1).copy()).to(device)
                 ssims.append(float(ssim_fn(rc, gc)))
                 psnrs.append(float(psnr_fn(rc[None], gc[None])[0, 0]))
+                if lpips_fn is not None:
+                    lpipss.append(float(lpips_fn(rc, gc)))
             print(f"  SSIM : {np.mean(ssims):>12.7f}")
             print(f"  PSNR : {np.mean(psnrs):>12.7f}")
-            full_dict[scene_dir][method] = {"SSIM": float(np.mean(ssims)),
-                                            "PSNR": float(np.mean(psnrs))}
-            per_view_dict[scene_dir][method] = {
-                "SSIM": dict(zip(names, map(float, ssims))),
-                "PSNR": dict(zip(names, map(float, psnrs)))}
+            if lpipss:
+                print(f"  LPIPS: {np.mean(lpipss):>12.7f}")
+            entry = {"SSIM": float(np.mean(ssims)),
+                     "PSNR": float(np.mean(psnrs))}
+            views = {"SSIM": dict(zip(names, map(float, ssims))),
+                     "PSNR": dict(zip(names, map(float, psnrs)))}
+            if lpipss:
+                entry["LPIPS"] = float(np.mean(lpipss))
+                views["LPIPS"] = dict(zip(names, map(float, lpipss)))
+            full_dict[scene_dir][method] = entry
+            per_view_dict[scene_dir][method] = views
         with open(os.path.join(scene_dir, "results.json"), "w") as f:
             json.dump(full_dict[scene_dir], f, indent=True)
         with open(os.path.join(scene_dir, "per_view.json"), "w") as f:

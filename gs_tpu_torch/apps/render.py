@@ -7,6 +7,9 @@ Loads the trained model at iteration N (default: latest) and renders the
 train/test splits of its dataset to
 ``<model>/{train,test}/ours_<N>/{renders,gt}/*.png`` without gradients
 (K2 + K1), keeping the right half of each image when ``train_test_exp``.
+A view that overflows ``--dup_capacity`` / ``--max_per_tile`` is rendered
+again at grown buffers, and said so; one that overflows even at the
+binning's limit is reported.
 The device is ``--data_device`` (``cuda`` by default; a stored ``tpu``
 reads as ``cuda``).
 """
@@ -21,7 +24,7 @@ import torch
 from ..config import ModelConfig, PipelineConfig, RasterConfig
 from ..core.gaussians import GaussianParams
 from ..data.scene import Scene
-from ..render import raster_lever_kwargs, render
+from ..render import render_grown
 from .args import (extract_dataclass, get_combined_args, make_parser,
                    resolve_data_device)
 
@@ -69,7 +72,9 @@ def load_exposures(model_path: str):
 def render_set(model_path: str, name: str, iteration: int, cams, params,
                alive, sh_degree: int, bg, pipe: PipelineConfig,
                raster: RasterConfig, train_test_exp: bool):
-    """ref: render.py:30-46 (render_set)."""
+    """ref: render.py:30-46 (render_set). A view that overflows ``raster``'s
+    buffers renders again at grown ones (``render_grown``), which the
+    following views keep. Returns the RasterConfig of the last view."""
     render_dir = os.path.join(model_path, name, f"ours_{iteration}", "renders")
     gt_dir = os.path.join(model_path, name, f"ours_{iteration}", "gt")
     os.makedirs(render_dir, exist_ok=True)
@@ -77,14 +82,11 @@ def render_set(model_path: str, name: str, iteration: int, cams, params,
     exposures = load_exposures(model_path) if train_test_exp else None
 
     for idx, cam in enumerate(cams):
-        out = render(cam.camera, params, bg, active_sh_degree=sh_degree,
-                     antialiasing=pipe.antialiasing,
-                     convert_SHs_python=pipe.convert_SHs_python,
-                     compute_cov3D_python=pipe.compute_cov3D_python,
-                     alive=alive, backend=raster.backend,
-                     dup_capacity=raster.dup_capacity,
-                     max_per_tile=raster.max_per_tile, chunk=raster.chunk,
-                     **raster_lever_kwargs(raster))
+        out, raster = render_grown(
+            cam.camera, params, bg, raster, label=f"{name} view {idx}",
+            active_sh_degree=sh_degree, antialiasing=pipe.antialiasing,
+            convert_SHs_python=pipe.convert_SHs_python,
+            compute_cov3D_python=pipe.compute_cov3D_python, alive=alive)
         rendering = out.image.cpu().numpy()
         if exposures is not None and cam.info.image_name in exposures:
             e = exposures[cam.info.image_name]
@@ -98,6 +100,7 @@ def render_set(model_path: str, name: str, iteration: int, cams, params,
         save_png(os.path.join(gt_dir, f"{idx:05d}.png"), gt)
         print(f"\r{name} {idx + 1}/{len(cams)}", end="", flush=True)
     print()
+    return raster
 
 
 def main(argv=None):
@@ -129,9 +132,10 @@ def main(argv=None):
                     device=device)
 
     if not args.skip_train:
-        render_set(model_cfg.model_path, "train", iteration,
-                   scene.get_train_cameras(), params, alive, d["sh_degree"],
-                   bg, pipe, raster, model_cfg.train_test_exp)
+        raster = render_set(model_cfg.model_path, "train", iteration,
+                            scene.get_train_cameras(), params, alive,
+                            d["sh_degree"], bg, pipe, raster,
+                            model_cfg.train_test_exp)
     if not args.skip_test and scene.get_test_cameras():
         render_set(model_cfg.model_path, "test", iteration,
                    scene.get_test_cameras(), params, alive, d["sh_degree"],

@@ -13,8 +13,12 @@ dir has the JAX package's layout (``cfg_args``, ``config.json``,
 
 Training runs on ``--data_device`` (``cuda`` by default), where the training
 images live. Step mode is the default; --block_scan runs schedule-aligned
-blocks with one sync each. Not ported yet: the network viewer (a run
-without --disable_viewer says so and trains on) and several devices
+blocks with one sync each. Unless --disable_viewer is given, a SIBR-protocol
+viewer server listens on --ip:--port (``viewer/server.py``) and is polled
+after every iteration (after every block in block mode, whose length is
+then capped to about a second of iterations); a port that cannot be bound
+is reported and training goes on. A checkpoint may be the port's or the
+JAX package's (``train/checkpoint.py``). Not ported yet: several devices
 (--mesh above 1 and --multihost raise).
 """
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..core.gaussians import get_opacity
 from ..data.scene import Scene
 from ..train.checkpoint import load_checkpoint, save_checkpoint
 from ..train.loop import Trainer
+from ..viewer.server import ViewerServer
 from .args import extract_dataclass, make_parser, resolve_data_device
 
 MULTI_DEVICE = "ROADMAP.md queue 1 item 9 (multi-GPU) is not ported yet"
@@ -144,15 +149,33 @@ def main(argv=None):
         start_state=start_state, start_iteration=start_iter, seed=args.seed,
         initial_capacity=args.initial_capacity or None)
 
+    viewer = None
     if not args.disable_viewer:
-        print(f"Viewer server unavailable: the network viewer is not ported "
-              f"yet (ROADMAP.md queue 1 item 5); training without "
-              f"{args.ip}:{args.port}")
+        try:
+            viewer = ViewerServer(args.ip, args.port, trainer=trainer,
+                                  source_path=model_cfg.source_path)
+            print(f"GUI server started at {args.ip}:{viewer.port}")
+        except OSError as e:   # port in use etc.: train anyway
+            print(f"Viewer server unavailable: {e}")
 
     save_at = set(args.save_iterations)
     ckpt_at = set(args.checkpoint_iterations)
     t_start = time.perf_counter()
     last_log = [t_start, start_iter]
+
+    # while a viewer client is attached, cap block-scan blocks to ~1 s of
+    # iterations so the client gets frames at interactive rates (the
+    # reference drains its socket every iteration, train.py:72-86)
+    rate = [t_start, start_iter, 8.0]   # [t_prev, i_prev, its_ema]
+
+    def block_cap():
+        if viewer is None:
+            return None
+        if viewer.conn is None:
+            viewer.try_connect()
+        if viewer.conn is None:
+            return None
+        return min(64, max(1, int(rate[2])))
 
     # a torch.profiler trace over a warm window of the run, so it shows
     # steady-state steps and not the first kernel build
@@ -185,6 +208,13 @@ def main(argv=None):
 
     def on_step(i, metrics, tr):
         profile_tick(i)
+        if viewer is not None:
+            viewer.poll()
+            t = time.perf_counter()
+            if i > rate[1] and t > rate[0]:
+                its = (i - rate[1]) / (t - rate[0])
+                rate[2] = 0.5 * rate[2] + 0.5 * its
+            rate[0], rate[1] = t, i
         now = time.perf_counter()
         if tb_writer is not None and i % 10 == 0:
             tb_writer.add_scalar("train_loss_patches/total_loss",
@@ -239,10 +269,15 @@ def main(argv=None):
     if args.checkpoint_every > 0:
         boundaries |= set(range(args.checkpoint_every, opt.iterations + 1,
                                 args.checkpoint_every))
-    elapsed = trainer.train(test_iterations=set(args.test_iterations),
-                            on_step=on_step, on_test=on_test, log_every=1,
-                            block_scan=args.block_scan and not args.no_block_scan,
-                            boundary_iterations=boundaries)
+    try:
+        elapsed = trainer.train(
+            test_iterations=set(args.test_iterations), on_step=on_step,
+            on_test=on_test, log_every=1,
+            block_scan=args.block_scan and not args.no_block_scan,
+            boundary_iterations=boundaries, block_cap=block_cap)
+    finally:
+        if viewer is not None:
+            viewer.close()
     print(f"\nTraining complete ({elapsed:.1f}s).")
     if prof["profiler"] is not None:   # the run ended inside the window
         stop_profile()

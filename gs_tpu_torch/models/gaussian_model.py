@@ -14,9 +14,9 @@ each returns a new state, as the JAX package's do.
 Density control (ref: scene/gaussian_model.py:367-433, train.py:157-167)
 works at a fixed capacity, as in the JAX package: clones and split
 children go into free slots, pruned rows die, and the capacity changes only
-through ``compact`` and ``grow_capacity``. Every function returns a new state
-and writes into none of its inputs, so a caller may keep the old state (the
-trainer's overflow replay does). The split noise is an argument: JAX's and
+through ``compact`` and ``grow_capacity``, never past ``MAX_CAPACITY``.
+Every function returns a new state and writes into none of its inputs, so a
+caller may keep the old state (the trainer's overflow replay does). The split noise is an argument: JAX's and
 torch's generators differ, so the tests feed both packages the same draws.
 """
 from __future__ import annotations
@@ -38,6 +38,9 @@ ADAM_B1 = 0.9
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-15      # ref: gaussian_model.py:170
 EXP_ADAM_EPS = 1e-8   # torch default for the exposure optimizer
+# the largest capacity a state takes: the largest multiple of 1024 below
+# 2^24, the binning's limit on the Gaussian count (ops/binning.py)
+MAX_CAPACITY = (1 << 24) - 1024
 
 
 class TrainState(NamedTuple):
@@ -96,13 +99,25 @@ def init_state(params: GaussianParams, alive: torch.Tensor,
     )
 
 
+def default_capacity(n: int) -> int:
+    """create_from_pcd's capacity for ``n`` points: the power of two at or
+    above 2n (at least 1024), capped at ``MAX_CAPACITY``."""
+    if n > MAX_CAPACITY:
+        raise ValueError(
+            f"a point cloud of {n} points is larger than the largest "
+            f"capacity the binning can address ({MAX_CAPACITY}, the largest "
+            f"multiple of 1024 below 2^24); subsample it first")
+    return min(max(1 << int(math.ceil(math.log2(max(n, 1) * 2))), 1024),
+               MAX_CAPACITY)
+
+
 def create_from_pcd(points: np.ndarray, colors: np.ndarray, sh_degree: int,
                     capacity: Optional[int] = None, *,
                     device="cuda") -> tuple[GaussianParams, torch.Tensor]:
     """Initial Gaussians from a point cloud (ref: scene/gaussian_model.py:130-153)."""
     n = points.shape[0]
     if capacity is None:
-        capacity = max(1 << int(math.ceil(math.log2(max(n, 1) * 2))), 1024)
+        capacity = default_capacity(n)
     rest_dim = (sh_degree + 1) ** 2 - 1
 
     xyz = torch.tensor(np.asarray(points, np.float32), device=device)
@@ -426,8 +441,9 @@ def grow_capacity(state: TrainState, new_capacity: int) -> TrainState:
     """Host-side re-pad of every [C, ...] tensor to ``new_capacity``; the new
     rows are dead slots."""
     c = state.capacity
-    if new_capacity < c:
-        raise ValueError(f"new capacity {new_capacity} < capacity {c}")
+    if not c <= new_capacity <= MAX_CAPACITY:
+        raise ValueError(f"new capacity {new_capacity} outside "
+                         f"[{c}, MAX_CAPACITY = {MAX_CAPACITY}]")
 
     def pad(x):
         if x.dim() >= 1 and x.shape[0] == c:

@@ -14,9 +14,16 @@ Every backend is differentiable with respect to the parameters, the
 background and the ``Projected`` fields: ``cuda`` through its custom
 backward (K1g forward, K3 raster backward, K4 gradient fold), ``binned``
 and ``depthwise`` through plain autograd, as the JAX package's oracles.
+
+``render_grown`` is the no-grad entry point of every caller that must not
+return a truncated image (the render CLI, ``Trainer.evaluate`` and
+``render_view``, the viewer): one host read of ``overflow`` per view, and a
+second render at grown buffers when it is set.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -24,13 +31,16 @@ import torch
 from .core.camera import Camera
 from .core.gaussians import GaussianParams
 from .core.project import Projected, preprocess
-from .ops.binning import bin_gaussians
+from .ops.binning import F32_EXACT, bin_gaussians
 from .ops.rasterize import rasterize
 from .ops.rasterize_plain import rasterize_binned, rasterize_depthwise
 
 TILE_X = 16
 TILE_Y = 16
 BACKENDS = ("depthwise", "binned", "cuda")
+# the largest 512-aligned duplicate buffer the binning accepts (offsets ride
+# the K2 table as exact float32 values, below 2^24)
+MAX_DUP_CAPACITY = F32_EXACT - 512
 
 
 class RenderOutput(NamedTuple):
@@ -60,6 +70,56 @@ def raster_lever_kwargs(raster) -> dict:
     every caller runs the configured pipeline."""
     return dict(exact_cull=getattr(raster, "exact_cull", False),
                 bf16_features=getattr(raster, "bf16_features", False))
+
+
+def overflow_changes(dup_capacity: int, max_per_tile: int,
+                     num_duplicates: int, max_tile_len: int) -> dict:
+    """Which buffer overflowed, and its new size: the rule the trainer's
+    replay and every no-grad render that grows share."""
+    changes = {}
+    if num_duplicates > dup_capacity and dup_capacity < MAX_DUP_CAPACITY:
+        # tiered, not pow2: every D-linear stage (expansion, the sorts,
+        # the fold) scales with the capacity; 1.2x headroom, 512-aligned,
+        # and never past what the binning can address
+        changes["dup_capacity"] = min(max(
+            -(-int(num_duplicates * 1.2) // 512) * 512,
+            dup_capacity + 512), MAX_DUP_CAPACITY)
+    if max_tile_len > max_per_tile:
+        changes["max_per_tile"] = 1 << int(
+            math.ceil(math.log2(max(max_tile_len + 1, 2))))
+    return changes
+
+
+def render_grown(camera: Camera, params: GaussianParams, bg: torch.Tensor,
+                 raster, *, label: str = "view", **kwargs):
+    """``render`` with ``raster``'s backend and buffers, read back once: a
+    view that overflowed them renders again with buffers sized from its
+    ``num_duplicates`` and ``max_tile_len`` (``overflow_changes``), and a
+    view that overflows even at ``MAX_DUP_CAPACITY`` is reported. Returns
+    (output, the RasterConfig it rendered with); ``raster`` itself is
+    never changed. Without overflow the output is ``render``'s."""
+    attempts = 0
+    while True:
+        out = render(camera, params, bg, backend=raster.backend,
+                     dup_capacity=raster.dup_capacity,
+                     max_per_tile=raster.max_per_tile, chunk=raster.chunk,
+                     **raster_lever_kwargs(raster), **kwargs)
+        if not bool(out.overflow):
+            return out, raster
+        nd, ml = int(out.num_duplicates), int(out.max_tile_len)
+        changes = overflow_changes(raster.dup_capacity, raster.max_per_tile,
+                                   nd, ml)
+        if not changes or attempts == 3:
+            print(f"[gs_tpu_torch] WARNING: {label} overflowed at "
+                  f"dup_capacity {raster.dup_capacity}, max_per_tile "
+                  f"{raster.max_per_tile} (num_duplicates {nd}, max_tile_len "
+                  f"{ml}); entries were dropped", flush=True)
+            return out, raster
+        print(f"[gs_tpu_torch] {label} overflowed its buffers "
+              f"(num_duplicates {nd}, max_tile_len {ml}); rendering again "
+              f"with {changes}", flush=True)
+        raster = dataclasses.replace(raster, **changes)
+        attempts += 1
 
 
 def render(camera: Camera, params: GaussianParams, bg: torch.Tensor, *,

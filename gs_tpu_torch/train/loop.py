@@ -6,11 +6,12 @@ epoch-less random camera picks without replacement, densify/prune every
 ``densification_interval`` iterations inside [densify_from_iter,
 densify_until_iter), opacity reset every ``opacity_reset_interval`` (plus
 once at densify_from_iter on a white background), the SH-degree ramp and
-periodic test-set PSNR reports. Padded-capacity growth (at 85 % alive, by 4)
-and duplicate-buffer overflow recovery have no reference counterpart: an
-overflow is seen only at a sync, so the state at each sync is kept and the
-window since is replayed with grown buffers, with the same camera picks and
-random draws, so no update is kept from a truncated render.
+periodic test-set PSNR reports. Padded-capacity growth (at 85 % alive, by 4,
+capped below 2^24: ``next_capacity``) and duplicate-buffer overflow
+recovery have no reference counterpart: an overflow is seen only at a sync,
+so the state at each sync is kept and the window since is replayed with
+grown buffers, with the same camera picks and random draws, so no update is
+kept from a truncated render.
 
 The training images (and alpha masks, depth maps and depth masks) move to
 ``model_cfg.data_device`` once, in the constructor. The step runs eagerly;
@@ -40,18 +41,19 @@ from ..config import (ModelConfig, OptimizationConfig, PipelineConfig,
                       RasterConfig)
 from ..core.camera import stack_cameras
 from ..data.camera_utils import LoadedCamera
-from ..models.gaussian_model import (TrainState, create_from_pcd,
-                                     densify_and_prune, grow_capacity,
-                                     init_state, reset_opacity)
-from ..ops.binning import F32_EXACT
+from ..models.gaussian_model import (MAX_CAPACITY, TrainState,
+                                     create_from_pcd, densify_and_prune,
+                                     grow_capacity, init_state, reset_opacity)
 from ..ops.losses import psnr
-from ..render import raster_lever_kwargs, render
+from ..render import (MAX_DUP_CAPACITY, RenderOutput, overflow_changes,
+                      render_grown)
 from .step import StepMetrics, make_train_step, mask_sh_rest
 
 
-# the largest 512-aligned duplicate buffer the binning accepts (offsets ride
-# the K2 table as exact float32 values, below 2^24)
-MAX_DUP_CAPACITY = F32_EXACT - 512
+def next_capacity(capacity: int, factor: int = 4) -> int:
+    """The capacity a grow moves to: ``factor`` times, capped at
+    ``MAX_CAPACITY`` (the binning addresses fewer than 2^24 Gaussians)."""
+    return min(capacity * factor, MAX_CAPACITY)
 
 
 def _normalize_resolutions(cams: list) -> list:
@@ -169,6 +171,8 @@ class Trainer:
         # windows where replay gave up and truncated updates were kept: a
         # correctness cliff that must be loud
         self.overflow_exhausted = 0
+        # densifies that found the alive count past 85 % of MAX_CAPACITY
+        self.capacity_exhausted = 0
         # overflow replay: keep the state at the last sync point plus a log
         # of everything dispatched since, so a binning overflow (observable
         # only at syncs) re-runs the damaged window with grown buffers
@@ -332,8 +336,9 @@ class Trainer:
             return
         attempts = 0
         while bool(metrics.overflow):
-            changes = self._overflow_changes(int(metrics.num_duplicates),
-                                             int(metrics.max_tile_len))
+            changes = overflow_changes(
+                self.raster.dup_capacity, self.raster.max_per_tile,
+                int(metrics.num_duplicates), int(metrics.max_tile_len))
             replay = bool(changes) and attempts < 4
             if changes:
                 self._grow_raster(changes, will_replay=replay)
@@ -373,22 +378,6 @@ class Trainer:
                  cam_idx=cam_idx, iteration=self.iteration)
         print(f"[gs_tpu_torch] wrote debug dump to {path}")
 
-    def _overflow_changes(self, num_duplicates: int, max_tile_len: int) -> dict:
-        """Which buffer overflowed, and its new size."""
-        changes = {}
-        if (num_duplicates > self.raster.dup_capacity
-                and self.raster.dup_capacity < MAX_DUP_CAPACITY):
-            # tiered, not pow2: every D-linear stage (expansion, the sorts,
-            # the fold) scales with the capacity; 1.2x headroom, 512-aligned,
-            # and never past what the binning can address
-            changes["dup_capacity"] = min(max(
-                -(-int(num_duplicates * 1.2) // 512) * 512,
-                self.raster.dup_capacity + 512), MAX_DUP_CAPACITY)
-        if max_tile_len > self.raster.max_per_tile:
-            changes["max_per_tile"] = 1 << int(
-                math.ceil(math.log2(max(max_tile_len + 1, 2))))
-        return changes
-
     def _grow_raster(self, changes: dict, will_replay: bool):
         """Grow the overflowed buffer(s) and rebuild the step."""
         ran = self.iteration - self._last_sync_iter
@@ -402,41 +391,60 @@ class Trainer:
     def _maybe_grow(self, headroom: float = 0.85, factor: int = 4):
         n_alive = int(self.state.num_alive)
         cap = self.state.capacity
-        if n_alive > headroom * cap:
+        if n_alive <= headroom * cap:
+            return
+        new_cap = next_capacity(cap, factor)
+        if new_cap > cap:
             print(f"[gs_tpu_torch] capacity {n_alive}/{cap} alive; "
-                  f"growing to {cap * factor}", flush=True)
-            self.state = grow_capacity(self.state, cap * factor)
+                  f"growing to {new_cap}", flush=True)
+            self.state = grow_capacity(self.state, new_cap)
+        if n_alive > headroom * MAX_CAPACITY:
+            # densify drops the rows that find no free slot from here on
+            self.capacity_exhausted += 1
+            print(f"[gs_tpu_torch] WARNING: {n_alive} Gaussians alive at "
+                  f"iteration {self.iteration}, past {headroom:.0%} of the "
+                  f"largest capacity {MAX_CAPACITY}; densification will "
+                  f"drop new Gaussians "
+                  f"(capacity_exhausted={self.capacity_exhausted})",
+                  flush=True)
 
     # ----------------------------------------------------------------- eval
+
+    @torch.no_grad()
+    def render_view(self, cam, scaling_modifier: float = 1.0) -> RenderOutput:
+        """A no-grad render of the current state from ``cam`` (K2 + K1), as
+        the test views and the viewer see it (ref: the JAX trainer's
+        ``_eval_render``): the SH ramp as the train step applies it
+        (coefficients above the active degree masked to zero, the full
+        basis evaluated), the trainer's pipeline and raster settings, and a
+        second render at grown buffers if the view overflows them
+        (``render_grown``; the trainer's own ``raster`` stays as it is)."""
+        bg = torch.full((3,), 1.0 if self.model_cfg.white_background else 0.0,
+                        device=self.device)
+        sh_deg = min(self.iteration // 1000, self.model_cfg.sh_degree)
+        params = mask_sh_rest(self.state.params, sh_deg)
+        out, _ = render_grown(
+            cam, params, bg, self.raster,
+            active_sh_degree=self.model_cfg.sh_degree,
+            scaling_modifier=scaling_modifier,
+            antialiasing=self.pipe.antialiasing,
+            convert_SHs_python=self.pipe.convert_SHs_python,
+            compute_cov3D_python=self.pipe.compute_cov3D_python,
+            alive=self.state.alive)
+        return out
 
     @torch.no_grad()
     def evaluate(self, cams: Sequence[LoadedCamera],
                  max_views: Optional[int] = None) -> dict:
         """L1 + PSNR over a camera list (ref: train.py:207-242
-        training_report), rendered without gradients (K2 + K1)."""
+        training_report), each view through ``render_view``."""
         if max_views:
             cams = cams[:max_views]
         if not cams:
             return {}
-        bg = torch.full((3,), 1.0 if self.model_cfg.white_background else 0.0,
-                        device=self.device)
-        sh_deg = min(self.iteration // 1000, self.model_cfg.sh_degree)
-        # the SH ramp as the train step applies it: coefficients above the
-        # active degree masked to zero, the full basis evaluated
-        params = mask_sh_rest(self.state.params, sh_deg)
         l1s, psnrs = [], []
         for c in cams:
-            out = render(c.camera, params, bg,
-                         active_sh_degree=self.model_cfg.sh_degree,
-                         antialiasing=self.pipe.antialiasing,
-                         convert_SHs_python=self.pipe.convert_SHs_python,
-                         compute_cov3D_python=self.pipe.compute_cov3D_python,
-                         alive=self.state.alive, backend=self.raster.backend,
-                         dup_capacity=self.raster.dup_capacity,
-                         max_per_tile=self.raster.max_per_tile,
-                         chunk=self.raster.chunk,
-                         **raster_lever_kwargs(self.raster))
-            img = torch.clamp(out.image, 0.0, 1.0)
+            img = torch.clamp(self.render_view(c.camera).image, 0.0, 1.0)
             gt = torch.from_numpy(c.image).to(self.device)
             if self.model_cfg.train_test_exp:
                 # score the right half only (ref: train.py:216-219 intent,
@@ -456,13 +464,19 @@ class Trainer:
               on_step: Optional[Callable] = None,
               on_test: Optional[Callable] = None,
               log_every: int = 10, block_scan: bool = False,
-              boundary_iterations: Sequence[int] = ()):
+              boundary_iterations: Sequence[int] = (),
+              block_cap: Optional[Callable] = None):
         """Run until ``iterations`` (defaults to opt.iterations).
 
         ``block_scan`` runs schedule-aligned blocks of steps (no schedule
         event and no ``boundary_iterations`` inside one) with one sync
         after each; step mode keeps the reference's loop shape and syncs
         every ``sync_every`` iterations.
+
+        ``block_cap()``, called before each block, may return an int that
+        caps the block's length: an attached viewer client then gets frames
+        between blocks (the reference drains its socket every iteration,
+        ref: train.py:72-86).
         """
         end = iterations if iterations is not None else self.opt.iterations
         events = sorted(set(test_iterations) | set(boundary_iterations))
@@ -470,6 +484,10 @@ class Trainer:
         while self.iteration < end:
             if block_scan:
                 nb = self._next_boundary(self.iteration, end, extra=events)
+                if block_cap is not None:
+                    cap = block_cap()
+                    if cap:
+                        nb = min(nb, self.iteration + max(int(cap), 1))
                 self.run_block(nb - self.iteration)
                 i = self.iteration
                 self._apply_schedule(i)

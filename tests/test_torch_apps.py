@@ -1,8 +1,9 @@
 """The port's CLIs on the CPU: train -> render -> metrics on
 tests/test_apps.py's tiny COLMAP scene with the JAX package's model-dir
 layout, checkpoints (bitwise round trip, resume), the refusals of what is
-not ported, the profiler trace, and the stored ``data_device`` of a model
-directory the JAX package wrote ("tpu", read as "cuda")."""
+not ported, the profiler trace and the viewer server's start, and the
+stored ``data_device`` of a model directory the JAX package wrote ("tpu",
+read as "cuda")."""
 import dataclasses
 import json
 import os
@@ -145,15 +146,33 @@ def test_multi_device_refused(tiny_scene, tmp_path, flags):
 
 
 def test_profile_trace_and_viewer_notice(tiny_scene, tmp_path, capsys):
+    """Without --disable_viewer the viewer server starts on the given port
+    (a free one here) and is closed at the end; a port already taken is
+    reported and training goes on."""
+    import socket
     model = str(tmp_path / "model")
     trace = str(tmp_path / "trace")
     args = [a for a in _train_args(tiny_scene, model, iters=6)
             if a != "--disable_viewer"]
-    train_app.main(args + ["--profile", trace, "--profile_steps", "2"])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    train_app.main(args + ["--profile", trace, "--profile_steps", "2",
+                           "--port", str(port)])
     path = os.path.join(trace, "trace.json")
     assert os.path.getsize(path) > 0
     with open(path) as f:
         assert json.load(f)["traceEvents"]
+    out = capsys.readouterr().out
+    assert f"GUI server started at 127.0.0.1:{port}" in out
+    assert "Viewer server unavailable" not in out
+    with socket.socket() as s:   # closed at the end of training
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("127.0.0.1", port))
+        s.listen()
+        tr = train_app.main(args + ["--port", str(port), "--iterations", "2",
+                                    "--test_iterations", "2"])
+    assert tr.iteration == 2
     assert "Viewer server unavailable" in capsys.readouterr().out
 
 

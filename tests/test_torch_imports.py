@@ -57,6 +57,35 @@ def test_import_loads_no_jax():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
+NEW_MODULES = ("gs_tpu_torch.viewer.server", "gs_tpu_torch.viewer.client",
+               "gs_tpu_torch.ops.lpips", "gs_tpu_torch.utils.msgpack_reader",
+               "gs_tpu_torch.apps.full_eval", "gs_tpu_torch.apps.convert",
+               "gs_tpu_torch.apps.convert_lpips",
+               "gs_tpu_torch.apps.make_depth_scale",
+               "gs_tpu_torch.apps.visualize_cameras")
+
+
+def test_new_modules_and_checkpoint_reader_load_no_flax():
+    """The viewer, LPIPS and offline tools are modules of the package; the
+    checkpoint module reads the JAX package's msgpack checkpoints without
+    loading flax or msgpack, and no module loads matplotlib or cv2 at
+    import."""
+    code = ("import sys, importlib\n"
+            "import gs_tpu_torch.train.checkpoint\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('flax', 'msgpack', 'jax')]\n"
+            "assert not bad, bad\n"
+            f"for m in {NEW_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('flax', 'msgpack', 'jax', 'matplotlib', 'cv2')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
 def test_cpu_render_launches_no_kernel():
     from gs_tpu_torch.core.camera import make_camera
     from gs_tpu_torch.models.gaussian_model import create_from_pcd

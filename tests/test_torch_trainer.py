@@ -40,6 +40,7 @@ from gs_tpu_torch.core.camera import focal2fov, make_camera
 from gs_tpu_torch.data.camera_utils import LoadedCamera
 from gs_tpu_torch.data.dataset_readers import CameraInfo
 from gs_tpu_torch.models.gaussian_model import group_lrs
+from gs_tpu_torch.render import overflow_changes
 from gs_tpu_torch.train.loop import MAX_DUP_CAPACITY, Trainer
 from gs_tpu_torch.train.step import StepMetrics
 
@@ -255,10 +256,11 @@ def test_overflow_at_the_buffer_limit(capsys):
     (2^24 less 512); an overflow there keeps the truncated updates, counted
     and reported, instead of failing in the binning."""
     tr = port_trainer(dup_capacity=64)
-    assert tr._overflow_changes(20_000_000, 0) == {
-        "dup_capacity": MAX_DUP_CAPACITY}
+    assert overflow_changes(tr.raster.dup_capacity, tr.raster.max_per_tile,
+                            20_000_000, 0) == {"dup_capacity": MAX_DUP_CAPACITY}
     tr.raster = dataclasses.replace(tr.raster, dup_capacity=MAX_DUP_CAPACITY)
-    assert tr._overflow_changes(20_000_000, 0) == {}
+    assert overflow_changes(tr.raster.dup_capacity, tr.raster.max_per_tile,
+                            20_000_000, 0) == {}
     tr._last_metrics = StepMetrics(
         loss=torch.tensor(0.5), l1=torch.tensor(0.5), ssim=torch.tensor(0.0),
         depth_l1=torch.tensor(0.0), num_duplicates=torch.tensor(20_000_000),
