@@ -7,8 +7,9 @@ Usage, from the repository root on a machine with one CUDA card and nvcc:
 
 Phases (each failure exits non-zero):
  1. print the card's name and power limit; build every kernel from
-    gs_tpu_torch/csrc (one nvcc per source, all at once); static SASS
-    counts of K1, K1g, K3 and K4 (shuffles, shared loads and stores);
+    gs_tpu_torch/csrc (one nvcc per source, all at once) and the native
+    COLMAP parser (g++); static SASS counts of K1, K1g, K3 and K4
+    (shuffles, shared loads and stores);
  2. K2 (expansion) against its plain version, bitwise: the three
     expansion test cases and the bench scene's [16, N] table into
     3,072,000 entries; kernel, plain and torch.repeat_interleave times;
@@ -68,7 +69,7 @@ Phases (each failure exits non-zero):
     writes the PNG an ample render writes, byte for byte; then the
     20,000-gaussian scene of [grad] trained twice, with an ample and a
     too-small --dup_capacity, to the same state;
-11. [viewer], this slice's main path: the training CLI on the [trainer]
+11. [viewer], the viewer's path: the training CLI on the [trainer]
     dataset for 80 iterations with its viewer server on a free local port,
     and a client thread asking for 1920x1080 frames (two sent together
     with train=false, served before training resumes, then 8 more); every
@@ -91,7 +92,35 @@ Phases (each failure exits non-zero):
     that link to the [trainer] dataset, 30 iterations each at 1920x1080:
     each scene's cfg_args, PLY, test renders and results.json (SSIM, PSNR,
     LPIPS), and the wall time of each stage;
-14. a JSON line of the kernels' numbers, then the card's name and power
+14. [native]: the [trainer] dataset's points3D.bin (500,000 records) read
+    by the native C++ parser (gs_tpu_torch/native, built by g++ in phase 1)
+    and by the per-record Python loop: equal arrays, the native route
+    taken, both times;
+15. [live], the live-capture path: 24 posed 1920x1080 frames (K1 renders
+    of the bench scene from a helix through the [trainer] ellipse, each
+    with a disjoint 1/24 of the bench centres as its local map) sent as
+    JPEG by a publisher thread through FrameStreamClient to
+    gs_tpu_torch.apps.train_live.main on a free local port
+    (--use_local_maps --eval -r 1, 300 iterations, [trainer]'s densify
+    schedule and grown --dup_capacity); checks: every frame arrives in
+    order, each Scene camera's world_view is its rendering camera's within
+    1e-5 of its largest entry, finite losses, the test PSNR up, a densify
+    cloned or split, one launch each of K2, K1g, K3 and K4 per iteration
+    over 252..299, the PLY written; prints frames per second received and
+    decoded, the bootstrap's seconds, ms per iteration over 252..299 beside
+    [trainer]'s and again with --quiet (the stat line's read-back);
+    [live kernels]: K2 and K1 of a render_view and K2, K1g, K3 and K4 of one
+    more step of the trained state against their plain versions;
+16. [live rain]: the same frames without local maps, --init_points 100
+    (the reference's RAIN-GS init: a few Gaussians each covering up to the
+    whole frame), 300 iterations; checks the loss falls and the alive count
+    rises at each densify; [live kernels] on iteration 2's inputs, and K4's
+    and K2's times there beside the bench frame's;
+17. [convert_stream]: the [live] frames as a .gstream and as a
+    visual_merged .bag, both converted by gs_tpu_torch.apps.convert_stream
+    to the same cameras.txt and images.txt, the first trained 30 iterations
+    through gs_tpu_torch.apps.train.main;
+18. a JSON line of the kernels' numbers, then the card's name and power
     limit, then the result line {"ok": true, "device": {...}}.
 
 It exits non-zero without a CUDA device, or when run outside the repository.
@@ -618,6 +647,131 @@ STEADY = (251, 299)            # no densify, sync or eval in 252..299
 TRAINER_BACK = 3.0             # the views' distance behind the bench camera
 
 
+@contextlib.contextmanager
+def probe_trainer(torch, counters, steady=STEADY, capture_at=None):
+    """Record what a Trainer run does, by wrapping the Trainer's methods for
+    the run: the host time and launch counts of iterations steady[0]+1 ..
+    steady[1] (synchronised at both ends), each densify's DensifyInfo and
+    ms, the capacity after each, each replayed window, the loss and entry
+    count at each sync and the test PSNR at each evaluation; with
+    ``capture_at``, the inputs and outputs of every kernel launched in the
+    step that reaches that iteration (``kernel_calls``)."""
+    from gs_tpu_torch.train import loop
+    T = loop.Trainer
+    names = ("step", "_densify", "_maybe_grow", "_replay_window",
+             "sync_metrics", "evaluate")
+    orig = {k: getattr(T, k) for k in names}
+    rec = dict(steady={}, densify=[], grow=[], replay=[], syncs=[], evals=[],
+               calls=None)
+
+    def counts():
+        return {k: c.launches for k, c in counters.items()}
+
+    def step(self, sync=False):
+        if self.iteration == steady[0]:
+            torch.cuda.synchronize()
+            rec["steady"].update(t0=time.perf_counter(), c0=counts())
+        if capture_at is not None and self.iteration == capture_at - 1:
+            with kernel_calls() as calls:
+                out = orig["step"](self, sync)
+            rec["calls"] = dict(calls)
+        else:
+            out = orig["step"](self, sync)
+        if self.iteration == steady[1]:
+            torch.cuda.synchronize()
+            rec["steady"].update(t1=time.perf_counter(), c1=counts())
+        return out
+
+    def densify(self, state, use_size_threshold):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        new, info = orig["_densify"](self, state, use_size_threshold)
+        torch.cuda.synchronize()
+        rec["densify"].append(dict(
+            iteration=self.iteration, replay=self._replaying,
+            ms=1e3 * (time.perf_counter() - t), capacity=state.capacity,
+            use_size=bool(use_size_threshold),
+            **{k: int(v) for k, v in info._asdict().items()}))
+        return new, info
+
+    def maybe_grow(self, *a, **kw):
+        orig["_maybe_grow"](self, *a, **kw)
+        rec["grow"].append((self.iteration, self.state.capacity))
+
+    def replay(self):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start = self._snapshot["iteration"]
+        out = orig["_replay_window"](self)
+        torch.cuda.synchronize()
+        rec["replay"].append(dict(window=(start, self.iteration),
+                                  ms=1e3 * (time.perf_counter() - t),
+                                  dup_capacity=self.raster.dup_capacity))
+        return out
+
+    def sync(self):
+        orig["sync_metrics"](self)
+        if self._last_metrics is not None and (
+                not rec["syncs"] or rec["syncs"][-1][0] != self.iteration):
+            m = self._last_metrics
+            rec["syncs"].append((self.iteration, float(m.loss),
+                                 int(m.num_duplicates)))
+
+    def evaluate(self, cams, max_views=None):
+        out = orig["evaluate"](self, cams, max_views)
+        if cams is self.test_cams:
+            rec["evals"].append((self.iteration, out["psnr"]))
+        return out
+
+    for k, f in zip(names, (step, densify, maybe_grow, replay, sync,
+                            evaluate)):
+        setattr(T, k, f)
+    try:
+        yield rec
+    finally:
+        for k, f in orig.items():
+            setattr(T, k, f)
+
+
+def steady_window(rec, counters, steady=STEADY):
+    """(ms per iteration, launches per iteration) over a probed run's
+    steady window."""
+    st = rec["steady"]
+    n = steady[1] - steady[0]
+    return (1e3 * (st["t1"] - st["t0"]) / n,
+            {k: (st["c1"][k] - st["c0"][k]) / n for k in counters})
+
+
+def profile_iterations(torch, trainer, iteration_ms, tag, table=True):
+    """The device's busy time in one trainer iteration, the median of
+    PROFILED_STEPS iterations profiled one by one, and its idle share of
+    ``iteration_ms``; with ``table``, the last one's kernels by time."""
+    from torch.profiler import ProfilerActivity, profile
+    busy = []
+    for _ in range(PROFILED_STEPS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.step()
+            torch.cuda.synchronize()
+        busy.append(sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+                    / 1e3)
+    busy_ms = float(np.median(busy))
+    events = prof.key_averages()
+    n_launch = sum(e.count for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"[{tag}] one trainer iteration: device busy {busy_ms:.4f} ms, "
+          f"the median of {PROFILED_STEPS} profiled one by one ("
+          + ", ".join(f"{x:.4f}" for x in busy) + f"), in {n_launch} kernel "
+          f"launches; against the {iteration_ms:.3f} ms iteration the device "
+          f"is idle {1 - busy_ms / iteration_ms:.1%}"
+          + ("; the table is the last iteration's" if table else ""),
+          flush=True)
+    if table:
+        print(events.table(sort_by="cuda_time_total", row_limit=15,
+                           max_name_column_width=60), flush=True)
+
+
 def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
     """Phase 10: the training driver through its CLIs. Returns the kernel
     launch counts of the training CLI's run, the temporary directory that
@@ -710,71 +864,11 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
           "points3D.bin round trip")
     print(f"[trainer] dataset: 8 views {W}x{H} rendered by K1 and written "
           f"as PNG in {images_s:.2f} s; points3D.bin of {len(pts)} points "
-          f"written in {write_s:.2f} s and read back by the pure-Python "
-          f"record loop (colmap.read_points3D_binary) in {read_s:.2f} s",
-          flush=True)
+          f"written in {write_s:.2f} s and read back by "
+          f"colmap.read_points3D_binary (the native parser) in "
+          f"{read_s:.2f} s", flush=True)
 
     # ------------------------------------------- train through the CLI
-    T = loop.Trainer
-    names = ("step", "_densify", "_maybe_grow", "_replay_window",
-             "sync_metrics", "evaluate")
-    orig = {k: getattr(T, k) for k in names}
-    rec = dict(steady={}, densify=[], grow=[], replay=[], syncs=[], evals=[])
-
-    def step(self, sync=False):
-        if self.iteration == STEADY[0]:
-            torch.cuda.synchronize()
-            rec["steady"].update(t0=time.perf_counter(), c0=counts())
-        out = orig["step"](self, sync)
-        if self.iteration == STEADY[1]:
-            torch.cuda.synchronize()
-            rec["steady"].update(t1=time.perf_counter(), c1=counts())
-        return out
-
-    def densify(self, state, use_size_threshold):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        new, info = orig["_densify"](self, state, use_size_threshold)
-        torch.cuda.synchronize()
-        rec["densify"].append(dict(
-            iteration=self.iteration, replay=self._replaying,
-            ms=1e3 * (time.perf_counter() - t), capacity=state.capacity,
-            use_size=bool(use_size_threshold),
-            **{k: int(v) for k, v in info._asdict().items()}))
-        return new, info
-
-    def maybe_grow(self, *a, **kw):
-        orig["_maybe_grow"](self, *a, **kw)
-        rec["grow"].append((self.iteration, self.state.capacity))
-
-    def replay(self):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        start = self._snapshot["iteration"]
-        out = orig["_replay_window"](self)
-        torch.cuda.synchronize()
-        rec["replay"].append(dict(window=(start, self.iteration),
-                                  ms=1e3 * (time.perf_counter() - t),
-                                  dup_capacity=self.raster.dup_capacity))
-        return out
-
-    def sync(self):
-        orig["sync_metrics"](self)
-        if self._last_metrics is not None and (
-                not rec["syncs"] or rec["syncs"][-1][0] != self.iteration):
-            m = self._last_metrics
-            rec["syncs"].append((self.iteration, float(m.loss),
-                                 int(m.num_duplicates)))
-
-    def evaluate(self, cams, max_views=None):
-        out = orig["evaluate"](self, cams, max_views)
-        if cams is self.test_cams:
-            rec["evals"].append((self.iteration, out["psnr"]))
-        return out
-
-    for k, f in zip(names, (step, densify, maybe_grow, replay, sync,
-                            evaluate)):
-        setattr(T, k, f)
     args = ["-s", root, "-m", model, "-r", "1", "--eval",
             "--iterations", str(TRAINER_ITERS),
             "--densify_from_iter", "50", "--densification_interval", "50",
@@ -789,12 +883,11 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
         c.launches = 0
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(log):
+        with probe_trainer(torch, counters) as rec, \
+                contextlib.redirect_stdout(log):
             trainer = train_app.main(args)
         torch.cuda.synchronize()
     finally:
-        for k, f in orig.items():
-            setattr(T, k, f)
         print("\n".join(ln for ln in log.getvalue().splitlines()
                         if any(w in ln for w in (
                             "overflow", "capacity", "Evaluating",
@@ -827,10 +920,7 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
                                   for i, x, d in rec["syncs"]), flush=True)
     print(f"[trainer] test PSNR: " + ", ".join(
         f"{i}: {x:.4f}" for i, x in rec["evals"]), flush=True)
-    st = rec["steady"]
-    n_steady = STEADY[1] - STEADY[0]
-    steady_ms = 1e3 * (st["t1"] - st["t0"]) / n_steady
-    per_it = {k: (st["c1"][k] - st["c0"][k]) / n_steady for k in counters}
+    steady_ms, per_it = steady_window(rec, counters)
     check(all(math.isfinite(x) for _, x, _ in rec["syncs"]) and rec["syncs"],
           "[trainer] non-finite loss at a sync")
     check(len(rec["evals"]) == 2 and rec["evals"][1][1] > rec["evals"][0][1],
@@ -880,28 +970,7 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
           "[trainer] checkpoint round trip")
     del state, again
 
-    from torch.profiler import ProfilerActivity, profile
-    busy = []
-    for _ in range(PROFILED_STEPS):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            trainer.step()
-            torch.cuda.synchronize()
-        busy.append(sum(e.self_device_time_total for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA)
-                    / 1e3)
-    busy_ms = float(np.median(busy))
-    events = prof.key_averages()
-    n_launch = sum(e.count for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"[trainer profile] one trainer iteration: device busy "
-          f"{busy_ms:.4f} ms, the median of {PROFILED_STEPS} profiled one "
-          f"by one (" + ", ".join(f"{x:.4f}" for x in busy) + f"), in "
-          f"{n_launch} kernel launches; against the {steady_ms:.3f} ms "
-          f"iteration the device is idle {1 - busy_ms / steady_ms:.1%}; the "
-          f"table is the last iteration's", flush=True)
-    print(events.table(sort_by="cuda_time_total", row_limit=15,
-                       max_name_column_width=60), flush=True)
+    profile_iterations(torch, trainer, steady_ms, "trainer profile")
     dup = trainer.raster.dup_capacity
     del trainer
 
@@ -1079,82 +1148,97 @@ def kernel_calls():
             setattr(mod, name, orig[k])
 
 
-def path_kernels_match(torch, trainer, cam):
-    """Each kernel against its plain version at the shapes the viewer's run
-    gives it: K2 and K1 as they ran in ``Trainer.render_view`` of ``cam``,
-    K2, K1g, K3 and K4 as they ran in one more training step, each on the
-    inputs it was given there, under the rules of the bench-frame checks
-    (K2 bitwise; K1 and K1g the backend rule, K1g's image bitwise K1's and
-    its residual off on at most 0.2 % of pixels; K3 the gradient rule and
-    K3 and K4 bitwise from run to run; K4 within 1e-6 of the largest sum,
-    against fold_rows_plain's float64 run sums). Returns each kernel's
-    largest absolute error."""
-    from gs_tpu_torch.ops.expand import expand_rows, expand_rows_plain
+def k2_matches(torch, calls, tag, label):
+    """K2 of a captured call against its plain version, bitwise; returns
+    the table's shape for the report."""
+    from gs_tpu_torch.ops.expand import expand_rows_plain
+    (comb, offsets, capacity), got = calls["K2"]
+    check(torch.equal(got, expand_rows_plain(comb, offsets, capacity)),
+          f"[{tag}] K2 != plain on {label}")
+    entries = int(comb[1].to(torch.int64).sum())
+    check(entries <= capacity, f"[{tag}] {label} overflowed")
+    return f"[16, {comb.shape[1]}] -> {capacity} entries ({entries} owned)"
+
+
+def step_kernels_match(torch, calls, tag, label):
+    """K2, K1g, K3 and K4 of one captured training step (``kernel_calls``)
+    against their plain versions on the inputs each was given, and K1 on
+    K1g's inputs, under the rules of the bench-frame checks (K2 bitwise; K1
+    and K1g the backend rule, K1g's image bitwise K1's and its residual off
+    on at most 0.2 % of pixels; K3 the gradient rule and K3 and K4 bitwise
+    from run to run; K4 within 1e-6 of the largest sum, against
+    fold_rows_plain's float64 run sums). Returns each kernel's largest
+    absolute error."""
     from gs_tpu_torch.ops.fold import fold_rows, fold_rows_plain
     from gs_tpu_torch.ops.rasterize import (raster_tiles_bwd,
                                             raster_tiles_bwd_plain,
                                             raster_tiles_fwd,
                                             raster_tiles_fwd_plain)
-    errs = {}
+    errs = {"K2": 0.0}
+    with torch.no_grad():
+        shape = k2_matches(torch, calls, tag, label)
+        args, (out_g, last) = calls["K1g"]
+        out_p, last_p = raster_tiles_fwd_plain(*args, save=True)
+        ok, errs["K1g"], _ = images_match(out_g, out_p)
+        differ = float((last != last_p).double().mean())
+        check(ok and differ <= 2e-3, f"[{tag}] K1g != plain")
+        out_k1 = raster_tiles_fwd(*args)
+        check(torch.equal(out_k1, out_g), f"[{tag}] K1g image != K1")
+        ok, errs["K1"], _ = images_match(out_k1, out_p)
+        check(ok, f"[{tag}] K1 != plain")
+        del out_p, last_p, out_k1
+        args, got = calls["K3"]
+        ok, ratio, errs["K3"] = grads_match(
+            got.T, raster_tiles_bwd_plain(*args).T)
+        check(ok, f"[{tag}] K3 != plain (ratio {ratio})")
+        check(torch.equal(raster_tiles_bwd(*args), got),
+              f"[{tag}] K3 not deterministic")
+        args, got = calls["K4"]
+        ref = fold_rows_plain(*args)
+        errs["K4"] = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(errs["K4"] <= 1e-6 * scale, f"[{tag}] K4 != plain")
+        check(torch.equal(fold_rows(*args), got),
+              f"[{tag}] K4 not deterministic")
+    print(f"[{tag}] {label}: K2 {shape}, bitwise equal; K1g max |kernel - "
+          f"plain| {errs['K1g']:.3e}, image bitwise K1's, residual differs "
+          f"on {differ:.4%} of pixels; K3 worst row {ratio:.3e} of max "
+          f"|plain| (rule 2e-4), max abs {errs['K3']:.3e}, repeat bitwise; "
+          f"K4 max |kernel - plain| {errs['K4']:.3e} = "
+          f"{errs['K4'] / max(scale, 1e-30):.3e} of the largest sum (rule "
+          f"1e-6), repeat bitwise", flush=True)
+    return errs
 
-    def k2_matches(calls, label):
-        (comb, offsets, capacity), got = calls["K2"]
-        check(torch.equal(got, expand_rows_plain(comb, offsets, capacity)),
-              f"[viewer kernels] K2 != plain on {label}")
-        entries = int(comb[1].to(torch.int64).sum())
-        check(entries <= capacity, f"[viewer kernels] {label} overflowed")
-        errs["K2"] = 0.0
-        return f"[16, {comb.shape[1]}] -> {capacity} entries ({entries} owned)"
 
+def path_kernels_match(torch, trainer, cam, tag="viewer kernels"):
+    """Each kernel against its plain version at the shapes a run gives it:
+    K2 and K1 as they ran in ``Trainer.render_view`` of ``cam``, K2, K1g, K3
+    and K4 as they ran in one more training step, each on the inputs it was
+    given there (``step_kernels_match``'s rules). Returns each kernel's
+    largest absolute error."""
+    from gs_tpu_torch.ops.rasterize import raster_tiles_fwd_plain
     with torch.no_grad():
         with kernel_calls() as calls:
             out = trainer.render_view(cam)
-        check(not bool(out.overflow), "[viewer kernels] the view overflowed")
-        shape = k2_matches(calls, "the client's view")
+        check(not bool(out.overflow), f"[{tag}] the view overflowed")
+        shape = k2_matches(torch, calls, tag, "a view")
         args, got = calls["K1"]
-        ok, errs["K1"], frac = images_match(got, raster_tiles_fwd_plain(*args))
-        check(ok, f"[viewer kernels] K1 != plain (max {errs['K1']}, frac "
-                  f"{frac})")
-        print(f"[viewer kernels] the client's view of the trained state "
+        ok, k1_err, frac = images_match(got, raster_tiles_fwd_plain(*args))
+        check(ok, f"[{tag}] K1 != plain (max {k1_err}, frac {frac})")
+        print(f"[{tag}] a view of the trained state "
               f"({trainer.state.capacity} slots): K2 {shape}, bitwise equal; "
               f"K1 over {args[1].shape[0]} tiles, windows of up to "
-              f"{args[4]} chunks: max |kernel - plain| {errs['K1']:.3e}, "
+              f"{args[4]} chunks: max |kernel - plain| {k1_err:.3e}, "
               f"{frac:.4%} of values beyond 1e-5", flush=True)
         del calls, out, args, got
 
     with kernel_calls() as calls:
         m = trainer.step(sync=True)
-    check(not bool(m.overflow), "[viewer kernels] the training step overflowed")
-    with torch.no_grad():
-        shape = k2_matches(calls, "a training step")
-        args, (out_g, last) = calls["K1g"]
-        out_p, last_p = raster_tiles_fwd_plain(*args, save=True)
-        ok, errs["K1g"], _ = images_match(out_g, out_p)
-        differ = float((last != last_p).double().mean())
-        check(ok and differ <= 2e-3, "[viewer kernels] K1g != plain")
-        check(torch.equal(raster_tiles_fwd(*args), out_g),
-              "[viewer kernels] K1g image != K1")
-        del out_p, last_p
-        args, got = calls["K3"]
-        ok, ratio, errs["K3"] = grads_match(
-            got.T, raster_tiles_bwd_plain(*args).T)
-        check(ok, f"[viewer kernels] K3 != plain (ratio {ratio})")
-        check(torch.equal(raster_tiles_bwd(*args), got),
-              "[viewer kernels] K3 not deterministic")
-        args, got = calls["K4"]
-        ref = fold_rows_plain(*args)
-        errs["K4"] = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        check(errs["K4"] <= 1e-6 * scale, "[viewer kernels] K4 != plain")
-        check(torch.equal(fold_rows(*args), got),
-              "[viewer kernels] K4 not deterministic")
-    print(f"[viewer kernels] training step {trainer.iteration} on the same "
-          f"state: K2 {shape}, bitwise equal; K1g max |kernel - plain| "
-          f"{errs['K1g']:.3e}, image bitwise K1's, residual differs on "
-          f"{differ:.4%} of pixels; K3 worst row {ratio:.3e} of max |plain| "
-          f"(rule 2e-4), max abs {errs['K3']:.3e}, repeat bitwise; K4 max "
-          f"|kernel - plain| {errs['K4']:.3e} = {errs['K4'] / scale:.3e} of "
-          f"the largest sum (rule 1e-6), repeat bitwise", flush=True)
+    check(not bool(m.overflow), f"[{tag}] the training step overflowed")
+    errs = step_kernels_match(torch, calls, tag,
+                              f"training step {trainer.iteration} on the "
+                              f"same state")
+    errs["K1"] = max(errs["K1"], k1_err)
     return errs
 
 
@@ -1371,6 +1455,463 @@ def viewer_phase(torch, dev, root, dup, steady_ms, counters):
     return launches, errs
 
 
+LIVE_FRAMES = 24               # posed frames streamed to train_live
+LIVE_DEPTH = 1.0               # the trajectory's advance along z
+LIVE_TARGET = np.array([0.0, 0.0, 6.0])   # where every frame looks
+RAIN_POINTS = 100              # the reference's RAIN-GS init
+RAIN_CAPTURE = 2               # the [live rain] step whose kernels are kept
+
+
+def look_at(centre, target):
+    """The c2w rotation of a camera at ``centre`` looking at ``target``
+    (COLMAP axes: x right, y down, z forward; identity looks down +z)."""
+    f = target - centre
+    f = f / np.linalg.norm(f)
+    x = np.cross([0.0, 1.0, 0.0], f)
+    x = x / np.linalg.norm(x)
+    return np.stack([x, np.cross(f, x), f], axis=1)
+
+
+def live_frames(torch, dev, p0, alive0, pts):
+    """The [live] stream: LIVE_FRAMES posed 1920x1080 frames, each the
+    port's K1 render of the bench scene from a pose on a helix through the
+    [trainer] ellipse (TRAINER_BACK behind the bench camera, advancing
+    LIVE_DEPTH along z), looking at LIVE_TARGET, with a centred K and a
+    disjoint 1/LIVE_FRAMES slice of the bench centres as its local map.
+    Returns the frames and their rendering cameras."""
+    from gs_tpu_torch.core.camera import focal2fov, make_camera
+    from gs_tpu_torch.data.colmap import rotmat2qvec
+    from gs_tpu_torch.io_live.stream import Frame
+    from gs_tpu_torch.render import render
+    from gs_tpu_torch.viewer.server import frame_bytes
+    fovx = math.radians(70.0)
+    focal = W / (2 * math.tan(fovx / 2))
+    fovy = focal2fov(focal, H)
+    K = np.array([[focal, 0.0, W / 2], [0.0, focal, H / 2], [0.0, 0.0, 1.0]])
+    slices = np.array_split(pts, LIVE_FRAMES)
+    frames, cams = [], []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(LIVE_FRAMES):
+            a = 2 * math.pi * i / LIVE_FRAMES
+            c = np.array([1.5 * math.cos(a), 0.75 * math.sin(a),
+                          -TRAINER_BACK + LIVE_DEPTH * (
+                              i / (LIVE_FRAMES - 1) - 0.5)])
+            R = look_at(c, LIVE_TARGET)
+            cam = make_camera(R, -R.T @ c, fovx, fovy, W, H, device=dev)
+            out = render(cam, p0, torch.zeros(3, device=dev),
+                         active_sh_degree=3, alive=alive0,
+                         dup_capacity=1 << 23, max_per_tile=4096,
+                         exact_cull=True)
+            check(not bool(out.overflow), f"[live] view {i} overflow")
+            img = np.frombuffer(frame_bytes(out.image), np.uint8).reshape(
+                H, W, 3)
+            frames.append(Frame(stamp=i / 30.0, image=img, K=K,
+                                qvec=rotmat2qvec(R), tvec=c,
+                                pose_convention="c2w", points=slices[i]))
+            cams.append(cam)
+            del out
+    print(f"[live] {LIVE_FRAMES} frames {W}x{H} rendered by K1 in "
+          f"{time.perf_counter() - t0:.2f} s; {len(slices[0])} local-map "
+          f"points each", flush=True)
+    return frames, cams
+
+
+def run_live(torch, dev, tmpdir, name, frames, extra, counters,
+             capture_at=None):
+    """One run of gs_tpu_torch.apps.train_live.main on a free local port,
+    fed by a publisher thread that sends ``frames`` through
+    FrameStreamClient (JPEG, the client's default), with the Trainer
+    probed (``probe_trainer``), each frame's decode timed on the server and
+    the bootstrap (ingest, Scene, Trainer) timed. The launch counts are set
+    to 0 just before the run and read just after. Returns the trainer and
+    the record."""
+    import threading
+    from gs_tpu_torch.apps import train_live
+    from gs_tpu_torch.io_live import stream
+    port = free_port()
+    pub = dict(error=None)
+    decoded, boot = [], {}
+
+    def publisher():
+        try:
+            deadline = time.time() + 300
+            while True:
+                try:
+                    client = stream.FrameStreamClient("127.0.0.1", port,
+                                                      timeout=300)
+                    break
+                except OSError:
+                    if time.time() > deadline:
+                        raise
+                    time.sleep(0.02)
+            pub["t0"] = time.perf_counter()
+            for f in frames:
+                client.send(f)
+            pub["t1"] = time.perf_counter()
+            client.close()
+        except Exception as e:          # reported and failed below
+            pub["error"] = repr(e)
+
+    orig_decode = stream.decode_frame
+
+    def decode(blob):
+        f = orig_decode(blob)
+        decoded.append((time.perf_counter(), f.stamp))
+        return f
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            boot[key] = time.perf_counter() - t
+            return out
+        return call
+
+    wrapped = ("scene_info_from_frames", "Scene", "Trainer")
+    orig = {k: getattr(train_live, k) for k in wrapped}
+    model = os.path.join(tmpdir, name.replace(" ", "_"))
+    args = ["-m", model, "--frame_port", str(port), "--max_frames",
+            str(LIVE_FRAMES), "--collect_timeout", "300", "-r", "1",
+            "--eval", "--iterations", str(TRAINER_ITERS),
+            "--densify_from_iter", "50", "--densification_interval", "50",
+            "--densify_until_iter", "160",
+            "--save_iterations", str(TRAINER_ITERS),
+            "--data_device", dev.type] + extra
+    stream.decode_frame = decode
+    for k in wrapped:
+        setattr(train_live, k, timed(k, orig[k]))
+    th = threading.Thread(target=publisher, daemon=True)
+    log = io.StringIO()
+    for c in counters.values():
+        c.launches = 0
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        with probe_trainer(torch, counters, capture_at=capture_at) as rec, \
+                contextlib.redirect_stdout(log):
+            trainer = train_live.main(args)
+        torch.cuda.synchronize()
+    finally:
+        stream.decode_frame = orig_decode
+        for k in wrapped:
+            setattr(train_live, k, orig[k])
+        th.join(timeout=60)
+    rec.update(run_s=time.perf_counter() - t0, log=log.getvalue(),
+               launches={k: c.launches for k, c in counters.items()},
+               decoded=decoded, boot=boot, pub=pub, model=model)
+    text = rec["log"]
+    print("\n".join(ln for ln in text.splitlines() if any(w in ln for w in (
+        "Collected", "overflow", "capacity", "WARNING", "ITER", "Traceback",
+        "complete"))), flush=True)
+    check(pub["error"] is None and not th.is_alive(),
+          f"[{name}] publisher: {pub['error']}")
+    check([s for _, s in decoded] == [i / 30.0 for i in range(LIVE_FRAMES)],
+          f"[{name}] frames arrived {[s for _, s in decoded]}")
+    check(f"Collected {LIVE_FRAMES} frames" in text, f"[{name}] collected")
+    check(trainer.iteration == TRAINER_ITERS and os.path.isfile(os.path.join(
+        model, "point_cloud", f"iteration_{TRAINER_ITERS}",
+        "point_cloud.ply")), f"[{name}] PLY snapshot missing")
+    check(trainer.overflow_exhausted == 0, f"[{name}] replay exhausted")
+    check(all(math.isfinite(x) for _, x, _ in rec["syncs"]) and rec["syncs"],
+          f"[{name}] non-finite loss at a sync")
+    fps = LIVE_FRAMES / (decoded[-1][0] - pub["t0"])
+    print(f"[{name}] {LIVE_FRAMES} frames received and decoded at "
+          f"{fps:.2f} frames/s (first send to last decode; the publisher's "
+          f"JPEG encode and send {pub['t1'] - pub['t0']:.2f} s in all); "
+          f"bootstrap: ingest (JPEG at quality 95, PLY) "
+          f"{boot['scene_info_from_frames']:.2f} s, Scene "
+          f"{boot['Scene']:.2f} s, Trainer {boot['Trainer']:.2f} s; "
+          f"{TRAINER_ITERS} iterations in {rec['run_s']:.2f} s from the "
+          f"call; launches {rec['launches']}; "
+          f"{int(trainer.state.num_alive)} alive of "
+          f"{trainer.state.capacity}; replays {len(rec['replay'])}",
+          flush=True)
+    for d in rec["densify"]:
+        print(f"[{name}] densify at {d['iteration']}"
+              f"{' (replayed)' if d['replay'] else ''}: DensifyInfo("
+              f"n_cloned={d['n_cloned']}, n_split={d['n_split']}, "
+              f"n_pruned={d['n_pruned']}, n_dropped={d['n_dropped']}, "
+              f"n_alive={d['n_alive']}) of capacity {d['capacity']}; "
+              f"{d['ms']:.3f} ms", flush=True)
+    return trainer, rec
+
+
+def live_phase(torch, dev, tmpdir, frames, cams, dup, steady_ms, counters):
+    """[live], the live-capture path: train_live on the streamed frames
+    with their local maps, then the same with --quiet for the per-iteration
+    print's cost, and [live kernels] at the run's shapes. Returns the run's
+    launch counts and the kernels' errors."""
+    extra = ["--use_local_maps", "--opacity_reset_interval", "100",
+             "--test_iterations", "10", str(TRAINER_ITERS), "--dup_capacity",
+             str(dup)]
+    trainer, rec = run_live(torch, dev, tmpdir, "live", frames, extra,
+                            counters)
+    launches = rec["launches"]
+    live_ms, per_it = steady_window(rec, counters)
+    # each Scene camera is its rendering camera: c2w poses inverted to
+    # COLMAP's w2c and stored transposed, as the loaders store them
+    worst = 0.0
+    loaded = trainer.train_cams + trainer.test_cams
+    for lc in loaded:
+        i = int(lc.info.image_name.split("_")[1])
+        want = cams[i].world_view
+        err = float((lc.camera.world_view - want).abs().max())
+        worst = max(worst, err / float(want.abs().max()))
+        check(err <= 1e-5 * float(want.abs().max()),
+              f"[live] camera {i}: world_view off by {err}")
+    check(sorted(lc.info.image_name for lc in loaded) == [
+        f"frame_{i:05d}" for i in range(LIVE_FRAMES)], "[live] cameras")
+    check(len(rec["evals"]) == 2 and rec["evals"][1][1] > rec["evals"][0][1],
+          f"[live] test PSNR did not rise: {rec['evals']}")
+    check(any(d["n_cloned"] + d["n_split"] > 0 for d in rec["densify"]),
+          "[live] densify neither cloned nor split")
+    check(all(per_it[k] == 1 for k in ("K1g", "K2", "K3", "K4"))
+          and per_it["K1"] == 0, f"[live] launches per iteration {per_it}")
+    print(f"[live] {len(trainer.train_cams)} train and "
+          f"{len(trainer.test_cams)} test cameras, each world_view its "
+          f"rendering camera's within {worst:.3e} of its largest entry "
+          f"(rule 1e-5); {trainer.state.capacity} slots from the "
+          f"concatenated local maps; "
+          f"test PSNR " + ", ".join(f"{i}: {x:.4f}" for i, x in rec["evals"])
+          + "; loss at each sync " + ", ".join(
+              f"{i}: {x:.6f} ({d})" for i, x, d in rec["syncs"]), flush=True)
+    print(f"[live] ms per iteration over {STEADY[0] + 1}..{STEADY[1]} (host "
+          f"clock, synchronised at both ends; the stat line reads the loss "
+          f"and alive count back every iteration): {live_ms:.3f}; "
+          f"launches per iteration {per_it}; [trainer]'s window: "
+          f"{steady_ms:.3f}", flush=True)
+    profile_iterations(torch, trainer, live_ms, "live profile")
+    errs = path_kernels_match(torch, trainer, cams[1], "live kernels")
+    del trainer
+
+    # the stat line's cost: the same run with --quiet, then without it
+    # again, so the two windows without --quiet give the spread
+    quiet, qrec = run_live(torch, dev, tmpdir, "live quiet", frames,
+                           extra + ["--quiet"], counters)
+    check(not any(ln.startswith("iter ") for ln in qrec["log"].splitlines()),
+          "[live quiet] printed the stat line")
+    quiet_ms, _ = steady_window(qrec, counters)
+    del quiet
+    again, arec = run_live(torch, dev, tmpdir, "live again", frames, extra,
+                           counters)
+    again_ms, _ = steady_window(arec, counters)
+    del again
+    print(f"[live quiet] ms per iteration over {STEADY[0] + 1}..{STEADY[1]} "
+          f"with the stat line, with --quiet, with the stat line again: "
+          f"{live_ms:.3f}, {quiet_ms:.3f}, {again_ms:.3f} (--quiet less the "
+          f"mean of the two: {quiet_ms - (live_ms + again_ms) / 2:.3f} ms)",
+          flush=True)
+    return launches, errs
+
+
+def live_rain_phase(torch, dev, tmpdir, frames, dup, bench, counters):
+    """[live rain]: the reference's default init, RAIN_POINTS random points
+    in 3x the cameras' box, from the same frames without local maps, with
+    [live]'s densify schedule and the default opacity reset (every 3000:
+    a reset at 100 turns on the world-size prune at 150, which removes
+    every Gaussian of this init, each far above a tenth of the extent); the
+    kernels of iteration RAIN_CAPTURE held to their plain versions and K4
+    and K2 timed on them beside the bench frame's. Returns the kernels'
+    errors."""
+    from gs_tpu_torch.ops.expand import expand_rows, expand_rows_plain
+    from gs_tpu_torch.ops.fold import fold_rows, fold_rows_plain
+    bare = [f._replace(points=None) for f in frames]
+    extra = ["--init_points", str(RAIN_POINTS), "--test_iterations",
+             str(TRAINER_ITERS), "--dup_capacity", str(dup)]
+    trainer, rec = run_live(torch, dev, tmpdir, "live rain", bare, extra,
+                            counters, capture_at=RAIN_CAPTURE)
+    stats = {}
+    for ln in rec["log"].splitlines():
+        if ln.startswith("iter "):
+            i, rest = ln[5:].split(": ", 1)
+            loss, pts = rest.split()
+            stats[int(i)] = (float(loss[5:]), int(pts[4:]))
+    check(sorted(stats) == list(range(1, TRAINER_ITERS + 1)),
+          "[live rain] a stat line per iteration")
+    first = float(np.mean([stats[i][0] for i in range(1, 11)]))
+    last = float(np.mean([stats[i][0] for i in range(TRAINER_ITERS - 9,
+                                                     TRAINER_ITERS + 1)]))
+    check(last < first, f"[live rain] loss {first} -> {last} did not fall")
+    densified = [d["iteration"] for d in rec["densify"] if not d["replay"]]
+    rises = [(i, stats[i - 1][1], stats[i][1]) for i in densified]
+    check(densified and all(b > a for _, a, b in rises),
+          f"[live rain] the alive count at each densify {rises}")
+    print(f"[live rain] {RAIN_POINTS} random points: capacity "
+          f"{rec['densify'][0]['capacity'] if rec['densify'] else '?'} at "
+          f"the first densify, {trainer.state.capacity} at the end (grows "
+          f"only past 85 %); capacity after each densify {rec['grow']}; "
+          f"alive before -> after each densify "
+          + ", ".join(f"{i}: {a} -> {b}" for i, a, b in rises)
+          + f"; loss (mean of 10 iterations) {first:.6f} -> {last:.6f}; "
+          f"test PSNR {rec['evals']}", flush=True)
+    rain_ms, per_it = steady_window(rec, counters)
+    print(f"[live rain] ms per iteration over {STEADY[0] + 1}..{STEADY[1]} "
+          f"(host clock, with the stat line): {rain_ms:.3f}; launches per "
+          f"iteration {per_it}", flush=True)
+    profile_iterations(torch, trainer, rain_ms, "live rain profile")
+    calls = rec["calls"]
+    errs = step_kernels_match(torch, calls, "live kernels",
+                              f"[live rain] iteration {RAIN_CAPTURE}")
+    (comb, offsets, capacity), _ = calls["K2"]
+    fold_args, _ = calls["K4"]
+    data, _, counts, _ = fold_args
+    n = counts.shape[0]
+    rows = int(counts.to(torch.int64).sum())
+    owned = int(comb[1].to(torch.int64).sum())
+    k4_ms = time_ms(torch, lambda: fold_rows(*fold_args), 20)
+    k4_plain_ms = time_ms(torch, lambda: fold_rows_plain(*fold_args), 5)
+    k4_bound, k4_by, _, _ = bound_of(min(rows, data.shape[0]) * 40
+                                     + n * (12 + 40), rows * 10)
+    k2_ms = time_ms(torch, lambda: expand_rows(comb, offsets, capacity), 20)
+    k2_plain_ms = time_ms(torch, lambda: expand_rows_plain(
+        comb, offsets, capacity), 5)
+    n_tab = comb.shape[1]
+    k2_bound, k2_by, _, _ = bound_of(
+        16 * n_tab * 4 + n_tab * 4 + 16 * capacity * 4,
+        capacity * math.ceil(math.log2(n_tab + 1)))
+    print(f"[live rain] iteration {RAIN_CAPTURE}'s inputs: K4 folds {rows} "
+          f"rows into {n} slots, {int((counts > 0).sum())} runs, the longest "
+          f"{int(counts.max())} rows, {math.ceil(n / 128)} CTAs of 128 runs: "
+          f"kernel {k4_ms:.4f} ms (bench frame {bench['K4']:.4f}), plain "
+          f"{k4_plain_ms:.4f} ms, bound {k4_bound:.4f} ms ({k4_by}); K2 "
+          f"[16, {n_tab}] -> {capacity} entries ({owned} owned): kernel "
+          f"{k2_ms:.4f} ms (bench frame {bench['K2']:.4f}), plain "
+          f"{k2_plain_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_by})",
+          flush=True)
+    del trainer, calls, rec
+    return errs
+
+
+def visual_merged_record(i, frame):
+    """A gs_slam_msgs/visual_merged_msg of ``frame`` (an rgb8 Image, its
+    CameraInfo, the c2w pose as a TransformStamped and its local map as an
+    XYZ PointCloud2), as the BagWriter takes it."""
+    from gs_tpu_torch.io_live.rosbag import RosTime
+    h, w = frame.image.shape[:2]
+    stamp = RosTime(int(frame.stamp), int(round((frame.stamp % 1) * 1e9)))
+    header = {"seq": i, "stamp": stamp, "frame_id": "cam"}
+    pts = np.asarray(frame.points, "<f4")
+    q, t = frame.qvec, frame.tvec
+    return {
+        "Image": {"header": header, "height": h, "width": w,
+                  "encoding": "rgb8", "is_bigendian": 0, "step": w * 3,
+                  "data": frame.image.tobytes()},
+        "CameraInfo": {"header": header, "height": h, "width": w,
+                       "distortion_model": "plumb_bob", "D": np.zeros(5),
+                       "K": frame.K.ravel(), "R": np.eye(3).ravel(),
+                       "P": np.zeros(12), "binning_x": 0, "binning_y": 0,
+                       "roi": {"x_offset": 0, "y_offset": 0, "height": 0,
+                               "width": 0, "do_rectify": False}},
+        "CameraPose": {"header": header, "child_frame_id": "cam",
+                       "transform": {
+                           "translation": dict(zip("xyz", map(float, t))),
+                           "rotation": {"x": float(q[1]), "y": float(q[2]),
+                                        "z": float(q[3]), "w": float(q[0])}}},
+        "Local_Map": {"header": header, "height": 1, "width": len(pts),
+                      "fields": [{"name": n, "offset": 4 * k, "datatype": 7,
+                                  "count": 1} for k, n in enumerate("xyz")],
+                      "is_bigendian": False, "point_step": 12,
+                      "row_step": 12 * len(pts), "data": pts.tobytes(),
+                      "is_dense": True}}
+
+
+def convert_stream_phase(torch, dev, tmpdir, frames, dup):
+    """[convert_stream]: the [live] frames recorded as a .gstream and as a
+    visual_merged .bag, both converted to COLMAP layouts by
+    gs_tpu_torch.apps.convert_stream with the same cameras.txt and
+    images.txt, and the .gstream's trained 30 iterations through
+    gs_tpu_torch.apps.train.main."""
+    from gs_tpu_torch.apps import convert_stream
+    from gs_tpu_torch.apps import train as train_app
+    from gs_tpu_torch.io_live import rosbag
+    from gs_tpu_torch.io_live.stream import write_stream_file
+    t0 = time.perf_counter()
+    gst = os.path.join(tmpdir, "run.gstream")
+    write_stream_file(gst, frames)
+    gst_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bag = os.path.join(tmpdir, "run.bag")
+    w = rosbag.BagWriter(bag)
+    for i, f in enumerate(frames):
+        w.write("/Visual_Merged", "gs_slam_msgs/visual_merged_msg",
+                rosbag.VISUAL_MERGED_DEF, visual_merged_record(i, f),
+                t=f.stamp)
+    w.close()
+    bag_s = time.perf_counter() - t0
+    outs, secs = {}, {}
+    for name, src in (("gstream", gst), ("bag", bag)):
+        outs[name] = os.path.join(tmpdir, f"colmap_{name}")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert_stream.main(["--input", src, "--output", outs[name],
+                                 "--every", "2", "--voxel_size", "0.05"])
+        secs[name] = time.perf_counter() - t0
+    for f in ("cameras.txt", "images.txt"):
+        texts = []
+        for name in ("gstream", "bag"):
+            with open(os.path.join(outs[name], "sparse", "0", f)) as fh:
+                texts.append(fh.read())
+        check(texts[0] == texts[1], f"[convert_stream] {f} differs")
+    n_images = len(os.listdir(os.path.join(outs["gstream"], "images")))
+    check(n_images == LIVE_FRAMES // 2, "[convert_stream] images")
+    model = os.path.join(tmpdir, "convert_model")
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        trainer = train_app.main([
+            "-s", outs["gstream"], "-m", model, "-r", "1", "--iterations",
+            "30", "--test_iterations", "30", "--save_iterations", "30",
+            "--dup_capacity", str(dup), "--disable_viewer", "--quiet",
+            "--data_device", dev.type])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check(trainer.iteration == 30 and math.isfinite(trainer.ema_loss)
+          and trainer.ema_loss > 0, "[convert_stream] training loss")
+    print(f"[convert_stream] {LIVE_FRAMES} frames written as a .gstream "
+          f"(JPEG) in {gst_s:.2f} s ({os.path.getsize(gst)} bytes) and as a "
+          f"visual_merged .bag (rgb8) in {bag_s:.2f} s "
+          f"({os.path.getsize(bag)} bytes); converted with --every 2 in "
+          f"{secs['gstream']:.2f} / {secs['bag']:.2f} s to identical "
+          f"cameras.txt and images.txt ({n_images} images); 30 iterations "
+          f"of the .gstream's layout through gs_tpu_torch.apps.train.main "
+          f"({int(trainer.state.num_alive)} Gaussians from its "
+          f"points3D.ply) in {train_s:.2f} s, loss {trainer.ema_loss:.6f}",
+          flush=True)
+    del trainer
+
+
+def native_phase(root):
+    """[native]: the [trainer] dataset's points3D.bin read by the native
+    parser and by the per-record Python loop: equal arrays, the native
+    route taken, both times."""
+    from gs_tpu_torch import native
+    from gs_tpu_torch.data import colmap
+    path = os.path.join(root, "sparse", "0", "points3D.bin")
+    check(native.available(), "[native] the native parser did not build")
+    before = native.reads
+    t0 = time.perf_counter()
+    got = colmap.read_points3D_binary(path)
+    native_s = time.perf_counter() - t0
+    check(native.reads == before + 1, "[native] the native route did not run")
+    available = native.available
+    native.available = lambda: False
+    try:
+        t0 = time.perf_counter()
+        want = colmap.read_points3D_binary(path)
+        python_s = time.perf_counter() - t0
+    finally:
+        native.available = available
+    check(native.reads == before + 1, "[native] the Python route ran native")
+    check(all(a.dtype == b.dtype and np.array_equal(a, b)
+              for a, b in zip(got, want)), "[native] arrays differ")
+    print(f"[native] points3D.bin of {len(got[0])} records "
+          f"({os.path.getsize(path)} bytes): native parser {native_s:.4f} s, "
+          f"Python record loop {python_s:.4f} s ({python_s / native_s:.1f}x); "
+          f"xyz, rgb and error arrays equal", flush=True)
+
+
 def lpips_weights(path: str, seed: int = 123):
     """Seeded random LPIPS weights in the npz layout (the JAX package's
     tests/utils.py::lpips_random_weights draws, made here with numpy)."""
@@ -1498,6 +2039,7 @@ def main() -> int:
               "(gs_tpu_torch/ not found beside this script)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from gs_tpu_torch import native
     from gs_tpu_torch.apps import view_orbit
     from gs_tpu_torch.apps.render import params_from_ply
     from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
@@ -1538,6 +2080,10 @@ def main() -> int:
     logs = _cuda.build()
     print(f"[build] {len(logs)} kernel libraries in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    native_lib = native.build()
+    print(f"[build] the native COLMAP parser ({os.path.basename(native_lib)}) "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "error", "warning")):
@@ -1819,6 +2365,7 @@ def main() -> int:
         torch, dev, small, scam, p0, alive0, bench_camera)
     trainer_launches, trainer_tmp, root, model, dup, steady_ms = \
         trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid)
+    frames, live_cams = live_frames(torch, dev, p0, alive0, pts)
     del p0, alive0, mid
     from gs_tpu_torch.ops.fold import fold_rows
     from gs_tpu_torch.ops.rasterize import (raster_tiles_bwd,
@@ -1830,6 +2377,17 @@ def main() -> int:
                                                 steady_ms, counters)
     lpips_phase(torch, dev, trainer_tmp.name, model)
     full_eval_phase(torch, dev, trainer_tmp.name, root, dup, counters)
+    t_new = time.perf_counter()
+    native_phase(root)
+    live_launches, live_errs = live_phase(
+        torch, dev, trainer_tmp.name, frames, live_cams, dup, steady_ms,
+        counters)
+    bench = {"K2": k2_ms, "K4": kernels_train[2]["ms"]}
+    rain_errs = live_rain_phase(torch, dev, trainer_tmp.name, frames, dup,
+                                   bench, counters)
+    convert_stream_phase(torch, dev, trainer_tmp.name, frames, dup)
+    print(f"[live] the new phases in {time.perf_counter() - t_new:.1f} s",
+          flush=True)
     trainer_tmp.cleanup()
 
     # --------------------------------------------------------------- 10
@@ -1854,7 +2412,9 @@ def main() -> int:
     for k in kernels:
         k["trainer_launches"] = trainer_launches[k["id"]]
         k["viewer_launches"] = viewer_launches[k["id"]]
-        k["max_abs_err"] = max(k["max_abs_err"], viewer_errs[k["id"]])
+        k["live_launches"] = live_launches[k["id"]]
+        k["max_abs_err"] = max(k["max_abs_err"], viewer_errs[k["id"]],
+                               live_errs[k["id"]], rain_errs[k["id"]])
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,7 +1,9 @@
 """COLMAP sparse-model I/O (binary and text), readers + writers — the
 port's own copy of ``gs_tpu/data/colmap.py`` (numpy and the standard library
-only). The binary readers are the per-record Python loops: the JAX
-package's native C++ parser (``gs_tpu/native``) is not ported yet.
+only). The binary readers dispatch to the native C++ parser
+(``gs_tpu_torch/native``, built at first use) when it is available, as
+``gs_tpu/data/colmap.py:88-160`` does; their per-record Python loops are the
+fallback.
 
 Behavioral port of the reference loaders (ref: scene/colmap_loader.py:1-295
 and utils/read_write_model.py:106-523): cameras.bin / images.bin /
@@ -88,9 +90,18 @@ def _read_next_bytes(fid, num_bytes, format_char_sequence, endian="<"):
 
 
 # --------------------------------------------------------------- binary
+# The binary readers dispatch to the native C++ parser when available
+# (gs_tpu_torch/native — the per-record Python loops below are the fallback).
 
 def read_intrinsics_binary(path: str) -> dict[int, Intrinsics]:
     """ref: scene/colmap_loader.py:216-242"""
+    from .. import native
+    rows = native.read_cameras_bin(path) if native.available() else None
+    if rows is not None:
+        return {r["id"]: Intrinsics(
+            id=r["id"], model=CAMERA_MODEL_IDS[r["model_id"]].model_name,
+            width=r["width"], height=r["height"],
+            params=np.asarray(r["params"])) for r in rows}
     cameras = {}
     with open(path, "rb") as f:
         num = _read_next_bytes(f, 8, "Q")[0]
@@ -107,6 +118,15 @@ def read_intrinsics_binary(path: str) -> dict[int, Intrinsics]:
 
 def read_extrinsics_binary(path: str) -> dict[int, Extrinsics]:
     """ref: scene/colmap_loader.py:181-213"""
+    from .. import native
+    rows = native.read_images_bin(path) if native.available() else None
+    if rows is not None:
+        empty_xy = np.zeros((0, 2))
+        empty_ids = np.zeros((0,), np.int64)
+        return {r["id"]: Extrinsics(
+            id=r["id"], qvec=r["qvec"], tvec=r["tvec"],
+            camera_id=r["camera_id"], name=r["name"],
+            xys=empty_xy, point3D_ids=empty_ids) for r in rows}
     images = {}
     with open(path, "rb") as f:
         num = _read_next_bytes(f, 8, "Q")[0]
@@ -133,6 +153,11 @@ def read_extrinsics_binary(path: str) -> dict[int, Extrinsics]:
 
 def read_points3D_binary(path: str):
     """(xyz [N,3], rgb [N,3] uint8, errors [N,1]); ref: scene/colmap_loader.py:125-154"""
+    from .. import native
+    if native.available():
+        out = native.read_points3d_bin(path)
+        if out is not None:
+            return out
     with open(path, "rb") as f:
         num = _read_next_bytes(f, 8, "Q")[0]
         xyz = np.empty((num, 3))

@@ -9,6 +9,8 @@ payload into a value. ``restore_flax`` adds flax's own layer on top: ext 1
 bytes))``, and the chunked arrays ``{'__msgpack_chunked_array__': True,
 'shape', 'chunks'}`` that flax writes for leaves over its
 ``MAX_CHUNK_SIZE``. Arrays view the blob's bytes (read-only, no copy).
+A long array of float64 values (a live frame's local map) is decoded by
+one ``np.frombuffer``. ``msgpack_codec.packb`` is the writer.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ _SIZED = {0xc4: ("bin", 1), 0xc5: ("bin", 2), 0xc6: ("bin", 4),
           0xdc: ("array", 2), 0xdd: ("array", 4),
           0xde: ("map", 2), 0xdf: ("map", 4)}
 _LEN = {1: ">B", 2: ">H", 4: ">I"}
+_FLOAT_PAIR = np.dtype([("tag", "u1"), ("value", ">f8")])
+_BULK = 16          # arrays at least this long try the float-run path
 
 
 class _Reader:
@@ -81,12 +85,28 @@ class _Reader:
             return self.container(kind, n)
         raise ValueError(f"byte 0x{b:02x} starts no MessagePack value")
 
+    def float_run(self, n: int):
+        """An array of ``n`` float64 values (``0xcb`` each, as a frame's
+        local map arrives) in one ``np.frombuffer``; None for any other
+        array."""
+        if n < _BULK or self.pos + 9 * n > len(self.buf) \
+                or self.buf[self.pos] != 0xcb:
+            return None
+        pairs = np.frombuffer(self.buf, _FLOAT_PAIR, n, self.pos)
+        if not (pairs["tag"] == 0xcb).all():
+            return None
+        self.pos += 9 * n
+        return pairs["value"].tolist()
+
     def ext(self, n: int):
         code = self.unpack(">b", 1)
         return self.ext_hook(code, self.take(n))
 
     def container(self, kind: str, n: int):
         if kind == "array":
+            floats = self.float_run(n)
+            if floats is not None:
+                return floats
             return [self.value() for _ in range(n)]
         out = {}
         for _ in range(n):

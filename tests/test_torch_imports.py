@@ -86,6 +86,35 @@ def test_new_modules_and_checkpoint_reader_load_no_flax():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
+LIVE_MODULES = ("gs_tpu_torch.io_live.stream", "gs_tpu_torch.io_live.ingest",
+                "gs_tpu_torch.io_live.pointcloud",
+                "gs_tpu_torch.io_live.rosbag", "gs_tpu_torch.io_live.fusion",
+                "gs_tpu_torch.io_live.gps", "gs_tpu_torch.apps.train_live",
+                "gs_tpu_torch.apps.convert_stream",
+                "gs_tpu_torch.apps.gps_pub", "gs_tpu_torch.apps.ros_bridge",
+                "gs_tpu_torch.utils.msgpack_codec", "gs_tpu_torch.native")
+
+
+def test_live_modules_load_no_lazy_dependency():
+    """The live-capture modules and the native parser import with no
+    msgpack (the port carries its own codec), and load PIL, scipy, rospy
+    and termios only where they are used; importing the native parser
+    builds nothing."""
+    code = ("import sys, importlib\n"
+            "from gs_tpu_torch import native\n"
+            f"for m in {LIVE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('msgpack', 'PIL', 'scipy', 'rospy', 'termios', 'jax', "
+            "'gs_tpu', 'cv2')]\n"
+            "assert not bad, bad\n"
+            "assert not native._state['tried']\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
 def test_cpu_render_launches_no_kernel():
     from gs_tpu_torch.core.camera import make_camera
     from gs_tpu_torch.models.gaussian_model import create_from_pcd
