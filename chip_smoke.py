@@ -69,7 +69,32 @@ Phases (each failure exits non-zero):
     writes the PNG an ample render writes, byte for byte; then the
     20,000-gaussian scene of [grad] trained twice, with an ample and a
     too-small --dup_capacity, to the same state;
-11. [viewer], the viewer's path: the training CLI on the [trainer]
+11. the multi-GPU path on this card, through an in-process group of
+    MESH_K = 4 shards (gs_tpu_torch.parallel.mesh.LocalGroup): [mesh
+    kernels] the bench frame through render_multichip under the "stride",
+    "cost" and "cost" with split_rows 2 band assignments, the reassembled
+    frame against the one-device K1 frame (bitwise expected: every tile
+    composites the same entries in the same order), K2 and K1 launched once
+    per band, each band's K1, K1g and K3 on its own inputs against their
+    plain versions under the rules of phases 3-6, timed beside their bounds,
+    and band_work max/mean per assignment, and K1, K1g and K3 of the full
+    bench frame with the identity row map bitwise those without a map;
+    [mesh step] the bench step with
+    the state in 4 shards against the one-device step on the same state
+    (loss, Adam's first moments and the densification statistics under the
+    gradient rule), both timed in turns; [mesh trainer]
+    Trainer(mesh=LocalGroup(4)) on the [trainer] dataset for 24 iterations
+    through a densify and a visible_capacity overflow, growth and replay,
+    against the one-device Trainer (equal alive masks, parameters under
+    the Trainer rule of tests/test_torch_trainer.py, test PSNR), its launch
+    counts read around the run, then [mesh trainer kernels] every K2 and
+    K1 launch of one banded render_view and every K2, K1g, K3 and K4 launch
+    of one more training step, each on the inputs (the band's row map
+    among them) that the mesh Trainer gave it, against its plain version
+    under the rules of phases 3-6; [mesh CLI] the training CLI over a real
+    NCCL group: --mesh N with N cards, else --multihost with a group of
+    one, saying which ran;
+12. [viewer], the viewer's path: the training CLI on the [trainer]
     dataset for 80 iterations with its viewer server on a free local port,
     and a client thread asking for 1920x1080 frames (two sent together
     with train=false, served before training resumes, then 8 more); every
@@ -83,20 +108,20 @@ Phases (each failure exits non-zero):
     of the client's pose and K2, K1g, K3 and K4 of one more training step,
     each on the inputs it was given there, against its plain version
     under the rules of phases 2-7;
-12. [lpips]: seeded random weights in the npz layout; LPIPS on the card
+13. [lpips]: seeded random weights in the npz layout; LPIPS on the card
     against the same module on the CPU for a 256x192 pair (rel 1e-4, abs
     1e-6; an identical pair 0 within 1e-8), one 1080p pair timed against
     its FP32 bound, and the metrics CLI on the [trainer] model with a
     finite LPIPS;
-13. [full_eval]: gs_tpu_torch.apps.full_eval -tat over two scene folders
+14. [full_eval]: gs_tpu_torch.apps.full_eval -tat over two scene folders
     that link to the [trainer] dataset, 30 iterations each at 1920x1080:
     each scene's cfg_args, PLY, test renders and results.json (SSIM, PSNR,
     LPIPS), and the wall time of each stage;
-14. [native]: the [trainer] dataset's points3D.bin (500,000 records) read
+15. [native]: the [trainer] dataset's points3D.bin (500,000 records) read
     by the native C++ parser (gs_tpu_torch/native, built by g++ in phase 1)
     and by the per-record Python loop: equal arrays, the native route
     taken, both times;
-15. [live], the live-capture path: 24 posed 1920x1080 frames (K1 renders
+16. [live], the live-capture path: 24 posed 1920x1080 frames (K1 renders
     of the bench scene from a helix through the [trainer] ellipse, each
     with a disjoint 1/24 of the bench centres as its local map) sent as
     JPEG by a publisher thread through FrameStreamClient to
@@ -111,17 +136,19 @@ Phases (each failure exits non-zero):
     [trainer]'s and again with --quiet (the stat line's read-back);
     [live kernels]: K2 and K1 of a render_view and K2, K1g, K3 and K4 of one
     more step of the trained state against their plain versions;
-16. [live rain]: the same frames without local maps, --init_points 100
+17. [live rain]: the same frames without local maps, --init_points 100
     (the reference's RAIN-GS init: a few Gaussians each covering up to the
     whole frame), 300 iterations; checks the loss falls and the alive count
     rises at each densify; [live kernels] on iteration 2's inputs, and K4's
-    and K2's times there beside the bench frame's;
-17. [convert_stream]: the [live] frames as a .gstream and as a
+    (with torch index_add_ on the same rows) and K2's times there beside
+    the bench frame's;
+18. [convert_stream]: the [live] frames as a .gstream and as a
     visual_merged .bag, both converted by gs_tpu_torch.apps.convert_stream
     to the same cameras.txt and images.txt, the first trained 30 iterations
     through gs_tpu_torch.apps.train.main;
-18. a JSON line of the kernels' numbers, then the card's name and power
-    limit, then the result line {"ok": true, "device": {...}}.
+19. a JSON line of the kernels' numbers (with each kernel's launches on
+    every path, the mesh trainer's among them), then the card's name and
+    power limit, then the result line {"ok": true, "device": {...}}.
 
 It exits non-zero without a CUDA device, or when run outside the repository.
 """
@@ -772,40 +799,14 @@ def profile_iterations(torch, trainer, iteration_ms, tag, table=True):
                            max_name_column_width=60), flush=True)
 
 
-def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
-    """Phase 10: the training driver through its CLIs. Returns the kernel
-    launch counts of the training CLI's run, the temporary directory that
-    holds the dataset and the trained model (for the later phases), their
-    paths, and the trainer's grown dup_capacity."""
-    from gs_tpu_torch.apps import metrics as metrics_app
-    from gs_tpu_torch.apps import render as render_app
-    from gs_tpu_torch.apps import train as train_app
+def trainer_dataset(torch, dev, pts, cols, p0, alive0):
+    """The [trainer] dataset: a COLMAP scene of the bench points and 8
+    views rendered by K1. Returns the temporary directory that holds it
+    (and later the trained model) and the dataset's and model's paths."""
     from gs_tpu_torch.apps.render import save_png
-    from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
-                                     PipelineConfig, RasterConfig)
     from gs_tpu_torch.core.camera import focal2fov, make_camera
-    from gs_tpu_torch.core.sh import sh2rgb
     from gs_tpu_torch.data import colmap
-    from gs_tpu_torch.data.camera_utils import LoadedCamera
-    from gs_tpu_torch.data.dataset_readers import CameraInfo
-    from gs_tpu_torch.ops.expand import expand_rows
-    from gs_tpu_torch.ops.fold import fold_rows
-    from gs_tpu_torch.ops.rasterize import (raster_tiles_bwd,
-                                            raster_tiles_fwd,
-                                            raster_tiles_fwd_save)
-    from gs_tpu_torch.render import MAX_DUP_CAPACITY, render
-    from gs_tpu_torch.train import loop
-    from gs_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-
-    counters = {"K2": expand_rows, "K1": raster_tiles_fwd,
-                "K1g": raster_tiles_fwd_save, "K3": raster_tiles_bwd,
-                "K4": fold_rows}
-
-    def counts():
-        return {k: c.launches for k, c in counters.items()}
-
-    def leaves(state):
-        return [t for x in state for t in (x if isinstance(x, tuple) else (x,))]
+    from gs_tpu_torch.render import render
 
     tmp = tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_")
     root = os.path.join(tmp.name, "dataset")
@@ -867,6 +868,43 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
           f"written in {write_s:.2f} s and read back by "
           f"colmap.read_points3D_binary (the native parser) in "
           f"{read_s:.2f} s", flush=True)
+    return tmp, root, model
+
+
+def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
+    """Phase 10: the training driver through its CLIs. Returns the kernel
+    launch counts of the training CLI's run, the temporary directory that
+    holds the dataset and the trained model (for the later phases), their
+    paths, and the trainer's grown dup_capacity."""
+    from gs_tpu_torch.apps import metrics as metrics_app
+    from gs_tpu_torch.apps import render as render_app
+    from gs_tpu_torch.apps import train as train_app
+    from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
+                                     PipelineConfig, RasterConfig)
+    from gs_tpu_torch.core.camera import make_camera
+    from gs_tpu_torch.core.sh import sh2rgb
+    from gs_tpu_torch.data.camera_utils import LoadedCamera
+    from gs_tpu_torch.data.dataset_readers import CameraInfo
+    from gs_tpu_torch.ops.expand import expand_rows
+    from gs_tpu_torch.ops.fold import fold_rows
+    from gs_tpu_torch.ops.rasterize import (raster_tiles_bwd,
+                                            raster_tiles_fwd,
+                                            raster_tiles_fwd_save)
+    from gs_tpu_torch.render import MAX_DUP_CAPACITY, render
+    from gs_tpu_torch.train import loop
+    from gs_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    counters = {"K2": expand_rows, "K1": raster_tiles_fwd,
+                "K1g": raster_tiles_fwd_save, "K3": raster_tiles_bwd,
+                "K4": fold_rows}
+
+    def counts():
+        return {k: c.launches for k, c in counters.items()}
+
+    def leaves(state):
+        return [t for x in state for t in (x if isinstance(x, tuple) else (x,))]
+
+    tmp, root, model = trainer_dataset(torch, dev, pts, cols, p0, alive0)
 
     # ------------------------------------------- train through the CLI
     args = ["-s", root, "-m", model, "-r", "1", "--eval",
@@ -1117,24 +1155,25 @@ def free_port() -> int:
 
 @contextlib.contextmanager
 def kernel_calls():
-    """Record the arguments and result of the last launch of each kernel
-    the render and training paths make, by wrapping the names those paths
-    call (K2 in ops/binning.py, K1, K1g, K3 and K4 in ops/rasterize.py).
-    A kernel defined in ops/rasterize.py counts its launches by its module
-    name, so these land on the wrapper's own count, not the path's."""
+    """Record the arguments (keywords, a band's ``row_map`` among them) and
+    the result of every launch of each kernel the render and training paths
+    make, in order, by wrapping the names those paths call (K2 in
+    ops/binning.py, K1, K1g, K3 and K4 in ops/rasterize.py). A kernel
+    defined in ops/rasterize.py counts its launches by its module name, so
+    these land on the wrapper's own count, not the path's."""
     from gs_tpu_torch.ops import binning, rasterize
     names = [(binning, "expand_rows", "K2"),
              (rasterize, "raster_tiles_fwd", "K1"),
              (rasterize, "raster_tiles_fwd_save", "K1g"),
              (rasterize, "raster_tiles_bwd", "K3"),
              (rasterize, "fold_rows", "K4")]
-    seen = {}
+    seen = {k: [] for _, _, k in names}
     orig = {k: getattr(mod, name) for mod, name, k in names}
 
     def wrap(k):
-        def call(*args):
-            out = orig[k](*args)
-            seen[k] = (args, out)
+        def call(*args, **kw):
+            out = orig[k](*args, **kw)
+            seen[k].append((args, kw, out))
             return out
         call.launches = 0
         return call
@@ -1148,20 +1187,45 @@ def kernel_calls():
             setattr(mod, name, orig[k])
 
 
-def k2_matches(torch, calls, tag, label):
-    """K2 of a captured call against its plain version, bitwise; returns
-    the table's shape for the report."""
+def rows_as_given(calls, kernels, bands, tag):
+    """Every captured launch of ``kernels`` had a band's row map on a path
+    of ``bands`` > 0 bands (a mesh), and none on a one-device path
+    (``bands`` 0, a full frame)."""
+    banded = bands > 0
+    for k in kernels:
+        check(bool(calls[k]), f"[{tag}] no launch of {k} was captured")
+        for _, kw, _ in calls[k]:
+            has = kw.get("row_map") is not None
+            check(has == banded, f"[{tag}] {k} ran "
+                  + ("a full frame on a mesh path" if banded
+                     else "a band on a one-device path"))
+
+
+def k2_matches(torch, calls, tag, label, bands=0):
+    """K2 of every captured launch against its plain version, bitwise, and
+    the last round's launches (one, or one per band of ``bands``) within
+    their capacity: an overflowed round before it was rendered again.
+    Returns the last round's table shapes for the report."""
     from gs_tpu_torch.ops.expand import expand_rows_plain
-    (comb, offsets, capacity), got = calls["K2"]
-    check(torch.equal(got, expand_rows_plain(comb, offsets, capacity)),
-          f"[{tag}] K2 != plain on {label}")
-    entries = int(comb[1].to(torch.int64).sum())
-    check(entries <= capacity, f"[{tag}] {label} overflowed")
-    return f"[16, {comb.shape[1]}] -> {capacity} entries ({entries} owned)"
+    check(bool(calls["K2"]), f"[{tag}] no launch of K2 was captured")
+    shapes = []
+    last = len(calls["K2"]) - max(bands, 1)
+    for i, ((comb, offsets, capacity), kw, got) in enumerate(calls["K2"]):
+        check(torch.equal(got, expand_rows_plain(comb, offsets, capacity,
+                                                 **kw)),
+              f"[{tag}] K2 != plain on {label}")
+        if i >= last:
+            entries = int(comb[1].to(torch.int64).sum())
+            check(entries <= capacity, f"[{tag}] {label} overflowed")
+            shapes.append(f"[16, {comb.shape[1]}] -> {capacity} entries "
+                          f"({entries} owned)")
+    return "; ".join(shapes)
 
 
-def step_kernels_match(torch, calls, tag, label):
-    """K2, K1g, K3 and K4 of one captured training step (``kernel_calls``)
+def step_kernels_match(torch, calls, tag, label, bands=0):
+    """K2, K1g, K3 and K4 of every launch in one captured training step
+    (``kernel_calls``: one of each on one device, one per band of
+    ``bands`` on a mesh, more after a replay)
     against their plain versions on the inputs each was given, and K1 on
     K1g's inputs, under the rules of the bench-frame checks (K2 bitwise; K1
     and K1g the backend rule, K1g's image bitwise K1's and its residual off
@@ -1174,38 +1238,50 @@ def step_kernels_match(torch, calls, tag, label):
                                             raster_tiles_bwd_plain,
                                             raster_tiles_fwd,
                                             raster_tiles_fwd_plain)
-    errs = {"K2": 0.0}
+    rows_as_given(calls, ("K1g", "K3"), bands, tag)
+    check(bool(calls["K4"]), f"[{tag}] no launch of K4 was captured")
+    errs = {k: 0.0 for k in ("K2", "K1", "K1g", "K3", "K4")}
+    differ = ratio = k4_rel = 0.0
     with torch.no_grad():
-        shape = k2_matches(torch, calls, tag, label)
-        args, (out_g, last) = calls["K1g"]
-        out_p, last_p = raster_tiles_fwd_plain(*args, save=True)
-        ok, errs["K1g"], _ = images_match(out_g, out_p)
-        differ = float((last != last_p).double().mean())
-        check(ok and differ <= 2e-3, f"[{tag}] K1g != plain")
-        out_k1 = raster_tiles_fwd(*args)
-        check(torch.equal(out_k1, out_g), f"[{tag}] K1g image != K1")
-        ok, errs["K1"], _ = images_match(out_k1, out_p)
-        check(ok, f"[{tag}] K1 != plain")
-        del out_p, last_p, out_k1
-        args, got = calls["K3"]
-        ok, ratio, errs["K3"] = grads_match(
-            got.T, raster_tiles_bwd_plain(*args).T)
-        check(ok, f"[{tag}] K3 != plain (ratio {ratio})")
-        check(torch.equal(raster_tiles_bwd(*args), got),
-              f"[{tag}] K3 not deterministic")
-        args, got = calls["K4"]
-        ref = fold_rows_plain(*args)
-        errs["K4"] = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        check(errs["K4"] <= 1e-6 * scale, f"[{tag}] K4 != plain")
-        check(torch.equal(fold_rows(*args), got),
-              f"[{tag}] K4 not deterministic")
-    print(f"[{tag}] {label}: K2 {shape}, bitwise equal; K1g max |kernel - "
-          f"plain| {errs['K1g']:.3e}, image bitwise K1's, residual differs "
-          f"on {differ:.4%} of pixels; K3 worst row {ratio:.3e} of max "
-          f"|plain| (rule 2e-4), max abs {errs['K3']:.3e}, repeat bitwise; "
-          f"K4 max |kernel - plain| {errs['K4']:.3e} = "
-          f"{errs['K4'] / max(scale, 1e-30):.3e} of the largest sum (rule "
+        shape = k2_matches(torch, calls, tag, label, bands)
+        for args, kw, (out_g, last) in calls["K1g"]:
+            out_p, last_p = raster_tiles_fwd_plain(*args, save=True, **kw)
+            ok, err, _ = images_match(out_g, out_p)
+            d = float((last != last_p).double().mean())
+            check(ok and d <= 2e-3, f"[{tag}] K1g != plain")
+            out_k1 = raster_tiles_fwd(*args, **kw)
+            check(torch.equal(out_k1, out_g), f"[{tag}] K1g image != K1")
+            ok, err1, _ = images_match(out_k1, out_p)
+            check(ok, f"[{tag}] K1 != plain")
+            errs["K1g"] = max(errs["K1g"], err)
+            errs["K1"] = max(errs["K1"], err1)
+            differ = max(differ, d)
+            del out_p, last_p, out_k1
+        for args, kw, got in calls["K3"]:
+            ok, r, err = grads_match(
+                got.T, raster_tiles_bwd_plain(*args, **kw).T)
+            check(ok, f"[{tag}] K3 != plain (ratio {r})")
+            check(torch.equal(raster_tiles_bwd(*args, **kw), got),
+                  f"[{tag}] K3 not deterministic")
+            ratio = max(ratio, r)
+            errs["K3"] = max(errs["K3"], err)
+        for args, kw, got in calls["K4"]:
+            ref = fold_rows_plain(*args, **kw)
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            check(err <= 1e-6 * scale, f"[{tag}] K4 != plain")
+            check(torch.equal(fold_rows(*args, **kw), got),
+                  f"[{tag}] K4 not deterministic")
+            errs["K4"] = max(errs["K4"], err)
+            k4_rel = max(k4_rel, err / max(scale, 1e-30))
+    n = {k: len(calls[k]) for k in ("K2", "K1g", "K3", "K4")}
+    maps = ", each band on its row map" if bands else ""
+    print(f"[{tag}] {label}: launches {n}{maps}; K2 {shape}, "
+          f"bitwise equal; K1g max |kernel - plain| {errs['K1g']:.3e}, image "
+          f"bitwise K1's, residual differs on at most {differ:.4%} of "
+          f"pixels; K3 worst row {ratio:.3e} of max |plain| (rule 2e-4), max "
+          f"abs {errs['K3']:.3e}, repeat bitwise; K4 max |kernel - plain| "
+          f"{errs['K4']:.3e}, at most {k4_rel:.3e} of the largest sum (rule "
           f"1e-6), repeat bitwise", flush=True)
     return errs
 
@@ -1214,30 +1290,39 @@ def path_kernels_match(torch, trainer, cam, tag="viewer kernels"):
     """Each kernel against its plain version at the shapes a run gives it:
     K2 and K1 as they ran in ``Trainer.render_view`` of ``cam``, K2, K1g, K3
     and K4 as they ran in one more training step, each on the inputs it was
-    given there (``step_kernels_match``'s rules). Returns each kernel's
-    largest absolute error."""
+    given there (``step_kernels_match``'s rules); under a mesh, every
+    band's launch on its own row map. Returns each kernel's largest
+    absolute error."""
     from gs_tpu_torch.ops.rasterize import raster_tiles_fwd_plain
+    bands = 0 if trainer.mesh is None else trainer.mesh.size
     with torch.no_grad():
         with kernel_calls() as calls:
             out = trainer.render_view(cam)
         check(not bool(out.overflow), f"[{tag}] the view overflowed")
-        shape = k2_matches(torch, calls, tag, "a view")
-        args, got = calls["K1"]
-        ok, k1_err, frac = images_match(got, raster_tiles_fwd_plain(*args))
-        check(ok, f"[{tag}] K1 != plain (max {k1_err}, frac {frac})")
+        rows_as_given(calls, ("K1",), bands, tag)
+        shape = k2_matches(torch, calls, tag, "a view", bands)
+        k1_err = frac = 0.0
+        for args, kw, got in calls["K1"]:
+            ok, err, f = images_match(got, raster_tiles_fwd_plain(*args, **kw))
+            check(ok, f"[{tag}] K1 != plain (max {err}, frac {f})")
+            k1_err, frac = max(k1_err, err), max(frac, f)
+        tiles = [args[1].shape[0] for args, _, _ in calls["K1"]]
+        chunks = max(args[4] for args, _, _ in calls["K1"])
         print(f"[{tag}] a view of the trained state "
-              f"({trainer.state.capacity} slots): K2 {shape}, bitwise equal; "
-              f"K1 over {args[1].shape[0]} tiles, windows of up to "
-              f"{args[4]} chunks: max |kernel - plain| {k1_err:.3e}, "
-              f"{frac:.4%} of values beyond 1e-5", flush=True)
-        del calls, out, args, got
+              f"({trainer.state.capacity} slots"
+              f"{f' in {bands} shards' if bands else ''}): K2 "
+              f"{shape}, bitwise equal; K1 x{len(tiles)} over {tiles} tiles, "
+              f"windows of up to {chunks} chunks: max |kernel - plain| "
+              f"{k1_err:.3e}, at most {frac:.4%} of values beyond 1e-5",
+              flush=True)
+        del calls, out
 
     with kernel_calls() as calls:
         m = trainer.step(sync=True)
     check(not bool(m.overflow), f"[{tag}] the training step overflowed")
     errs = step_kernels_match(torch, calls, tag,
                               f"training step {trainer.iteration} on the "
-                              f"same state")
+                              f"same state", bands)
     errs["K1"] = max(errs["K1"], k1_err)
     return errs
 
@@ -1754,14 +1839,27 @@ def live_rain_phase(torch, dev, tmpdir, frames, dup, bench, counters):
     calls = rec["calls"]
     errs = step_kernels_match(torch, calls, "live kernels",
                               f"[live rain] iteration {RAIN_CAPTURE}")
-    (comb, offsets, capacity), _ = calls["K2"]
-    fold_args, _ = calls["K4"]
+    (comb, offsets, capacity), _, _ = calls["K2"][-1]
+    fold_args, _, _ = calls["K4"][-1]
     data, _, counts, _ = fold_args
     n = counts.shape[0]
     rows = int(counts.to(torch.int64).sum())
     owned = int(comb[1].to(torch.int64).sum())
     k4_ms = time_ms(torch, lambda: fold_rows(*fold_args), 20)
     k4_plain_ms = time_ms(torch, lambda: fold_rows_plain(*fold_args), 5)
+    # index_add_ needs each row's Gaussian: the runs lie in order, run i at
+    # rows [offsets[i], offsets[i] + counts[i]); it reads the runs' rows
+    # only, as K4 does
+    gid_rows = torch.repeat_interleave(fold_args[3].to(torch.int64),
+                                       counts.to(torch.int64))
+    run_rows = data[:rows]
+    k4_lib_ms = time_ms(torch, lambda: torch.zeros(
+        (n, 10), device=dev).index_add_(0, gid_rows, run_rows), 20)
+    check(torch.allclose(
+        torch.zeros((n, 10), device=dev).index_add_(0, gid_rows, run_rows),
+        fold_rows(*fold_args), rtol=1e-4,
+        atol=1e-6 * float(data.abs().max()) * int(counts.max())),
+        "[live rain] index_add_ computes another function than K4")
     k4_bound, k4_by, _, _ = bound_of(min(rows, data.shape[0]) * 40
                                      + n * (12 + 40), rows * 10)
     k2_ms = time_ms(torch, lambda: expand_rows(comb, offsets, capacity), 20)
@@ -1775,7 +1873,8 @@ def live_rain_phase(torch, dev, tmpdir, frames, dup, bench, counters):
           f"rows into {n} slots, {int((counts > 0).sum())} runs, the longest "
           f"{int(counts.max())} rows, {math.ceil(n / 128)} CTAs of 128 runs: "
           f"kernel {k4_ms:.4f} ms (bench frame {bench['K4']:.4f}), plain "
-          f"{k4_plain_ms:.4f} ms, bound {k4_bound:.4f} ms ({k4_by}); K2 "
+          f"{k4_plain_ms:.4f} ms, index_add_ {k4_lib_ms:.4f} ms, bound "
+          f"{k4_bound:.4f} ms ({k4_by}); K2 "
           f"[16, {n_tab}] -> {capacity} entries ({owned} owned): kernel "
           f"{k2_ms:.4f} ms (bench frame {bench['K2']:.4f}), plain "
           f"{k2_plain_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_by})",
@@ -2027,6 +2126,444 @@ def full_eval_phase(torch, dev, tmpdir, root, dup, counters):
     print(f"[full_eval] two scenes of {FULL_EVAL_ITERS} iterations at "
           f"{W}x{H} in {wall:.2f} s: " + "; ".join(stages) + f"; launches "
           f"{launches}; results {results}", flush=True)
+
+
+MESH_K = 4                 # shards of the in-process group on the card
+MESH_ITERS = 24            # [mesh trainer]: a densify at 20, syncs every 5
+MESH_VCAP = 65_536         # its first visible_capacity, below the visible
+# Gaussians of the full shards (the 500,000 points fill the first two of
+# four 262,144-slot shards): the first sync overflows, grows it and replays
+MESH_ASSIGNS = (("stride", dict(band_assign="stride")),
+                ("cost", dict(band_assign="cost")),
+                ("cost, split_rows 2", dict(band_assign="cost", split_rows=2)))
+
+
+def identity_row_map_is_the_full_frame(torch, dev, p0, alive0, cam):
+    """K1, K1g and K3 of the full bench frame with the identity row map
+    against the same kernels with none (the one-device path), bit for
+    bit: the map only renames the tile row the kernels already had."""
+    from gs_tpu_torch.core.project import preprocess
+    from gs_tpu_torch.ops.binning import bin_gaussians_payload, tile_grid
+    from gs_tpu_torch.ops.rasterize import (max_chunks_for, raster_tiles_bwd,
+                                            raster_tiles_fwd,
+                                            raster_tiles_fwd_save)
+    from gs_tpu_torch.ops.rasterize_plain import pack_projected
+    proj = preprocess(p0, cam, active_sh_degree=3, alive=alive0)
+    bins, feats, plan = bin_gaussians_payload(
+        proj, pack_projected(proj), W, H, 16, 16, DUP_CAPACITY,
+        exact_cull=True, fold_plan=True)
+    gx, gy = tile_grid(W, H, 16, 16)
+    args = (feats, bins.tile_start, bins.tile_end, gx,
+            max_chunks_for(MAX_PER_TILE))
+    ident = torch.arange(gy, dtype=torch.int32, device=dev)
+    out0, last0 = raster_tiles_fwd_save(*args)
+    out1, last1 = raster_tiles_fwd_save(*args, row_map=ident)
+    same = {"K1g": torch.equal(out0, out1) and torch.equal(last0, last1),
+            "K1": torch.equal(raster_tiles_fwd(*args, row_map=ident),
+                              raster_tiles_fwd(*args))}
+    dout = torch.tensor(np.random.default_rng(5).normal(
+        0, 1, tuple(out0.shape)), dtype=torch.float32, device=dev)
+    same["K3"] = torch.equal(
+        raster_tiles_bwd(*args, out0, last0, dout, plan.dest),
+        raster_tiles_bwd(*args, out0, last0, dout, plan.dest, row_map=ident))
+    check(all(same.values()), f"[mesh kernels] the identity row map changed "
+          f"the full frame: {same}")
+    print(f"[mesh kernels] the full bench frame ({int(bins.num_valid)} "
+          f"entries) with the identity row map: K1, K1g and K3 bitwise "
+          f"without one", flush=True)
+
+
+def mesh_kernels_phase(torch, dev, p0, alive0, bench_camera, counters):
+    """[mesh kernels]: the bench frame through render_multichip on
+    LocalGroup(MESH_K) (every shard and band on this card, K2 and K1 per
+    band) under each band assignment, against the one-device K1 frame; each
+    band's K1, K1g and K3 on its own inputs against their plain versions,
+    timed beside the work their data needs. Returns the kernels' largest
+    errors and the per-assignment band numbers."""
+    from gs_tpu_torch.core.project import preprocess
+    from gs_tpu_torch.ops.binning import bin_gaussians_payload, tile_grid
+    from gs_tpu_torch.ops.rasterize import (kernel_row_map, max_chunks_for,
+                                            raster_tiles_bwd,
+                                            raster_tiles_bwd_plain,
+                                            raster_tiles_bwd_work,
+                                            raster_tiles_fwd,
+                                            raster_tiles_fwd_plain,
+                                            raster_tiles_fwd_save,
+                                            raster_tiles_fwd_work)
+    from gs_tpu_torch.ops.rasterize_plain import pack_projected
+    from gs_tpu_torch.parallel.mesh import LocalGroup
+    from gs_tpu_torch.parallel.render_mc import (_rows_projected, _shard_rows,
+                                                 band_assignment, band_layout,
+                                                 render_multichip)
+    from gs_tpu_torch.render import render
+
+    group = LocalGroup(MESH_K, dev)
+    cam = bench_camera(0)
+    bg = torch.zeros(3, device=dev)
+    kw = dict(active_sh_degree=3, alive=alive0, dup_capacity=DUP_CAPACITY,
+              max_per_tile=MAX_PER_TILE, exact_cull=True)
+    gx, _ = tile_grid(W, H, 16, 16)
+    mc = max_chunks_for(MAX_PER_TILE)
+    errs = {"K1": 0.0, "K1g": 0.0, "K3": 0.0}
+    bands = {}
+    with torch.no_grad():
+        ref = render(cam, p0, bg, **kw)
+        full_ms = time_ms(torch, lambda: render(cam, p0, bg, **kw), 5)
+        identity_row_map_is_the_full_frame(torch, dev, p0, alive0, cam)
+        n = p0.capacity // MESH_K
+        projs = [preprocess(p0.__class__(*[t[d * n:(d + 1) * n] for t in p0]),
+                            cam, active_sh_degree=3,
+                            alive=alive0[d * n:(d + 1) * n])
+                 for d in range(MESH_K)]
+        proj_all = _rows_projected(torch.cat([_shard_rows(p) for p in projs]))
+        packets = pack_projected(proj_all)
+        for label, assign in MESH_ASSIGNS:
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.launches = 0
+            out = render_multichip(p0, cam, bg, group, **kw, **assign)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+            mesh_ms = time_ms(torch, lambda: render_multichip(
+                p0, cam, bg, group, **kw, **assign), 5)
+            check(not bool(out.overflow), f"[mesh kernels] {label} overflow")
+            check(launches["K2"] == launches["K1"] == MESH_K,
+                  f"[mesh kernels] {label} launches {launches}")
+            same = {k: torch.equal(getattr(out, k), getattr(ref, k))
+                    for k in ("image", "invdepth", "final_T")}
+            diff = max(float((getattr(out, k) - getattr(ref, k)).abs().max())
+                       for k in same)
+            ok = all(images_match(getattr(out, k), getattr(ref, k))[0]
+                     for k in same)
+            check(ok, f"[mesh kernels] {label}: the reassembled frame differs "
+                      f"from the one-device K1 frame by {diff}")
+            work = out.band_work.double()
+            dups = out.band_duplicates.double()
+            print(f"[mesh kernels] {label}, {MESH_K} shards of {n}: the "
+                  f"reassembled frame is the one-device K1 frame "
+                  f"{'bitwise' if all(same.values()) else f'within {diff:.3e}'} "
+                  f"(image, invdepth, final_T: {same}); band_work "
+                  f"{out.band_work.tolist()} (max/mean "
+                  f"{float(work.max() / work.mean()):.4f}), band_duplicates "
+                  f"{out.band_duplicates.tolist()} (max/mean "
+                  f"{float(dups.max() / dups.mean()):.4f}; the frame's "
+                  f"{int(ref.num_duplicates)}); launches {launches}; "
+                  f"render_multichip {mesh_ms:.4f} ms, render() "
+                  f"{full_ms:.4f} ms (CUDA events)", flush=True)
+            kws, _, _ = band_assignment(projs, group, W, H, **assign)
+            _, _, _, rows, _ = band_layout(W, H, MESH_K, **assign)
+            per_band = []
+            for d in range(MESH_K):
+                bins, feats, plan = bin_gaussians_payload(
+                    proj_all, packets, W, rows * 16, 16, 16, DUP_CAPACITY,
+                    exact_cull=True, fold_plan=True, **kws[d])
+                check(not bool(bins.overflow), f"[mesh kernels] band {d}")
+                kmap = kernel_row_map(kws[d]["row_map"], dev)
+                args = (feats, bins.tile_start, bins.tile_end, gx, mc)
+                got = raster_tiles_fwd(*args, row_map=kmap)
+                out_g, last = raster_tiles_fwd_save(*args, row_map=kmap)
+                torch.cuda.synchronize()
+                check(torch.equal(got, out_g), f"[mesh kernels] band {d}: "
+                      "K1g image != K1")
+                plain, last_p = raster_tiles_fwd_plain(*args, save=True,
+                                                       row_map=kmap)
+                ok, mx, frac = images_match(got, plain)
+                differ = float((last != last_p).double().mean())
+                check(ok and differ <= 2e-3, f"[mesh kernels] {label} band "
+                      f"{d}: K1 vs plain max {mx}, frac {frac}, last {differ}")
+                errs["K1"] = max(errs["K1"], mx)
+                errs["K1g"] = max(errs["K1g"], mx)
+                dout = torch.tensor(np.random.default_rng(11 + d).normal(
+                    0, 1, tuple(out_g.shape)), dtype=torch.float32, device=dev)
+                bwd = (*args, out_g, last, dout, plan.dest)
+                g = raster_tiles_bwd(*bwd, row_map=kmap)
+                torch.cuda.synchronize()
+                g_ref = raster_tiles_bwd_plain(*bwd, row_map=kmap)
+                ok3, ratio, mx3 = grads_match(g.T, g_ref.T)
+                check(ok3, f"[mesh kernels] {label} band {d}: K3 vs plain "
+                      f"{ratio} > 2e-4")
+                errs["K3"] = max(errs["K3"], mx3)
+                w1 = raster_tiles_fwd_work(*args, row_map=kmap)
+                w3 = raster_tiles_bwd_work(*args, last, row_map=kmap)
+                per_band.append(dict(
+                    entries=int(bins.num_valid),
+                    K1=time_ms(torch, lambda: raster_tiles_fwd(
+                        *args, row_map=kmap), 10),
+                    K1g=time_ms(torch, lambda: raster_tiles_fwd_save(
+                        *args, row_map=kmap), 10),
+                    K3=time_ms(torch, lambda: raster_tiles_bwd(
+                        *bwd, row_map=kmap), 10),
+                    K1_bound=bound_of(w1["bytes"], w1["ops"])[0],
+                    K3_bound=bound_of(w3["bytes"], w3["ops"])[0],
+                    K1_err=mx, K3_ratio=ratio))
+                del bins, feats, plan, got, out_g, last, plain, last_p, g, g_ref
+            bands[label] = dict(
+                work=out.band_work.tolist(), dups=out.band_duplicates.tolist(),
+                work_ratio=float(work.max() / work.mean()), per_band=per_band,
+                mesh_ms=mesh_ms, full_ms=full_ms)
+            print(f"[mesh kernels] {label}, per band (entries; K1, K1g, K3 "
+                  f"ms; K1 and K3 bounds ms; K1 max |kernel - plain|, K3 worst "
+                  f"row ratio): " + "; ".join(
+                      f"{b['entries']}: {b['K1']:.4f}, {b['K1g']:.4f}, "
+                      f"{b['K3']:.4f}; {b['K1_bound']:.4f}, "
+                      f"{b['K3_bound']:.4f}; {b['K1_err']:.2e}, "
+                      f"{b['K3_ratio']:.2e}" for b in per_band)
+                  + f"; summed K1 {sum(b['K1'] for b in per_band):.4f}, K1g "
+                  f"{sum(b['K1g'] for b in per_band):.4f}, K3 "
+                  f"{sum(b['K3'] for b in per_band):.4f} ms", flush=True)
+        del projs, proj_all, packets, ref, out
+    return errs, bands
+
+
+def mesh_step_phase(torch, dev, p0, alive0, bench_camera, counters):
+    """[mesh step]: the bench training step ([train]'s configuration) with
+    the state sharded over LocalGroup(MESH_K) against the one-device step on
+    the same state: the loss, and each Adam first moment (0.1 x the
+    gradient after one step) and the densification statistics within 2e-4
+    x their largest magnitude; ms per step of both, in turns, and the mesh
+    step's launches."""
+    from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
+                                     PipelineConfig, RasterConfig)
+    from gs_tpu_torch.core.camera import stack_cameras
+    from gs_tpu_torch.models.gaussian_model import init_state
+    from gs_tpu_torch.parallel.mesh import LocalGroup
+    from gs_tpu_torch.train.step import make_train_step
+
+    opt = OptimizationConfig(iterations=30_000)
+    raster = RasterConfig(backend="auto", dup_capacity=DUP_CAPACITY,
+                          max_per_tile=MAX_PER_TILE, chunk=64, exact_cull=True)
+    cams = stack_cameras([bench_camera(0)])
+    args = (opt, ModelConfig(), PipelineConfig(), raster, cams, 1.0, 3)
+    one = make_train_step(*args)
+    mesh = make_train_step(*args, mesh=LocalGroup(MESH_K, dev))
+    state = init_state(p0, alive0, num_images=1)
+    gt = torch.zeros((3, H, W), device=dev)
+    s1, m1 = one(state, 0, gt, iteration=1)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    s4, m4 = mesh(state, 0, gt, iteration=1)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    check(not bool(m4.overflow), "[mesh step] overflow")
+    check(all(launches[k] == MESH_K for k in ("K2", "K1g", "K3", "K4"))
+          and launches["K1"] == 0, f"[mesh step] launches {launches}")
+    l1, l4 = float(m1.loss), float(m4.loss)
+    check(abs(l1 - l4) <= 1e-6 * abs(l1), f"[mesh step] loss {l4} != {l1}")
+    worst = 0.0
+    for name, a, b in zip(s1.m._fields, s1.m, s4.m):
+        ok, ratio, _ = grads_match(b[None], a[None])
+        worst = max(worst, ratio)
+        check(ok, f"[mesh step] {name}: {ratio} > 2e-4")
+    ok, ratio, _ = grads_match(s4.grad_accum[None], s1.grad_accum[None])
+    check(ok, f"[mesh step] grad_accum: {ratio} > 2e-4")
+    del s1, s4
+    times = {"one device": [], f"{MESH_K} shards": []}
+    for it in range(2, 8):
+        for label, fn in (("one device", one), (f"{MESH_K} shards", mesh)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(state, 0, gt, iteration=it)
+            torch.cuda.synchronize()
+            if it > 2:
+                times[label].append(1e3 * (time.perf_counter() - t0))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"[mesh step] bench step, {MESH_K} shards of "
+          f"{state.capacity // MESH_K} on this card against one device: loss "
+          f"{l4:.7f} vs {l1:.7f}; worst Adam first-moment leaf max |diff| / "
+          f"max |one device| {worst:.3e}, densification statistics "
+          f"{ratio:.3e} (rule 2e-4); launches per mesh step {launches}; ms "
+          f"per step (host clock, synchronised, in turns, median of 5): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+          + " (the shards run one after another: not a speed-up)", flush=True)
+    return med
+
+
+def gap_threshold(state):
+    """A densify threshold in the widest relative gap among the top 5 % of
+    the alive Gaussians' mean gradients (past the 100 largest), so that
+    rounding cannot carry a Gaussian across it."""
+    torch = sys.modules["torch"]
+    g = state.grad_accum / state.denom
+    g = torch.where(torch.isnan(g), 0.0, g)[state.alive]
+    g = torch.sort(g, descending=True).values.double().cpu().numpy()
+    top = g[100:max(len(g) // 20, 102)]
+    rel = (top[:-1] - top[1:]) / top[:-1]
+    i = int(np.argmax(rel))
+    return float((top[i] + top[i + 1]) / 2), float(rel[i])
+
+
+def mesh_trainer_phase(torch, dev, root, dup, counters):
+    """[mesh trainer]: Trainer(mesh=LocalGroup(MESH_K)) on the [trainer]
+    dataset for MESH_ITERS iterations through a densify (at a threshold in a
+    gap of the one-device run's gradients, the same for both) and a
+    visible_capacity growth with replay, against the one-device Trainer at
+    the same iteration; then the training CLI over a real NCCL group:
+    --mesh N when this machine has N >= 2 cards, else --multihost with a
+    group of one. Returns the mesh run's kernel launches, and each kernel's
+    largest error on the inputs the mesh Trainer gave it."""
+    import dataclasses
+    import random
+    from gs_tpu_torch.apps import train as train_app
+    from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
+                                     PipelineConfig, RasterConfig)
+    from gs_tpu_torch.data.scene import Scene
+    from gs_tpu_torch.models.gaussian_model import group_lrs
+    from gs_tpu_torch.parallel.mesh import LocalGroup
+    from gs_tpu_torch.train.loop import Trainer
+
+    random.seed(0)
+    scene = Scene(root, "", resolution=1, eval_split=True, device=dev)
+    opt = OptimizationConfig(iterations=300, densify_from_iter=10,
+                             densification_interval=10, densify_until_iter=25,
+                             opacity_reset_interval=1000)
+    band_dup = -(-dup // 2 // 512) * 512
+    thresholds, densify_ms = {}, {}
+
+    def make(mesh, raster):
+        tr = Trainer(scene.get_train_cameras(), scene.point_cloud,
+                     spatial_lr_scale=scene.cameras_extent,
+                     model_cfg=ModelConfig(data_device=str(dev)), opt=opt,
+                     pipe=PipelineConfig(), raster=raster,
+                     test_cams=scene.get_test_cameras(), seed=0, mesh=mesh)
+        tr.sync_every = 5
+        densify = tr._densify
+
+        def at_threshold(state, use_size_threshold):
+            if tr.iteration not in thresholds:
+                thresholds[tr.iteration] = gap_threshold(state)
+            tr.opt = dataclasses.replace(
+                tr.opt, densify_grad_threshold=thresholds[tr.iteration][0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = densify(state, use_size_threshold)
+            torch.cuda.synchronize()
+            densify_ms.setdefault("one device" if mesh is None
+                                  else f"{MESH_K} shards", []).append(
+                1e3 * (time.perf_counter() - t0))
+            return out
+
+        tr._densify = at_threshold
+        return tr
+
+    t0 = time.perf_counter()
+    one = make(None, RasterConfig(dup_capacity=dup))
+    one.train(iterations=MESH_ITERS)
+    psnr_one = one.evaluate(one.test_cams)["psnr"]
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = make(LocalGroup(MESH_K, dev),
+                RasterConfig(dup_capacity=band_dup, visible_capacity=MESH_VCAP))
+    grows = []
+    grow = mesh._grow_raster
+    mesh._grow_raster = lambda changes, will_replay: (
+        grows.append(dict(changes)), grow(changes, will_replay))
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    mesh.train(iterations=MESH_ITERS)
+    psnr_mesh = mesh.evaluate(mesh.test_cams)["psnr"]
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    mesh_s = time.perf_counter() - t0
+    check(any("visible_capacity" in g for g in grows),
+          f"[mesh trainer] visible_capacity never grew: {grows}")
+    check(mesh.overflow_exhausted == 0, "[mesh trainer] replay exhausted")
+    check(all(launches[k] >= MESH_K * MESH_ITERS
+              for k in ("K2", "K1g", "K3", "K4")) and launches["K1"] > 0,
+          f"[mesh trainer] launches {launches}")
+    check(torch.equal(mesh.state.alive, one.state.alive),
+          f"[mesh trainer] alive masks differ in "
+          f"{int((mesh.state.alive != one.state.alive).sum())} slots")
+    worst = {}
+    for name in one.state.params._fields:
+        a = getattr(one.state.params, name)
+        b = getattr(mesh.state.params, name)
+        diff = (a - b).abs()
+        beyond = float((diff > 2e-4 * a.abs().max()).double().mean())
+        lr = max(getattr(group_lrs(opt, 1, one.spatial_lr_scale), name),
+                 getattr(group_lrs(opt, MESH_ITERS, one.spatial_lr_scale),
+                         name))
+        worst[name] = (beyond, float(diff.max()) / lr)
+        check(beyond <= 0.01 and float(diff.max()) <= 2.01 * MESH_ITERS * lr,
+              f"[mesh trainer] {name}: {beyond:.2%} beyond 2e-4 x max, max "
+              f"diff {float(diff.max())} ({float(diff.max()) / lr:.2f} lr)")
+    check(abs(psnr_mesh - psnr_one) < 0.01,
+          f"[mesh trainer] test PSNR {psnr_mesh} vs {psnr_one}")
+    print(f"[mesh trainer] {MESH_ITERS} iterations of the [trainer] dataset, "
+          f"{mesh.capacity} slots: LocalGroup({MESH_K}) {mesh_s:.2f} s, one "
+          f"device {one_s:.2f} s (evaluations included); densify thresholds "
+          f"(iteration: value, relative gap) {thresholds}; grown buffers "
+          f"{grows}; visible_capacity {MESH_VCAP} -> "
+          f"{mesh.raster.visible_capacity}, dup_capacity per band "
+          f"{band_dup} -> {mesh.raster.dup_capacity}; alive "
+          f"{mesh.num_alive()} = one device's {one.num_alive()}, masks "
+          f"equal; per parameter (share beyond 2e-4 x max, max diff in lr): "
+          + ", ".join(f"{k} {v[0]:.3%} {v[1]:.3f}" for k, v in worst.items())
+          + f"; test PSNR {psnr_mesh:.4f} vs {psnr_one:.4f} dB; launches "
+          f"{launches}", flush=True)
+    # a densify under a mesh gathers every sharded field to each rank and
+    # keeps its shard of the result: in a LocalGroup both are no-ops, so
+    # what it costs beyond one device is these bytes over the interconnect
+    from gs_tpu_torch.parallel.mesh import SHARDED_FIELDS
+    state = mesh.state
+    shard_bytes = sum(t.numel() * t.element_size()
+                      for name in SHARDED_FIELDS
+                      for t in (getattr(state, name)
+                                if isinstance(getattr(state, name), tuple)
+                                else (getattr(state, name),)))
+    print(f"[mesh trainer] densify_and_prune ms (host clock, synchronised): "
+          + "; ".join(f"{k} " + ", ".join(f"{x:.3f}" for x in v)
+                      for k, v in densify_ms.items())
+          + f"; the gathered state is {shard_bytes} bytes "
+          f"({shard_bytes // MESH_K} per shard; on k cards each rank "
+          f"receives (k-1)/k of it)", flush=True)
+    # every kernel of the mesh path on the inputs that path gave it: the
+    # bands of one render_view and of one more training step
+    errs = path_kernels_match(torch, mesh, mesh.test_cams[0].camera,
+                              "mesh trainer kernels")
+    del one, mesh, state
+
+    # the CLI over a real NCCL group
+    cards = torch.cuda.device_count()
+    model = os.path.join(os.path.dirname(root), "model_mesh")
+    args = ["-s", root, "-m", model, "-r", "1", "--eval", "--iterations", "10",
+            "--densify_from_iter", "4", "--densification_interval", "5",
+            "--test_iterations", "10", "--save_iterations", "10",
+            "--dup_capacity", str(band_dup), "--disable_viewer", "--quiet",
+            "--data_device", dev.type]
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    if cards >= 2:
+        how = f"--mesh {cards}: {cards} processes, one per card, NCCL"
+        train_app.main(args + ["--mesh", str(cards)])
+    else:
+        how = "--multihost with a group of one (this machine has one card), NCCL"
+        env = {"GS_TPU_COORD": f"127.0.0.1:{free_port()}",
+               "GS_TPU_NPROCS": "1", "GS_TPU_PROCID": "0"}
+        os.environ.update(env)
+        try:
+            with contextlib.redirect_stdout(log):
+                tr = train_app.main(args + ["--multihost"])
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        want = "nccl" if dev.type == "cuda" else "gloo"
+        check(tr.mesh.backend == want and tr.mesh.size == 1,
+              f"[mesh CLI] group {tr.mesh.backend} of {tr.mesh.size}")
+        check("Sharding gaussians over 1 devices" in log.getvalue(),
+              "[mesh CLI] no sharding line")
+        del tr
+    ply = os.path.join(model, "point_cloud", "iteration_10",
+                       "point_cloud.ply")
+    check(os.path.exists(ply), "[mesh CLI] no PLY")
+    print(f"[mesh CLI] ran {how}: 10 iterations with two densifies, a test "
+          f"evaluation and a gathered PLY in {time.perf_counter() - t0:.2f} "
+          f"s; " + " | ".join(ln for ln in log.getvalue().splitlines()
+                              if "Sharding" in ln or "Evaluating" in ln),
+          flush=True)
+    return launches, errs
 
 
 def main() -> int:
@@ -2365,14 +2902,24 @@ def main() -> int:
         torch, dev, small, scam, p0, alive0, bench_camera)
     trainer_launches, trainer_tmp, root, model, dup, steady_ms = \
         trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid)
-    frames, live_cams = live_frames(torch, dev, p0, alive0, pts)
-    del p0, alive0, mid
     from gs_tpu_torch.ops.fold import fold_rows
     from gs_tpu_torch.ops.rasterize import (raster_tiles_bwd,
                                             raster_tiles_fwd_save)
     counters = {"K2": expand_rows, "K1": raster_tiles_fwd,
                 "K1g": raster_tiles_fwd_save, "K3": raster_tiles_bwd,
                 "K4": fold_rows}
+    t_mesh = time.perf_counter()
+    mesh_errs, _ = mesh_kernels_phase(torch, dev, p0, alive0, bench_camera,
+                                      counters)
+    mesh_step_phase(torch, dev, p0, alive0, bench_camera, counters)
+    mesh_launches, trainer_errs = mesh_trainer_phase(torch, dev, root, dup,
+                                                     counters)
+    for k, v in trainer_errs.items():
+        mesh_errs[k] = max(mesh_errs.get(k, 0.0), v)
+    print(f"[mesh] the mesh phases in {time.perf_counter() - t_mesh:.1f} s",
+          flush=True)
+    frames, live_cams = live_frames(torch, dev, p0, alive0, pts)
+    del p0, alive0, mid
     viewer_launches, viewer_errs = viewer_phase(torch, dev, root, dup,
                                                 steady_ms, counters)
     lpips_phase(torch, dev, trainer_tmp.name, model)
@@ -2413,8 +2960,10 @@ def main() -> int:
         k["trainer_launches"] = trainer_launches[k["id"]]
         k["viewer_launches"] = viewer_launches[k["id"]]
         k["live_launches"] = live_launches[k["id"]]
+        k["mesh_launches"] = mesh_launches[k["id"]]
         k["max_abs_err"] = max(k["max_abs_err"], viewer_errs[k["id"]],
-                               live_errs[k["id"]], rain_errs[k["id"]])
+                               live_errs[k["id"]], rain_errs[k["id"]],
+                               mesh_errs.get(k["id"], 0.0))
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

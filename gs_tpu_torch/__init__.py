@@ -20,6 +20,9 @@ overflow replay, checkpoints, the dataset readers and ``Scene``) with the
 LPIPS and the offline tools; live capture (``io_live/``: the frame stream,
 scene bootstrap, point-cloud tools, rosbag, GPS and fusion, with the
 ``train_live``, ``convert_stream``, ``gps_pub`` and ``ros_bridge`` CLIs);
-and the native COLMAP parser (``native/``, host C++ built by ``g++``). Not
-ported: the packed state layout, ``bf16_features`` and several GPUs.
+and the native COLMAP parser (``native/``, host C++ built by ``g++``); and
+training on several GPUs (``parallel/``: the Gaussians sharded over a
+``torch.distributed`` group, the image's tile rows banded across it, the
+kernels given each band's row map; ``--mesh`` and ``--multihost`` of the
+train CLI). Not ported: the packed state layout and ``bf16_features``.
 """

@@ -18,8 +18,18 @@ viewer server listens on --ip:--port (``viewer/server.py``) and is polled
 after every iteration (after every block in block mode, whose length is
 then capped to about a second of iterations); a port that cannot be bound
 is reported and training goes on. A checkpoint may be the port's or the
-JAX package's (``train/checkpoint.py``). Not ported yet: several devices
-(--mesh above 1 and --multihost raise).
+JAX package's (``train/checkpoint.py``).
+
+Several devices (``gs_tpu/apps/train.py:75-151``): ``--mesh N`` (or
+``auto``, every visible card) shards the Gaussians over N CUDA devices of
+this machine, one process per card: the CLI starts N copies of itself with
+a local ``torch.distributed`` rendezvous, unless a launcher (torchrun) has
+set ``WORLD_SIZE``/``RANK`` already. ``--multihost`` forms the group from
+the environment (``GS_TPU_COORD``/``GS_TPU_NPROCS``/``GS_TPU_PROCID``, or
+torchrun's), NCCL on ``cuda`` and gloo on ``cpu``. A mesh larger than the
+cards present raises; nothing falls back to one device. Rank 0 owns the
+model dir (config, TensorBoard, snapshots, checkpoints, gathered from every
+rank); the other ranks write nothing, and the viewer is off.
 """
 from __future__ import annotations
 
@@ -27,6 +37,9 @@ import glob
 import os
 import random
 import re
+import socket
+import subprocess
+import sys
 import time
 import uuid
 
@@ -36,12 +49,16 @@ from ..config import (ModelConfig, OptimizationConfig, PipelineConfig,
                       RasterConfig, save_config)
 from ..core.gaussians import get_opacity
 from ..data.scene import Scene
+from ..parallel.mesh import init_from_env
 from ..train.checkpoint import load_checkpoint, save_checkpoint
 from ..train.loop import Trainer
 from ..viewer.server import ViewerServer
 from .args import extract_dataclass, make_parser, resolve_data_device
 
-MULTI_DEVICE = "ROADMAP.md queue 1 item 9 (multi-GPU) is not ported yet"
+SPAWNED = "spawned"    # make_group's answer when this process only launched
+# the directory that holds gs_tpu_torch, for the ranks --mesh N starts
+PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def prepare_output_dir(model_cfg: ModelConfig) -> str:
@@ -55,7 +72,77 @@ def prepare_output_dir(model_cfg: ModelConfig) -> str:
     return path
 
 
-def main(argv=None):
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(n: int, cmd) -> None:
+    """Run ``cmd`` (this CLI, by default) as ``n`` processes, rank i on card
+    i, over a local ``torch.distributed`` rendezvous. Every rank is polled:
+    the first that exits non-zero stops the others at once (they would wait
+    in a collective for it) and raises."""
+    port = _free_port()
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(n), RANK=str(rank), LOCAL_RANK=str(rank),
+                   PYTHONPATH=os.pathsep.join(
+                       [PACKAGE_ROOT] + os.environ.get("PYTHONPATH", "")
+                       .split(os.pathsep)).rstrip(os.pathsep))
+        procs.append(subprocess.Popen(cmd, env=env))
+    failed = None
+    try:
+        while failed is None:
+            codes = [proc.poll() for proc in procs]
+            failed = next(((rank, code) for rank, code in enumerate(codes)
+                           if code not in (None, 0)), None)
+            if failed is None and all(code == 0 for code in codes):
+                return
+            time.sleep(0.1)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    raise RuntimeError(f"--mesh {n}: rank {failed[0]} exited with "
+                       f"{failed[1]}; the other ranks were stopped")
+
+
+def make_group(args, device_type: str, argv):
+    """The group the flags ask for: None for one device; a ProcessGroup
+    under --multihost, or for --mesh N in a process a launcher started;
+    SPAWNED after running the N ranks of --mesh N as child processes."""
+    launched = "WORLD_SIZE" in os.environ and "RANK" in os.environ
+    single = args.mesh in ("", "0", "1")
+    if args.multihost or (launched and not single):
+        group = init_from_env(device_type)
+        if args.mesh not in ("", "0", "1", "auto") and \
+                int(args.mesh) != group.size:
+            raise ValueError(f"--mesh {args.mesh} disagrees with the "
+                             f"launcher's {group.size} ranks")
+        return group
+    if single:
+        return None
+    cards = torch.cuda.device_count() if device_type == "cuda" else 0
+    n = cards if args.mesh == "auto" else int(args.mesh)
+    if args.mesh == "auto" and n <= 1:
+        return None
+    if n > cards:
+        raise RuntimeError(f"--mesh {args.mesh} needs {n} CUDA devices, and "
+                           f"this machine has {cards} for --data_device "
+                           f"{device_type}")
+    spawn_ranks(n, [sys.executable, "-m", "gs_tpu_torch.apps.train", *argv])
+    return SPAWNED
+
+
+def main(argv=None, *, group=None):
+    """Train. ``group``: shard over this group (``parallel/mesh.py``, e.g.
+    a ``LocalGroup``) instead of what --mesh/--multihost ask for. Returns
+    the Trainer (None in a process that only started the --mesh ranks)."""
+    if argv is None:
+        argv = sys.argv[1:]
     parser = make_parser("Training script parameters")
     parser.add_argument("--ip", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=6009)
@@ -88,15 +175,17 @@ def main(argv=None):
     parser.add_argument("--initial_capacity", type=int, default=0,
                         help="starting gaussian capacity (0 = auto)")
     parser.add_argument("--mesh", type=str, default="0",
-                        help="0/1 = one device; more is not ported yet")
+                        help="shard the gaussians over devices: 'auto' = "
+                             "every visible CUDA card, an integer = that "
+                             "many (one process each); 0/1 = one device")
     parser.add_argument("--multihost", action="store_true",
-                        help="not ported yet")
+                        help="form the torch.distributed group from the "
+                             "environment (GS_TPU_COORD/GS_TPU_NPROCS/"
+                             "GS_TPU_PROCID, or torchrun's); one shard per "
+                             "process, NCCL on cuda, gloo on cpu. Saves and "
+                             "logs happen on rank 0 only")
     args = parser.parse_args(argv)
 
-    if args.mesh not in ("", "0", "1"):
-        raise NotImplementedError(f"--mesh {args.mesh}: {MULTI_DEVICE}")
-    if args.multihost:
-        raise NotImplementedError(f"--multihost: {MULTI_DEVICE}")
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)   # ref: train.py:253,269
 
@@ -107,27 +196,67 @@ def main(argv=None):
     raster = extract_dataclass(RasterConfig, args)
     args.save_iterations.append(opt.iterations)
 
-    model_cfg.model_path = prepare_output_dir(model_cfg)
-    save_config(model_cfg.model_path, model_cfg, pipe, opt)
+    own_group = group is None
+    if own_group:
+        group = make_group(args, torch.device(model_cfg.data_device).type,
+                           argv)
+        if group is SPAWNED:
+            return None
+    try:
+        return _train(args, model_cfg, opt, pipe, raster, group)
+    finally:
+        if own_group and group is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(args, model_cfg, opt, pipe, raster, group):
+    is_main = group is None or group.is_main
+    # one process drives every shard: the viewer may run in it
+    one_process = group is None or len(group.local) == group.size
+    if is_main:
+        model_cfg.model_path = prepare_output_dir(model_cfg)
+        save_config(model_cfg.model_path, model_cfg, pipe, opt)
+    if group is not None:
+        model_cfg.data_device = str(group.device)
+        if is_main:
+            print(f"Sharding gaussians over {group.size} devices "
+                  f"({group.size // len(group.local)} process(es))")
 
     tb_writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
-        tb_writer = SummaryWriter(model_cfg.model_path)
-    except ImportError:
-        print("Tensorboard not available: not logging progress")
+    if is_main:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            tb_writer = SummaryWriter(model_cfg.model_path)
+        except ImportError:
+            print("Tensorboard not available: not logging progress")
 
     # the Scene's camera shuffle uses Python's global RNG
     random.seed(args.seed)
 
     print(f"Optimizing {model_cfg.model_path}")
-    scene = Scene(model_cfg.source_path, model_cfg.model_path,
-                  images=model_cfg.images, depths=model_cfg.depths,
-                  resolution=model_cfg.resolution,
-                  white_background=model_cfg.white_background,
-                  eval_split=model_cfg.eval,
-                  train_test_exp=model_cfg.train_test_exp,
-                  device=model_cfg.data_device)
+
+    def open_scene():
+        # only rank 0 writes the model dir (Scene writes nothing without one)
+        return Scene(model_cfg.source_path,
+                     model_cfg.model_path if is_main else "",
+                     images=model_cfg.images, depths=model_cfg.depths,
+                     resolution=model_cfg.resolution,
+                     white_background=model_cfg.white_background,
+                     eval_split=model_cfg.eval,
+                     train_test_exp=model_cfg.train_test_exp,
+                     device=model_cfg.data_device)
+
+    if one_process:
+        scene = open_scene()
+    else:
+        # the first open of a dataset writes its point cloud beside it
+        # (points3D.bin -> .ply, or a Blender scene's random cloud): rank 0
+        # writes it before the other ranks read it
+        scene = open_scene() if is_main else None
+        group.barrier()
+        if scene is None:
+            scene = open_scene()
 
     start_state, start_iter = None, 0
     ckpt_path = args.start_checkpoint
@@ -147,10 +276,15 @@ def main(argv=None):
         model_cfg=model_cfg, opt=opt, pipe=pipe, raster=raster,
         test_cams=scene.get_test_cameras(),
         start_state=start_state, start_iteration=start_iter, seed=args.seed,
-        initial_capacity=args.initial_capacity or None)
+        initial_capacity=args.initial_capacity or None, mesh=group)
 
     viewer = None
-    if not args.disable_viewer:
+    if not one_process and not args.disable_viewer:
+        # the viewer would render on rank 0 alone, and the banded render is
+        # a collective of every rank
+        if is_main:
+            print("Viewer disabled with several processes")
+    elif not args.disable_viewer:
         try:
             viewer = ViewerServer(args.ip, args.port, trainer=trainer,
                                   source_path=model_cfg.source_path)
@@ -216,37 +350,49 @@ def main(argv=None):
                 rate[2] = 0.5 * rate[2] + 0.5 * its
             rate[0], rate[1] = t, i
         now = time.perf_counter()
+        # the alive count is a collective under a group: every rank reads
+        # it where any rank needs it
+        n_alive = None
+        if (i % 10 == 0 and (tb_writer is not None or group is not None)) \
+                or (not args.quiet and i % 100 == 0):
+            n_alive = tr.num_alive()
         if tb_writer is not None and i % 10 == 0:
             tb_writer.add_scalar("train_loss_patches/total_loss",
                                  float(metrics.loss), i)
             tb_writer.add_scalar("train_loss_patches/l1_loss",
                                  float(metrics.l1), i)
-            tb_writer.add_scalar("total_points", int(tr.state.num_alive), i)
+            tb_writer.add_scalar("total_points", n_alive, i)
             if tr.overflow_exhausted:
                 tb_writer.add_scalar("overflow_replay_exhausted",
                                      tr.overflow_exhausted, i)
-        if not args.quiet and i % 100 == 0:
+        if not args.quiet and i % 100 == 0 and is_main:
             its = (i - last_log[1]) / max(now - last_log[0], 1e-9)
             last_log[0], last_log[1] = now, i
             print(f"[{i}/{opt.iterations}] loss={tr.ema_loss:.5f} "
-                  f"pts={int(tr.state.num_alive)} {its:.2f} it/s",
-                  flush=True)
+                  f"pts={n_alive} {its:.2f} it/s", flush=True)
         periodic = (args.checkpoint_every > 0 and
                     i % args.checkpoint_every == 0 and i != start_iter)
-        if i in save_at or i in ckpt_at or periodic:
-            tr.sync_metrics()   # replay any overflow before saving
+        if not (i in save_at or i in ckpt_at or periodic):
+            return
+        tr.sync_metrics()   # replay any overflow before saving
+        state = tr.full_state()      # every rank takes part in the gather
+        if not is_main:
+            return
         if i in save_at:
             print(f"\n[ITER {i}] Saving Gaussians")
-            scene.save(i, tr.state.params, tr.state.alive,
-                       exposure=tr.state.exposure
+            scene.save(i, state.params, state.alive,
+                       exposure=state.exposure
                        if model_cfg.train_test_exp else None)
         if i in ckpt_at or periodic:
             print(f"\n[ITER {i}] Saving Checkpoint")
             save_checkpoint(os.path.join(model_cfg.model_path,
                                          f"chkpnt{i}.pth"),
-                            tr.state, i, tr.spatial_lr_scale)
+                            state, i, tr.spatial_lr_scale)
 
     def on_test(i, report, tr):
+        state = tr.full_state()      # every rank takes part in the gather
+        if not is_main:
+            return
         for split, r in report.items():
             if not r:
                 continue
@@ -259,8 +405,8 @@ def main(argv=None):
                                      r["psnr"], i)
         if tb_writer is not None:
             # opacity histogram + total points (ref: train.py:239-241)
-            alive = tr.state.alive
-            op = get_opacity(tr.state.params)[alive]
+            alive = state.alive
+            op = get_opacity(state.params)[alive]
             tb_writer.add_histogram("scene/opacity_histogram",
                                     op.cpu().numpy(), i)
             tb_writer.add_scalar("total_points", int(alive.sum()), i)

@@ -74,10 +74,9 @@ class OptimizationConfig:
 class RasterConfig:
     """Rasterizer knobs (no reference counterpart): the fields of
     ``gs_tpu.config.RasterConfig`` that the port reads. Those that select
-    TPU kernels or multi-chip layouts (``tile_block``, ``pallas_expand``,
-    ``pallas_fold``, ``band_assign``, ``visible_capacity``) are left out:
-    the CUDA backend always runs its kernels, and multi-GPU is not ported.
-    ``bf16_features`` is refused until ported."""
+    TPU kernels (``tile_block``, ``pallas_expand``, ``pallas_fold``) are
+    left out: the CUDA backend always runs its kernels. ``bf16_features``
+    is refused until ported."""
     backend: str = "auto"            # auto (= cuda) | depthwise | binned | cuda
     dup_capacity: int = 1 << 20
     max_per_tile: int = 4096
@@ -86,6 +85,14 @@ class RasterConfig:
     exact_cull: bool = True          # drop expanded entries whose tile the
     # ellipse provably never reaches (alpha < 1/255 over the whole rect)
     # before the tile sort — shrinks per-tile ranges at zero output change
+    band_assign: str = "cost"        # multi-GPU tile-row assignment: "cost"
+    # re-deals rows to devices each frame by duplicate cost (snake order);
+    # "stride" is the fixed interleave (device d owns rows d, d+k, ...)
+    visible_capacity: int = 0        # multi-GPU (--mesh) only: per-device
+    # cap on packets entering the all-gather (each device compacts its
+    # shard visible-first). 0 = auto (the trainer sizes it from the
+    # per-shard alive counts and grows it on overflow), -1 = gather the
+    # whole padded shard, >0 = an explicit cap
 
 
 def asdict(cfg) -> dict:

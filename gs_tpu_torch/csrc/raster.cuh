@@ -38,11 +38,21 @@ struct Pixel {
   int x0, y0;     // the block's first pixel, image coordinates
 };
 
-__device__ __forceinline__ Pixel pixel_of(int t, int gx, int block,
+// The global tile row of tile t. Tiles come in local rows of gx; a band of
+// a multi-GPU render owns a set of the image's tile rows, and row_map
+// [tiles / gx] gives the global row of each local one (the TPU kernel's
+// rowp input, gs_tpu/ops/rasterize_pallas.py:70-76). A full frame passes
+// no map: local row = global row. Outputs stay in local tile order.
+__device__ __forceinline__ int tile_row(const int* __restrict__ row_map,
+                                        int t, int gx) {
+  return row_map ? __ldg(row_map + t / gx) : t / gx;
+}
+
+__device__ __forceinline__ Pixel pixel_of(int t, int gx, int trow, int block,
                                           int lane) {
   const int bx = (block & 1) * kBlockW, by = (block >> 1) * kBlockH;
   const int x = bx + (lane & (kBlockW - 1)), y = by + lane / kBlockW;
-  const int tx = (t % gx) * kTile, ty = (t / gx) * kTile;
+  const int tx = (t % gx) * kTile, ty = trow * kTile;
   return {y * kTile + x, static_cast<float>(tx + x),
           static_cast<float>(ty + y), tx + bx, ty + by};
 }

@@ -8,7 +8,9 @@
 // dL/dT_final per pixel; the last row already holds bg . dL/dimage from
 // the background blend), as one 40-byte row at the entry's position before
 // the tile sort, dest[e]: there the expansion laid each Gaussian's entries
-// out as one run, which the fold K4 reads as one stream.
+// out as one run, which the fold K4 reads as one stream. A band of a
+// multi-GPU render passes K1's row_map (the global tile row of each local
+// one, the TPU kernel's rowp, :308); a full frame passes none.
 //
 // Per pixel, walking its composited entries back to front (last index from
 // K1g), with T the transmittance behind the entry (T_final at the start)
@@ -179,6 +181,7 @@ __global__ void __launch_bounds__(kThreads)
 raster_bwd_kernel(const float* __restrict__ feats, int d,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_end, int gx, int max_chunks,
+                  const int* __restrict__ row_map,
                   const float* __restrict__ out_fwd,
                   const int* __restrict__ last,
                   const float* __restrict__ dout,
@@ -195,8 +198,9 @@ raster_bwd_kernel(const float* __restrict__ feats, int d,
   const int warp = p >> 5;
   // warp w: blocks a = 4 (w / 2) + w % 2 and a + 2 below it, an 8x8 square
   const int block_a = 4 * (warp >> 1) + (warp & 1);
-  const Pixel pa = pixel_of(t, gx, block_a, lane);
-  const Pixel pb = pixel_of(t, gx, block_a + 2, lane);
+  const int trow = tile_row(row_map, t, gx);
+  const Pixel pa = pixel_of(t, gx, trow, block_a, lane);
+  const Pixel pb = pixel_of(t, gx, trow, block_a + 2, lane);
   const Window win = tile_window(tile_start, tile_end, t, max_chunks);
   PixelState sa = load_pixel(pa, t, out_fwd, last, dout);
   PixelState sb = load_pixel(pb, t, out_fwd, last, dout);
@@ -279,24 +283,26 @@ raster_bwd_kernel(const float* __restrict__ feats, int d,
 
 }  // namespace
 
-// feats [10, d] float32, tile_start/tile_end [num_tiles] int32, out_fwd
-// [num_tiles, 5, 256] float32 and last [num_tiles, 256] int32 from the grad
-// variant of K1, dout [num_tiles, 5, 256] float32, dest [d] int32 (a
-// permutation of [0, d)), dfeats [d, 10] float32 holding zeros: all
-// contiguous on `device`. Launches on `stream`, allocates nothing, does not
-// synchronise. Returns cudaGetLastError().
+// feats [10, d] float32, tile_start/tile_end [num_tiles] int32, row_map
+// [num_tiles / gx] int32 or null (a full frame), out_fwd [num_tiles, 5,
+// 256] float32 and last [num_tiles, 256] int32 from the grad variant of K1,
+// dout [num_tiles, 5, 256] float32, dest [d] int32 (a permutation of
+// [0, d)), dfeats [d, 10] float32 holding zeros: all contiguous on
+// `device`. Launches on `stream`, allocates nothing, does not synchronise.
+// Returns cudaGetLastError().
 extern "C" int gs_raster_tiles_bwd(const float* feats, int d,
                                    const int* tile_start, const int* tile_end,
                                    int num_tiles, int gx, int max_chunks,
-                                   const float* out_fwd, const int* last,
-                                   const float* dout, const int* dest,
-                                   float* dfeats, int device, void* stream) {
+                                   const int* row_map, const float* out_fwd,
+                                   const int* last, const float* dout,
+                                   const int* dest, float* dfeats, int device,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   raster_bwd_kernel<<<num_tiles, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      feats, d, tile_start, tile_end, gx, max_chunks, out_fwd, last, dout,
-      dest, dfeats);
+      feats, d, tile_start, tile_end, gx, max_chunks, row_map, out_fwd, last,
+      dout, dest, dfeats);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,7 +13,10 @@
 //
 // feats is [10, D] float32 rows (x, y, conic a/b/c, opacity, r, g, b,
 // invdepth); out is [tiles, 5, 256] float32 rows (r, g, b, invdepth,
-// final T), pixel p of a tile at (p % 16, p / 16).
+// final T), pixel p of a tile at (p % 16, p / 16). A band of a multi-GPU
+// render passes row_map [tiles / gx] int32, the global tile row of each
+// local one (the TPU kernel's rowp input, :70-76): pixel coordinates, the
+// block skip and the splat use the global row; a full frame passes none.
 //
 // The grad variant also writes last [tiles, 256] int32: one past the
 // global index of the last entry the pixel composited (the tile's start
@@ -113,6 +116,7 @@ __global__ void __launch_bounds__(kThreads)
 raster_fwd_kernel(const float* __restrict__ feats, int d,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_end, int gx, int max_chunks,
+                  const int* __restrict__ row_map,
                   float* __restrict__ out, int* __restrict__ last) {
   __shared__ float4 words[2][kWords * kBatch];     // 12 KB
   const int t = blockIdx.x;
@@ -121,8 +125,9 @@ raster_fwd_kernel(const float* __restrict__ feats, int d,
   const int warp = p >> 5;
   // warp w: blocks a = 4 (w / 2) + w % 2 and a + 2 below it, an 8x8 square
   const int block_a = 4 * (warp >> 1) + (warp & 1);
-  const Pixel pa = pixel_of(t, gx, block_a, lane);
-  const Pixel pb = pixel_of(t, gx, block_a + 2, lane);
+  const int trow = tile_row(row_map, t, gx);
+  const Pixel pa = pixel_of(t, gx, trow, block_a, lane);
+  const Pixel pb = pixel_of(t, gx, trow, block_a + 2, lane);
   const Window win = tile_window(tile_start, tile_end, t, max_chunks);
 
   float v[kFeat];
@@ -169,37 +174,40 @@ raster_fwd_kernel(const float* __restrict__ feats, int d,
 template <bool kSave>
 int launch(const float* feats, int d, const int* tile_start,
            const int* tile_end, int num_tiles, int gx, int max_chunks,
-           float* out, int* last, int device, void* stream) {
+           const int* row_map, float* out, int* last, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   raster_fwd_kernel<kSave>
       <<<num_tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          feats, d, tile_start, tile_end, gx, max_chunks, out, last);
+          feats, d, tile_start, tile_end, gx, max_chunks, row_map, out, last);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// feats [10, d] float32, tile_start/tile_end [num_tiles] int32, out
-// [num_tiles, 5, 256] float32: all contiguous on `device`. Launches on
-// `stream`, allocates nothing, does not synchronise. Returns
-// cudaGetLastError().
+// feats [10, d] float32, tile_start/tile_end [num_tiles] int32, row_map
+// [num_tiles / gx] int32 or null (a full frame), out [num_tiles, 5, 256]
+// float32: all contiguous on `device`. Launches on `stream`, allocates
+// nothing, does not synchronise. Returns cudaGetLastError().
 extern "C" int gs_raster_tiles_fwd(const float* feats, int d,
                                    const int* tile_start, const int* tile_end,
                                    int num_tiles, int gx, int max_chunks,
-                                   float* out, int device, void* stream) {
+                                   const int* row_map, float* out, int device,
+                                   void* stream) {
   return launch<false>(feats, d, tile_start, tile_end, num_tiles, gx,
-                       max_chunks, out, nullptr, device, stream);
+                       max_chunks, row_map, out, nullptr, device, stream);
 }
 
 // The grad variant (K1g): the same, plus last [num_tiles, 256] int32.
 extern "C" int gs_raster_tiles_fwd_save(const float* feats, int d,
                                         const int* tile_start,
                                         const int* tile_end, int num_tiles,
-                                        int gx, int max_chunks, float* out,
+                                        int gx, int max_chunks,
+                                        const int* row_map, float* out,
                                         int* last, int device, void* stream) {
   return launch<true>(feats, d, tile_start, tile_end, num_tiles, gx,
-                      max_chunks, out, last, device, stream);
+                      max_chunks, row_map, out, last, device, stream);
 }
 
 // What the compiler made of either variant (save 0: K1, 1: K1g): see

@@ -1,5 +1,5 @@
 """Tile binning: duplicate Gaussians over their tile span, group by tile —
-port of ``gs_tpu/ops/binning.py`` (single-device path).
+port of ``gs_tpu/ops/binning.py``.
 
 1. tile rects from the opacity-aware cull bbox and per-gaussian counts,
 2. one stable argsort of all N by view depth, gaussians with no entries
@@ -11,6 +11,15 @@ port of ``gs_tpu/ops/binning.py`` (single-device path).
    within each tile, the (tile, depth) order of the reference's radix sort
    — with the payload rows riding along,
 6. per-tile [start, end) ranges via searchsorted.
+
+A band of a multi-GPU render (``parallel/render_mc.py``) bins only the
+global tile rows it owns, given as ``row_map``/``row_cumown`` (an
+ascending row list and the exclusive prefix count of owned rows; the
+JAX package's ``row_phase``/``row_stride`` band is the map
+phase + j*stride), optionally with
+``col0_map``/``col1_map`` (each local row owns only a segment of tile
+columns). Coordinates stay global, tile ids are local; only the rect rows
+change before K2, so K2 is the kernel of a full frame.
 
 For a differentiable render the binning also hands back a :class:`FoldPlan`:
 where the raster backward (K3) writes each sorted entry's gradient, and the
@@ -109,12 +118,31 @@ def quad_min_rect(ex, ey, ca, cb, cc, x_lo, x_hi, y_lo, y_hi):
     return torch.where(inside, 0.0, qmin)
 
 
+def band_rows(proj: Projected, radius_x, radius_y, gx: int, gy: int,
+              tile_x: int, tile_y: int, row_map=None, row_cumown=None):
+    """Each Gaussian's tile rect in LOCAL rows: (rx0, ry0, rx1, ry1) with
+    ``ry0``/``ry1`` the first and one past the last of the rect's owned
+    rows in this band's row order (``gy`` local rows). With ``row_map``
+    the rect's global rows go through the owned-row prefix ``row_cumown``
+    [gy_global + 1]."""
+    if row_map is None:
+        return tile_rect(proj.mean2d, radius_x, gx, gy, tile_x, tile_y,
+                         radius_y=radius_y)
+    gy_glob = row_cumown.shape[0] - 1
+    rx0, gy0, rx1, gy1 = tile_rect(proj.mean2d, radius_x, gx, gy_glob,
+                                   tile_x, tile_y, radius_y=radius_y)
+    cum = row_cumown.to(torch.int32)
+    return rx0, cum[gy0.to(torch.int64)], rx1, cum[gy1.to(torch.int64)]
+
+
 def expansion_table(proj: Projected, payload: Optional[torch.Tensor],
-                    width: int, height: int, tile_x: int, tile_y: int):
+                    width: int, height: int, tile_x: int, tile_y: int,
+                    **rows):
     """Steps 1-2: the depth-ordered ``[16, N]`` float32 table for K2 (rows:
     0 offsets, 1 counts, 2 rx0, 3 ry0, 4 span width >= 1, 5 gid, 6.. the
     payload columns, zero-filled to 16), its int32 offsets, the int32
-    per-gaussian counts in original order, and the int64 total."""
+    per-gaussian counts in original order, and the int64 total. ``rows``:
+    a band's row ownership, as :func:`band_rows` takes it."""
     gx, gy = tile_grid(width, height, tile_x, tile_y)
     n = proj.depth.shape[0]
     dev = proj.depth.device
@@ -125,8 +153,8 @@ def expansion_table(proj: Projected, payload: Optional[torch.Tensor],
     radius_x = rcull[:, 0].to(torch.int32)
     radius_y = rcull[:, 1].to(torch.int32)
     visible0 = proj.visible & (radius_x > 0) & (radius_y > 0)
-    rx0, ry0, rx1, ry1 = tile_rect(proj.mean2d, radius_x, gx, gy,
-                                   tile_x, tile_y, radius_y=radius_y)
+    rx0, ry0, rx1, ry1 = band_rows(proj, radius_x, radius_y, gx, gy,
+                                   tile_x, tile_y, **rows)
     counts0 = torch.where(visible0, (rx1 - rx0) * (ry1 - ry0), 0).to(torch.int32)
 
     depth_key = torch.where(counts0 > 0, proj.depth, float("inf"))
@@ -155,11 +183,22 @@ def expansion_table(proj: Projected, payload: Optional[torch.Tensor],
 def bin_gaussians_payload(proj: Projected, payload: Optional[torch.Tensor],
                           width: int, height: int, tile_x: int, tile_y: int,
                           capacity: int, *, exact_cull: bool = False,
-                          fold_plan: bool = False):
+                          fold_plan: bool = False, row_map=None,
+                          row_cumown=None, col0_map=None, col1_map=None):
     """Binning that carries per-gaussian ``payload`` [N, F] columns through
     the expansion and the tile sort. Returns (TileBins, sorted payload
     [F, capacity] float32 rows, or None without a payload), and a
     :class:`FoldPlan` third when ``fold_plan``.
+
+    ``row_map`` [gy_local] int (ascending global tile rows) with
+    ``row_cumown`` [gy_global + 1] int (exclusive prefix count of owned
+    rows): bin only this band's global tile rows (``height`` is the
+    band's, local tile row j renders global row ``row_map[j]``).
+    ``col0_map``/``col1_map`` [gy_local] int (with ``row_map``): local row
+    j owns only global tile columns [col0_map[j], col1_map[j]); entries
+    outside are culled where the exact cull culls, keeping their gid, so
+    counts and offsets are unchanged and ``num_valid`` counts the
+    survivors.
 
     ``exact_cull``: also mark expanded entries whose tile the gaussian
     cannot reach (alpha < 1/255 over the whole tile rect) invalid before the
@@ -179,7 +218,8 @@ def bin_gaussians_payload(proj: Projected, payload: Optional[torch.Tensor],
     if exact_cull and payload is None:
         raise ValueError("exact_cull needs the packet payload")
     comb, offsets, counts0, total = expansion_table(
-        proj, payload, width, height, tile_x, tile_y)
+        proj, payload, width, height, tile_x, tile_y, row_map=row_map,
+        row_cumown=row_cumown)
     f = payload.shape[1] if payload is not None else 0
 
     out16 = expand_rows(comb, offsets, capacity)         # [16, D]
@@ -196,15 +236,25 @@ def bin_gaussians_payload(proj: Projected, payload: Optional[torch.Tensor],
     t_row = ry0_e + local // sw_e
     tile_id = t_row * gx + t_col
     valid = eidx < total
+    # per-row maps are read at the entry's local row, clamped: padding
+    # entries carry junk rows and are invalid already
+    t_row_c = t_row.clamp(0, max(gy - 1, 0)).to(torch.int64)
+    if col0_map is not None:
+        # column segments of split rows: an entry outside its row's segment
+        # belongs to another band's copy of the row
+        valid = valid & (t_col >= col0_map.to(torch.int32)[t_row_c]) \
+            & (t_col < col1_map.to(torch.int32)[t_row_c])
     if exact_cull:
-        # the conic quadratic's minimum over the 1px-dilated tile rect;
-        # the tile is culled only on a confident miss
+        # the conic quadratic's minimum over the 1px-dilated tile rect at
+        # the tile's global row; culled only on a confident miss
+        g_row = t_row if row_map is None else \
+            row_map.to(torch.int32)[t_row_c]
         qmin = quad_min_rect(
             out16[6], out16[7], out16[8], out16[9], out16[10],
             (t_col * tile_x - 1).to(torch.float32),
             (t_col * tile_x + tile_x).to(torch.float32),
-            (t_row * tile_y - 1).to(torch.float32),
-            (t_row * tile_y + tile_y).to(torch.float32))
+            (g_row * tile_y - 1).to(torch.float32),
+            (g_row * tile_y + tile_y).to(torch.float32))
         # relative margin absorbs the kernel's operation order; NaN
         # compares false => kept
         culled = qmin > quad_limit(out16[11]) * (1.0 + 1e-4) + 1e-3
@@ -239,7 +289,10 @@ def bin_gaussians_payload(proj: Projected, payload: Optional[torch.Tensor],
 
 
 def bin_gaussians(proj: Projected, width: int, height: int,
-                  tile_x: int, tile_y: int, capacity: int) -> TileBins:
+                  tile_x: int, tile_y: int, capacity: int,
+                  **rows) -> TileBins:
+    """The binning without a payload; ``rows``: a band's row and column
+    ownership, as :func:`bin_gaussians_payload` takes it."""
     bins, _ = bin_gaussians_payload(proj, None, width, height,
-                                    tile_x, tile_y, capacity)
+                                    tile_x, tile_y, capacity, **rows)
     return bins

@@ -15,6 +15,13 @@ differ by rounding, so a pixel whose T lands at the 1e-4 cut can flip; the
 two are held to each other with the rule the JAX package uses between its
 backends (``tests/test_rasterize.py::assert_images_match``).
 
+A band of a multi-GPU render (``parallel/render_mc.py``) passes every
+kernel and plain version ``row_map`` [T / gx] int32, the global tile row of
+each local one (the TPU kernel's row-mapping input,
+``rasterize_pallas.py:70-76``): pixel coordinates, the block skip and the
+splat use the global row, and the outputs stay in local tile order. A full
+frame passes none, and the kernels then run as before, bit for bit.
+
 ``raster_tiles_fwd_save`` (K1g) is the same image plus the residual the
 backward needs: per pixel, one past the last entry it composited.
 ``raster_tiles_bwd`` (K3, ``csrc/rasterize_bwd.cu``, replacing
@@ -75,12 +82,13 @@ class _Windows(NamedTuple):
     n_chunks: int
 
 
-def _windows(tile_start, tile_end, gx, max_chunks, dev) -> _Windows:
+def _windows(tile_start, tile_end, gx, max_chunks, dev,
+             row_map=None) -> _Windows:
     num_tiles = tile_start.shape[0]
     start = tile_start.to(torch.int64)
     base = start // CS * CS
     limit = torch.minimum(tile_end.to(torch.int64), base + max_chunks * CS)
-    px, py = tile_pixels(num_tiles, gx, TILE, TILE, dev)
+    px, py = tile_pixels(num_tiles, gx, TILE, TILE, dev, row_map)
     n_chunks = int(((limit - base + CS - 1) // CS).max()) if num_tiles else 0
     return _Windows(start, base, limit, px, py, max(n_chunks, 0))
 
@@ -95,10 +103,11 @@ def _chunk(feats, win: _Windows, k: int):
     return idx, valid, pk, splat_power(pk, win.px, win.py)
 
 
-def _tile_chunks(feats, tile_start, tile_end, gx, max_chunks):
+def _tile_chunks(feats, tile_start, tile_end, gx, max_chunks, row_map=None):
     """Every tile's entry window, one 128-entry chunk of every tile per
     step: yields (idx, valid, packets, power) as :func:`_chunk`."""
-    win = _windows(tile_start, tile_end, gx, max_chunks, feats.device)
+    win = _windows(tile_start, tile_end, gx, max_chunks, feats.device,
+                   row_map)
     for k in range(win.n_chunks):
         yield _chunk(feats, win, k)
 
@@ -109,11 +118,12 @@ def _chunk_alpha(valid, pk, power):
 
 def raster_tiles_fwd_plain(feats: torch.Tensor, tile_start: torch.Tensor,
                            tile_end: torch.Tensor, gx: int, max_chunks: int,
-                           *, save: bool = False):
+                           *, save: bool = False, row_map=None):
     """Plain PyTorch version of K1: every tile at once, one 128-entry chunk
     of each tile's window per step, composited as ``composite_chunk``.
     ``save``: also return K1g's residual, ``last`` [T, PIX] int32 (one past
-    the last entry each pixel composits, the tile's start if none)."""
+    the last entry each pixel composits, the tile's start if none).
+    ``row_map``: a band's global tile rows (module docstring)."""
     num_tiles = tile_start.shape[0]
     dev = feats.device
     color = torch.zeros((num_tiles, PIX, 3), device=dev)
@@ -122,7 +132,7 @@ def raster_tiles_fwd_plain(feats: torch.Tensor, tile_start: torch.Tensor,
     Tmin = torch.ones((num_tiles, PIX), device=dev)
     last = tile_start.to(torch.int64)[:, None].expand(num_tiles, PIX)
     for idx, valid, pk, power in _tile_chunks(feats, tile_start, tile_end, gx,
-                                              max_chunks):
+                                              max_chunks, row_map):
         alpha = _chunk_alpha(valid, pk, power)
         if save:
             _, U_after = transmittance(alpha, U)
@@ -165,7 +175,7 @@ K3_OPS = {"culled": 12, "faint": 16, "composited": 68}
 
 def raster_tiles_fwd_work(feats: torch.Tensor, tile_start: torch.Tensor,
                           tile_end: torch.Tensor, gx: int,
-                          max_chunks: int) -> dict:
+                          max_chunks: int, row_map=None) -> dict:
     """The work K1 must do on these inputs, for its bound: the entries
     some pixel of their tile reaches (each read once), and the (entry,
     pixel) pairs each pixel reaches before it stops, by class of
@@ -179,7 +189,7 @@ def raster_tiles_fwd_work(feats: torch.Tensor, tile_start: torch.Tensor,
     n = dict(entries=zero, culled=zero, faint=zero, stopping=zero,
              composited=zero)
     for _, valid, pk, power in _tile_chunks(feats, tile_start, tile_end, gx,
-                                            max_chunks):
+                                            max_chunks, row_map):
         alpha = _chunk_alpha(valid, pk, power)
         U_before, U_after = transmittance(alpha, U)
         reached = valid[..., None] & (U_before >= T_EPS)
@@ -194,14 +204,15 @@ def raster_tiles_fwd_work(feats: torch.Tensor, tile_start: torch.Tensor,
         U = U_after[..., -1, :]
     work = {k: int(v) for k, v in n.items()}
     work["bytes"] = 4 * (work["entries"] * NFEAT + 2 * num_tiles
-                         + num_tiles * NOUT * PIX)
+                         + num_tiles * NOUT * PIX
+                         + (0 if row_map is None else row_map.shape[0]))
     work["ops"] = sum(K1_OPS[k] * work[k] for k in K1_OPS)
     return work
 
 
 def raster_tiles_bwd_work(feats: torch.Tensor, tile_start: torch.Tensor,
                           tile_end: torch.Tensor, gx: int, max_chunks: int,
-                          last: torch.Tensor) -> dict:
+                          last: torch.Tensor, row_map=None) -> dict:
     """The work K3 must do on these inputs, for its bound: the entries in
     front of some pixel's ``last`` (each read once), and the (entry, pixel)
     pairs in front of the pixel's ``last``, by class of :data:`K3_OPS`.
@@ -213,7 +224,7 @@ def raster_tiles_bwd_work(feats: torch.Tensor, tile_start: torch.Tensor,
     n = dict(entries=zero, culled=zero, faint=zero, composited=zero)
     lastl = last.to(torch.int64)[:, None, :]
     for idx, valid, pk, power in _tile_chunks(feats, tile_start, tile_end, gx,
-                                              max_chunks):
+                                              max_chunks, row_map):
         alpha = _chunk_alpha(valid, pk, power)
         visited = valid[..., None] & (idx[..., None] < lastl)
         culled = visited & (power > 0.0)
@@ -225,7 +236,8 @@ def raster_tiles_bwd_work(feats: torch.Tensor, tile_start: torch.Tensor,
     work = {k: int(v) for k, v in n.items()}
     work["bytes"] = 4 * (work["entries"] * (NFEAT + 1) + 2 * num_tiles
                          + num_tiles * PIX * (2 + NOUT)
-                         + NFEAT * feats.shape[1])
+                         + NFEAT * feats.shape[1]
+                         + (0 if row_map is None else row_map.shape[0]))
     work["ops"] = sum(K3_OPS[k] * work[k] for k in K3_OPS)
     return work
 
@@ -271,15 +283,16 @@ def block_misses(pk, x0, y0) -> torch.Tensor:
     return (ca > 0) & (cc > 0) & (qmin > entry_cut(op) + 1e-5 * mag)
 
 
-def _block_chunks(feats, tile_start, tile_end, gx, max_chunks):
+def _block_chunks(feats, tile_start, tile_end, gx, max_chunks, row_map=None):
     """Per 128-entry chunk of every tile's window: (entry index [T, CS],
     valid [T, CS], culled [T, CS, 8]) for the tile's 8x4 blocks."""
     dev = feats.device
     win = _windows(tile_start, tile_end, gx, max_chunks, dev)
     t = torch.arange(tile_start.shape[0], device=dev)
+    trow = t // gx if row_map is None else row_map.to(torch.int64)[t // gx]
     b = torch.arange(BLOCKS, device=dev)
     x0 = ((t % gx) * TILE)[:, None, None] + (b % 2) * BLOCK_W   # [T, 1, 8]
-    y0 = ((t // gx) * TILE)[:, None, None] + (b // 2) * BLOCK_H
+    y0 = (trow * TILE)[:, None, None] + (b // 2) * BLOCK_H
     lane = torch.arange(CS, device=dev)
     for k in range(win.n_chunks):
         idx = win.base[:, None] + k * CS + lane
@@ -290,13 +303,13 @@ def _block_chunks(feats, tile_start, tile_end, gx, max_chunks):
 
 def block_cull_plain(feats: torch.Tensor, tile_start: torch.Tensor,
                      tile_end: torch.Tensor, gx: int,
-                     max_chunks: int) -> torch.Tensor:
+                     max_chunks: int, row_map=None) -> torch.Tensor:
     """The kernels' block skip in PyTorch: [8, D] bool, True where 8x4
     block b of entry e's tile skips e (False outside every window)."""
     culled = torch.zeros((BLOCKS, feats.shape[1]), dtype=torch.bool,
                          device=feats.device)
     for idx, valid, miss in _block_chunks(feats, tile_start, tile_end, gx,
-                                          max_chunks):
+                                          max_chunks, row_map):
         culled[:, idx[valid]] = miss[valid].T
     return culled
 
@@ -310,7 +323,7 @@ def block_last(last: torch.Tensor) -> torch.Tensor:
 
 def block_skip_counts(feats: torch.Tensor, tile_start: torch.Tensor,
                       tile_end: torch.Tensor, gx: int, max_chunks: int,
-                      last: torch.Tensor = None) -> dict:
+                      last: torch.Tensor = None, row_map=None) -> dict:
     """(8x4 block, entry) pairs of the windows, and how many of them the
     block skip removes: every pair for K1 (which visits them all until its
     pixels stop), or with K1g's ``last`` the pairs in front of the block's
@@ -319,7 +332,7 @@ def block_skip_counts(feats: torch.Tensor, tile_start: torch.Tensor,
     pairs, skipped = zero, zero
     blast = None if last is None else block_last(last.to(torch.int64))
     for idx, valid, miss in _block_chunks(feats, tile_start, tile_end, gx,
-                                          max_chunks):
+                                          max_chunks, row_map):
         seen = valid[..., None].expand_as(miss)
         if blast is not None:
             seen = seen & (idx[..., None] < blast[:, None, :])
@@ -351,7 +364,7 @@ def kernel_attributes(device=None) -> dict:
     return result
 
 
-def _check_args(feats, tile_start, tile_end, gx, max_chunks):
+def _check_args(feats, tile_start, tile_end, gx, max_chunks, row_map=None):
     if feats.dtype != torch.float32 or feats.dim() != 2 or feats.shape[0] != NFEAT:
         raise ValueError(f"feats must be float32 [{NFEAT}, D], got "
                          f"{feats.dtype} {tuple(feats.shape)}")
@@ -371,6 +384,12 @@ def _check_args(feats, tile_start, tile_end, gx, max_chunks):
     if feats.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the tile rasterizer runs on cuda or cpu, not "
                          f"{feats.device}")
+    if row_map is not None:
+        if row_map.dtype != torch.int32 or tuple(row_map.shape) != (t // gx,):
+            raise ValueError(f"row_map must be int32 [{t // gx}], got "
+                             f"{row_map.dtype} {tuple(row_map.shape)}")
+        if row_map.device != feats.device or not row_map.is_contiguous():
+            raise ValueError(f"row_map must be contiguous on {feats.device}")
 
 
 def _check_tile_rows(name, x, num_tiles, rows, dtype, device):
@@ -382,7 +401,13 @@ def _check_tile_rows(name, x, num_tiles, rows, dtype, device):
         raise ValueError(f"{name} must be contiguous on {device}")
 
 
-def _launch_fwd(feats, tile_start, tile_end, gx, max_chunks, save):
+def _ptr(x):
+    """A tensor's address for a kernel argument; None (a null pointer) for
+    an absent optional input."""
+    return None if x is None else x.data_ptr()
+
+
+def _launch_fwd(feats, tile_start, tile_end, gx, max_chunks, save, row_map):
     num_tiles = tile_start.shape[0]
     dev = feats.device
     out = torch.empty((num_tiles, NOUT, PIX), dtype=torch.float32, device=dev)
@@ -391,9 +416,11 @@ def _launch_fwd(feats, tile_start, tile_end, gx, max_chunks, save):
     if num_tiles == 0:
         return out, last
     ptrs = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p]
     args = [feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
-            tile_end.data_ptr(), num_tiles, gx, max_chunks, out.data_ptr()]
+            tile_end.data_ptr(), num_tiles, gx, max_chunks, _ptr(row_map),
+            out.data_ptr()]
     if save:
         ptrs.append(ctypes.c_void_p)
         args.append(last.data_ptr())
@@ -405,15 +432,17 @@ def _launch_fwd(feats, tile_start, tile_end, gx, max_chunks, save):
 
 
 def raster_tiles_fwd(feats: torch.Tensor, tile_start: torch.Tensor,
-                     tile_end: torch.Tensor, gx: int,
-                     max_chunks: int) -> torch.Tensor:
+                     tile_end: torch.Tensor, gx: int, max_chunks: int, *,
+                     row_map: torch.Tensor = None) -> torch.Tensor:
     """K1. [10, D] float32 sorted entry features, [T] int32 tile ranges ->
-    [T, 5, 256] float32 (r, g, b, invdepth, final T per tile pixel)."""
-    _check_args(feats, tile_start, tile_end, gx, max_chunks)
+    [T, 5, 256] float32 (r, g, b, invdepth, final T per tile pixel).
+    ``row_map`` [T / gx] int32: a band's global tile rows."""
+    _check_args(feats, tile_start, tile_end, gx, max_chunks, row_map)
     if feats.device.type == "cpu":
         return raster_tiles_fwd_plain(feats, tile_start, tile_end, gx,
-                                      max_chunks)
-    out, _ = _launch_fwd(feats, tile_start, tile_end, gx, max_chunks, False)
+                                      max_chunks, row_map=row_map)
+    out, _ = _launch_fwd(feats, tile_start, tile_end, gx, max_chunks, False,
+                         row_map)
     raster_tiles_fwd.launches += 1
     return out
 
@@ -422,15 +451,17 @@ raster_tiles_fwd.launches = 0
 
 
 def raster_tiles_fwd_save(feats: torch.Tensor, tile_start: torch.Tensor,
-                          tile_end: torch.Tensor, gx: int, max_chunks: int):
+                          tile_end: torch.Tensor, gx: int, max_chunks: int,
+                          *, row_map: torch.Tensor = None):
     """K1g, the grad variant of K1: the same [T, 5, 256] image, bitwise,
     and ``last`` [T, 256] int32, one past the last entry each pixel
     composited (the tile's start if none) — what K3 walks back from."""
-    _check_args(feats, tile_start, tile_end, gx, max_chunks)
+    _check_args(feats, tile_start, tile_end, gx, max_chunks, row_map)
     if feats.device.type == "cpu":
         return raster_tiles_fwd_plain(feats, tile_start, tile_end, gx,
-                                      max_chunks, save=True)
-    out, last = _launch_fwd(feats, tile_start, tile_end, gx, max_chunks, True)
+                                      max_chunks, save=True, row_map=row_map)
+    out, last = _launch_fwd(feats, tile_start, tile_end, gx, max_chunks, True,
+                            row_map)
     raster_tiles_fwd_save.launches += 1
     return out, last
 
@@ -441,12 +472,13 @@ raster_tiles_fwd_save.launches = 0
 def raster_tiles_bwd_plain(feats: torch.Tensor, tile_start: torch.Tensor,
                            tile_end: torch.Tensor, gx: int, max_chunks: int,
                            out: torch.Tensor, last: torch.Tensor,
-                           dout: torch.Tensor,
-                           dest: torch.Tensor) -> torch.Tensor:
+                           dout: torch.Tensor, dest: torch.Tensor, *,
+                           row_map: torch.Tensor = None) -> torch.Tensor:
     """Plain PyTorch version of K3: :func:`raster_tiles_bwd_sorted_plain`'s
     rows, row e moved to ``dest[e]``."""
     rows = raster_tiles_bwd_sorted_plain(feats, tile_start, tile_end, gx,
-                                         max_chunks, out, last, dout)
+                                         max_chunks, out, last, dout,
+                                         row_map=row_map)
     dfeats = torch.zeros_like(rows)
     dfeats[dest.to(torch.int64)] = rows
     return dfeats
@@ -457,7 +489,9 @@ def raster_tiles_bwd_sorted_plain(feats: torch.Tensor,
                                   tile_end: torch.Tensor, gx: int,
                                   max_chunks: int, out: torch.Tensor,
                                   last: torch.Tensor,
-                                  dout: torch.Tensor) -> torch.Tensor:
+                                  dout: torch.Tensor, *,
+                                  row_map: torch.Tensor = None
+                                  ) -> torch.Tensor:
     """K3's arithmetic in the JAX formulation, [D, 10] rows in the entries'
     (tile) order: a forward sweep for the transmittance entering each
     chunk, then the chunks back to front, each with its log1p/cumsum
@@ -468,7 +502,7 @@ def raster_tiles_bwd_sorted_plain(feats: torch.Tensor,
     del last
     num_tiles = tile_start.shape[0]
     dev = feats.device
-    win = _windows(tile_start, tile_end, gx, max_chunks, dev)
+    win = _windows(tile_start, tile_end, gx, max_chunks, dev, row_map)
     U = torch.ones((num_tiles, PIX), device=dev)
     U_in = []
     for k in range(win.n_chunks):
@@ -519,13 +553,14 @@ def raster_tiles_bwd_sorted_plain(feats: torch.Tensor,
 def raster_tiles_bwd(feats: torch.Tensor, tile_start: torch.Tensor,
                      tile_end: torch.Tensor, gx: int, max_chunks: int,
                      out: torch.Tensor, last: torch.Tensor,
-                     dout: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
+                     dout: torch.Tensor, dest: torch.Tensor, *,
+                     row_map: torch.Tensor = None) -> torch.Tensor:
     """K3. K1g's inputs and outputs (``out`` [T, 5, 256], ``last`` [T, 256]),
     the gradients of ``out``, ``dout`` [T, 5, 256], and ``dest`` [D] int32,
     a permutation of [0, D) -> [D, 10] float32: the gradient of entry e's
     10 features (``feats[:, e]``) in row ``dest[e]``; entries no pixel
-    composited get zeros."""
-    _check_args(feats, tile_start, tile_end, gx, max_chunks)
+    composited get zeros. ``row_map``: K1g's."""
+    _check_args(feats, tile_start, tile_end, gx, max_chunks, row_map)
     num_tiles = tile_start.shape[0]
     for name, x, rows, dtype in (("out", out, NOUT, torch.float32),
                                  ("last", last, 0, torch.int32),
@@ -539,7 +574,8 @@ def raster_tiles_bwd(feats: torch.Tensor, tile_start: torch.Tensor,
         raise ValueError(f"dest must be contiguous on {feats.device}")
     if feats.device.type == "cpu":
         return raster_tiles_bwd_plain(feats, tile_start, tile_end, gx,
-                                      max_chunks, out, last, dout, dest)
+                                      max_chunks, out, last, dout, dest,
+                                      row_map=row_map)
     dfeats = torch.zeros((d, NFEAT), dtype=torch.float32, device=feats.device)
     if num_tiles == 0:
         return dfeats
@@ -547,11 +583,11 @@ def raster_tiles_bwd(feats: torch.Tensor, tile_start: torch.Tensor,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     err = fn(feats.data_ptr(), d, tile_start.data_ptr(),
-             tile_end.data_ptr(), num_tiles, gx, max_chunks, out.data_ptr(),
-             last.data_ptr(), dout.data_ptr(), dest.data_ptr(),
-             dfeats.data_ptr(), feats.device.index,
+             tile_end.data_ptr(), num_tiles, gx, max_chunks, _ptr(row_map),
+             out.data_ptr(), last.data_ptr(), dout.data_ptr(),
+             dest.data_ptr(), dfeats.data_ptr(), feats.device.index,
              _cuda.stream_ptr(feats.device))
     _cuda.check(SOURCE_BWD, err, "raster_tiles_bwd")
     raster_tiles_bwd.launches += 1
@@ -583,16 +619,18 @@ class _RasterizeBinned(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, packets, proj, width, height, capacity, exact_cull,
-                max_chunks):
+                max_chunks, rows, row_map):
         bins, feats, plan = bin_gaussians_payload(
             proj, packets, width, height, TILE, TILE, capacity,
-            exact_cull=exact_cull, fold_plan=True)
+            exact_cull=exact_cull, fold_plan=True, **rows)
         gx, _ = tile_grid(width, height, TILE, TILE)
         out, last = raster_tiles_fwd_save(feats, bins.tile_start,
-                                          bins.tile_end, gx, max_chunks)
+                                          bins.tile_end, gx, max_chunks,
+                                          row_map=row_map)
         ctx.save_for_backward(feats, bins.tile_start, bins.tile_end, out,
                               last, *plan, bins.overflow)
         ctx.grid = (gx, max_chunks)
+        ctx.row_map = row_map
         ctx.mark_non_differentiable(*bins)
         return (*bins, out)
 
@@ -601,17 +639,30 @@ class _RasterizeBinned(torch.autograd.Function):
         (feats, tile_start, tile_end, out, last, dest, offsets, counts, gid,
          overflow) = ctx.saved_tensors
         d_entries = raster_tiles_bwd(feats, tile_start, tile_end, *ctx.grid,
-                                     out, last, grads[-1].contiguous(), dest)
+                                     out, last, grads[-1].contiguous(), dest,
+                                     row_map=ctx.row_map)
         d = fold_rows(d_entries, offsets, counts, gid)
         d_packets = torch.where(overflow, 0.0, d)
-        return d_packets, None, None, None, None, None, None
+        return (d_packets,) + (None,) * 8
+
+
+def kernel_row_map(row_map, device):
+    """The kernels' ``row_map`` of a band: the given map as contiguous
+    int32 on ``device``; None for a full frame."""
+    if row_map is None:
+        return None
+    return row_map.to(device=device, dtype=torch.int32).contiguous()
 
 
 def rasterize(proj: Projected, width: int, height: int, bg: torch.Tensor, *,
               max_per_tile: int = 4096, dup_capacity: int = 1 << 20,
-              exact_cull: bool = False):
+              exact_cull: bool = False, row_map=None, row_cumown=None,
+              col0_map=None, col1_map=None):
     """Render through the kernels (16x16 tiles); differentiable with
-    respect to ``proj``'s float fields and ``bg``.
+    respect to ``proj``'s float fields and ``bg``. The ``row_*`` and
+    ``col*_map`` arguments render one band of a multi-GPU frame
+    (``ops/binning.py::bin_gaussians_payload``): ``height`` is then the
+    band's and the images come back in its local row order.
 
     Returns (image [3,H,W], invdepth [1,H,W], final_T [H,W],
     num_duplicates, max_tile_len, overflow, num_valid) — the last four as
@@ -619,19 +670,22 @@ def rasterize(proj: Projected, width: int, height: int, bg: torch.Tensor, *,
     the device."""
     gx, gy = tile_grid(width, height, TILE, TILE)
     max_chunks = max_chunks_for(max_per_tile)
+    rows = dict(row_map=row_map, row_cumown=row_cumown, col0_map=col0_map,
+                col1_map=col1_map)
+    kmap = kernel_row_map(row_map, proj.depth.device)
     packets = pack_projected(proj)                       # [N, 10]
     if torch.is_grad_enabled() and packets.requires_grad:
         proj_sg = Projected(*[None if t is None else t.detach() for t in proj])
         *fields, out = _RasterizeBinned.apply(packets, proj_sg, width, height,
                                               dup_capacity, exact_cull,
-                                              max_chunks)
+                                              max_chunks, rows, kmap)
         bins = TileBins(*fields)
     else:
         bins, feats = bin_gaussians_payload(proj, packets, width, height,
                                             TILE, TILE, dup_capacity,
-                                            exact_cull=exact_cull)
+                                            exact_cull=exact_cull, **rows)
         out = raster_tiles_fwd(feats, bins.tile_start, bins.tile_end, gx,
-                               max_chunks)
+                               max_chunks, row_map=kmap)
     img = out[:, 0:3] + out[:, 4:5] * bg[None, :, None]
     image = untile(img, gx, gy, TILE, TILE, width, height)
     rest = untile(out[:, 3:5], gx, gy, TILE, TILE, width, height)

@@ -45,12 +45,16 @@ def untile(x: torch.Tensor, gx: int, gy: int, tile_x: int, tile_y: int,
     return x[:, :height, :width]
 
 
-def tile_pixels(num_tiles: int, gx: int, tile_x: int, tile_y: int, device):
-    """[T, P] global pixel coordinates of each tile's pixels."""
+def tile_pixels(num_tiles: int, gx: int, tile_x: int, tile_y: int, device,
+                row_map=None):
+    """[T, P] global pixel coordinates of each tile's pixels. ``row_map``
+    [T / gx]: the global tile row of each local one (a band of a
+    multi-GPU render); none for a full frame."""
     pid = torch.arange(tile_x * tile_y, device=device)
     t = torch.arange(num_tiles, device=device)[:, None]
+    trow = t // gx if row_map is None else row_map.to(torch.int64)[t // gx]
     px = ((t % gx) * tile_x + pid % tile_x).to(torch.float32)
-    py = ((t // gx) * tile_y + pid // tile_x).to(torch.float32)
+    py = (trow * tile_y + pid // tile_x).to(torch.float32)
     return px, py
 
 
@@ -97,16 +101,19 @@ def rasterize_depthwise(proj: Projected, width: int, height: int,
 
 def rasterize_binned(proj: Projected, bins: TileBins, width: int, height: int,
                      bg: torch.Tensor, *, tile_x: int = 16, tile_y: int = 16,
-                     max_per_tile: int = 1024, chunk: int = 64):
+                     max_per_tile: int = 1024, chunk: int = 64,
+                     row_map=None):
     """Tile-binned renderer over the sorted duplicated entry list: each tile
-    composites its first ``max_per_tile`` entries, ``chunk`` at a time."""
+    composites its first ``max_per_tile`` entries, ``chunk`` at a time.
+    ``row_map`` maps local tile rows to global ones (a band of a multi-GPU
+    render; ``bins`` binned with the same)."""
     gx, gy = tile_grid(width, height, tile_x, tile_y)
     T = gx * gy
     dev = proj.depth.device
     packets = pack_projected(proj)                              # [N, 10]
     cap = bins.entry_gid.shape[0]
     n_chunks = -(-max_per_tile // chunk)
-    px, py = tile_pixels(T, gx, tile_x, tile_y, dev)           # [T, P]
+    px, py = tile_pixels(T, gx, tile_x, tile_y, dev, row_map)   # [T, P]
 
     k = torch.arange(n_chunks * chunk, device=dev)
     pos = bins.tile_start.to(torch.int64)[:, None] + k[None, :]

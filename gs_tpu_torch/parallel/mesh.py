@@ -1,0 +1,269 @@
+"""Device groups and the sharded Gaussian state for multi-GPU training —
+port of ``gs_tpu/parallel/mesh.py``.
+
+The Gaussians (the capacity axis of every per-Gaussian tensor of a
+``TrainState``: parameters, Adam moments, densification statistics, the
+alive mask) are split into k equal shards, shard d holding rows
+[d C/k, (d+1) C/k), as the JAX package shards them on its ``gauss`` mesh
+axis; cameras, images and the exposure stay replicated. A group is the
+set of shards and the collectives between them. Each process holds its
+*local* shards, concatenated in shard order, as one ``TrainState``:
+
+* :class:`ProcessGroup`, one shard per process over ``torch.distributed``
+  (NCCL between CUDA devices, gloo between CPU processes): what the train
+  CLI builds for ``--mesh N`` and ``--multihost``;
+* :class:`LocalGroup`, all k shards in one process, where a collective is
+  a concatenation or a sum over a list: what the tests and
+  ``chip_smoke.py`` use to run the k-shard computation on one device (the
+  role the JAX tests give ``xla_force_host_platform_device_count``).
+
+``parallel/render_mc.py`` is written once against both: its phases loop
+over the local shards and meet at the collectives below.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+
+from ..models.gaussian_model import TrainState, grow_capacity
+
+# the TrainState fields with a capacity axis; the rest are replicated
+SHARDED_FIELDS = ("params", "alive", "m", "v", "grad_accum", "denom",
+                  "max_radii2D")
+
+
+class LocalGroup:
+    """k shards in one process on ``device``."""
+
+    def __init__(self, k: int, device="cuda"):
+        if k < 1:
+            raise ValueError(f"a group needs at least one shard, got {k}")
+        self.size = k
+        self.rank = 0
+        self.local = list(range(k))
+        self.device = torch.device(device)
+
+    @property
+    def is_main(self) -> bool:
+        return True
+
+    def gather(self, xs):
+        """The k shards' tensors, concatenated on dim 0 in shard order:
+        the all-gather of the packets. Autograd hands each shard its rows
+        of the gradient, summed over every band that read them."""
+        return torch.cat(list(xs))
+
+    def gather_bands(self, xs):
+        """The k bands' tensors stacked on a new dim 0: the all-gather of
+        the rendered bands."""
+        return torch.stack(list(xs))
+
+    def gather_values(self, xs):
+        """Like :meth:`gather_bands`, outside autograd (statistics)."""
+        return torch.stack([x.detach() for x in xs])
+
+    def sum(self, xs):
+        """The sum over shards of each local shard's tensor, replicated,
+        outside autograd."""
+        return torch.stack([x.detach() for x in xs]).sum(0)
+
+
+class _GatherSum(torch.autograd.Function):
+    """all_gather on dim 0. Its backward hands each rank the sum over ranks
+    of the gradient of its own rows: each rank's band read every packet,
+    and the owner of a packet gets the sum of their contributions
+    (reduce-scatter on NCCL; all-reduce and slice on gloo, which has no
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        parts = [torch.empty_like(x) for _ in range(group.size)]
+        dist.all_gather(parts, x.contiguous())
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        group = ctx.group
+        parts = list(g.contiguous().chunk(group.size))
+        if dist.get_backend() == "nccl":
+            out = torch.empty_like(parts[0])
+            dist.reduce_scatter(out, parts)
+        else:
+            total = g.contiguous().clone()
+            dist.all_reduce(total)
+            out = total.chunk(group.size)[group.rank].contiguous()
+        return out, None
+
+
+class _GatherOwn(torch.autograd.Function):
+    """all_gather stacked on a new dim 0. Every rank computes the same loss
+    from the same gathered image, so each rank's cotangent of the whole
+    frame is already the full one: the backward hands a rank the slice of
+    its own band, with no collective (a sum over ranks would be k times
+    too large)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        parts = [torch.empty_like(x) for _ in range(group.size)]
+        dist.all_gather(parts, x.contiguous())
+        return torch.stack(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.group.rank].contiguous(), None
+
+
+class ProcessGroup:
+    """One shard per process of the initialised ``torch.distributed`` group
+    (its world size and rank), on ``device``."""
+
+    def __init__(self, device):
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            raise RuntimeError("ProcessGroup needs torch.distributed "
+                               "initialised (parallel/mesh.py::init_from_env)")
+        self.size = dist.get_world_size()
+        self.rank = dist.get_rank()
+        self.local = [self.rank]
+        self.device = torch.device(device)
+        self.backend = dist.get_backend()
+
+    @property
+    def is_main(self) -> bool:
+        return self.rank == 0
+
+    def gather(self, xs):
+        (x,) = xs
+        return _GatherSum.apply(x, self)
+
+    def gather_bands(self, xs):
+        (x,) = xs
+        return _GatherOwn.apply(x, self)
+
+    def gather_values(self, xs):
+        import torch.distributed as dist
+        (x,) = xs
+        x = x.detach().contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x)
+        return torch.stack(parts)
+
+    def sum(self, xs):
+        import torch.distributed as dist
+        (x,) = xs
+        total = x.detach().contiguous().clone()
+        dist.all_reduce(total)
+        return total
+
+    def barrier(self):
+        import torch.distributed as dist
+        dist.barrier()
+
+
+def init_from_env(device_type: str) -> ProcessGroup:
+    """Initialise ``torch.distributed`` from the environment and return the
+    group: the JAX package's ``GS_TPU_COORD`` (host:port of rank 0),
+    ``GS_TPU_NPROCS`` and ``GS_TPU_PROCID`` (``gs_tpu/apps/train.py:105-
+    118``), or a launcher's ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/
+    ``RANK`` (torchrun, or the train CLI's own ``--mesh N`` spawn). NCCL for
+    ``cuda`` (device ``LOCAL_RANK``, else rank mod the visible cards),
+    gloo for ``cpu``. Raises when the environment names no group or the
+    group cannot form."""
+    import torch.distributed as dist
+    env = os.environ
+    if env.get("GS_TPU_COORD"):
+        missing = [v for v in ("GS_TPU_NPROCS", "GS_TPU_PROCID")
+                   if v not in env]
+        if missing:
+            raise ValueError(f"GS_TPU_COORD is set but {missing} are not")
+        url = f"tcp://{env['GS_TPU_COORD']}"
+        world, rank = int(env["GS_TPU_NPROCS"]), int(env["GS_TPU_PROCID"])
+    elif all(v in env for v in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+                                "RANK")):
+        url = f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+        world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
+    else:
+        raise ValueError(
+            "--multihost needs its environment: GS_TPU_COORD (host:port), "
+            "GS_TPU_NPROCS and GS_TPU_PROCID, or a launcher's MASTER_ADDR, "
+            "MASTER_PORT, WORLD_SIZE and RANK")
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("a cuda group needs a CUDA device")
+        local = int(env.get("LOCAL_RANK", rank % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+        device, backend = torch.device("cuda", local), "nccl"
+    elif device_type == "cpu":
+        device, backend = torch.device("cpu"), "gloo"
+    else:
+        raise ValueError(f"no process group on {device_type!r}")
+    dist.init_process_group(backend, init_method=url, world_size=world,
+                            rank=rank)
+    # every rank meets once here, so a rank that cannot join fails now
+    dist.all_reduce(torch.zeros(1, device=device))
+    return ProcessGroup(device)
+
+
+def _check_capacity(capacity: int, k: int):
+    if capacity % k:
+        raise ValueError(f"capacity {capacity} not divisible by the group's "
+                         f"{k} shards")
+
+
+def padded_capacity(capacity: int, k: int) -> int:
+    """The smallest multiple of k at or above ``capacity``."""
+    return -(-capacity // k) * k
+
+
+def pad_state(state: TrainState, k: int) -> TrainState:
+    """``state`` grown (dead slots at the end) to a capacity that k shards
+    split evenly, as ``gs_tpu/train/loop.py:138-146``."""
+    cap = padded_capacity(state.capacity, k)
+    return state if cap == state.capacity else grow_capacity(state, cap)
+
+
+def _map_sharded(fn, state: TrainState) -> TrainState:
+    out = {}
+    for name in state._fields:
+        x = getattr(state, name)
+        if name in SHARDED_FIELDS:
+            x = (type(x)(*[fn(t) for t in x]) if name in ("params", "m", "v")
+                 else fn(x))
+        out[name] = x
+    return TrainState(**out)
+
+
+def shard_state(state: TrainState, group) -> TrainState:
+    """The whole (replicated) ``state`` -> this process's local shards,
+    concatenated: the rows of shards ``group.local``. The capacity must
+    divide into the group's shards."""
+    _check_capacity(state.capacity, group.size)
+    if len(group.local) == group.size:
+        return state
+    n = state.capacity // group.size
+    rows = torch.cat([torch.arange(d * n, (d + 1) * n) for d in group.local])
+
+    def take(x):
+        return x[rows.to(x.device)].contiguous()
+
+    return _map_sharded(take, state)
+
+
+def gather_state(state: TrainState, group) -> TrainState:
+    """This process's local shards -> the whole state, on every process
+    (every process of the group must call it)."""
+    if len(group.local) == group.size:
+        return state
+
+    def gather(x):
+        y = x.to(torch.uint8) if x.dtype == torch.bool else x
+        y = group.gather_values([y]).reshape((-1,) + tuple(x.shape[1:]))
+        return y.to(x.dtype)
+
+    return _map_sharded(gather, state)

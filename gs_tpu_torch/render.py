@@ -54,6 +54,12 @@ class RenderOutput(NamedTuple):
     overflow: torch.Tensor       # [] bool
     num_valid: torch.Tensor      # [] int32 entries surviving the exact
     # cull — the entries the raster kernel composites
+    band_duplicates: Optional[torch.Tensor] = None  # [k] per-band duplicate
+    # counts (multi-GPU path only): max/mean is the band imbalance
+    band_visible: Optional[torch.Tensor] = None  # [k] per-shard visible
+    # Gaussian counts (multi-GPU path only): sizes visible_capacity
+    band_work: Optional[torch.Tensor] = None  # [k] per-band num_valid
+    # (multi-GPU path only): the entries each band's kernel composites
 
 
 def resolve_backend(backend: str) -> str:
@@ -73,9 +79,14 @@ def raster_lever_kwargs(raster) -> dict:
 
 
 def overflow_changes(dup_capacity: int, max_per_tile: int,
-                     num_duplicates: int, max_tile_len: int) -> dict:
+                     num_duplicates: int, max_tile_len: int,
+                     visible_capacity: int = 0, max_visible: int = 0) -> dict:
     """Which buffer overflowed, and its new size: the rule the trainer's
-    replay and every no-grad render that grows share."""
+    replay and every no-grad render that grows share. Under a mesh
+    ``num_duplicates`` is the largest band's (the buffer is per band) and
+    a set ``visible_capacity`` below the largest shard's visible count
+    ``max_visible`` grows to the power of two above it
+    (``gs_tpu/train/loop.py:595-614``)."""
     changes = {}
     if num_duplicates > dup_capacity and dup_capacity < MAX_DUP_CAPACITY:
         # tiered, not pow2: every D-linear stage (expansion, the sorts,
@@ -87,28 +98,45 @@ def overflow_changes(dup_capacity: int, max_per_tile: int,
     if max_tile_len > max_per_tile:
         changes["max_per_tile"] = 1 << int(
             math.ceil(math.log2(max(max_tile_len + 1, 2))))
+    if 0 < visible_capacity < max_visible:
+        changes["visible_capacity"] = 1 << int(
+            math.ceil(math.log2(max(max_visible + 1, 2))))
     return changes
 
 
 def render_grown(camera: Camera, params: GaussianParams, bg: torch.Tensor,
-                 raster, *, label: str = "view", **kwargs):
+                 raster, *, label: str = "view", mesh=None, **kwargs):
     """``render`` with ``raster``'s backend and buffers, read back once: a
     view that overflowed them renders again with buffers sized from its
     ``num_duplicates`` and ``max_tile_len`` (``overflow_changes``), and a
     view that overflows even at ``MAX_DUP_CAPACITY`` is reported. Returns
     (output, the RasterConfig it rendered with); ``raster`` itself is
-    never changed. Without overflow the output is ``render``'s."""
+    never changed. Without overflow the output is ``render``'s. With
+    ``mesh`` (a group of ``parallel/mesh.py``) the view is
+    ``render_multichip``'s, banded by ``raster.band_assign`` and compacted
+    to ``raster.visible_capacity``, and the largest band and shard size
+    the grown buffers."""
     attempts = 0
     while True:
-        out = render(camera, params, bg, backend=raster.backend,
-                     dup_capacity=raster.dup_capacity,
-                     max_per_tile=raster.max_per_tile, chunk=raster.chunk,
-                     **raster_lever_kwargs(raster), **kwargs)
+        common = dict(backend=raster.backend, dup_capacity=raster.dup_capacity,
+                      max_per_tile=raster.max_per_tile, chunk=raster.chunk,
+                      **raster_lever_kwargs(raster), **kwargs)
+        if mesh is None:
+            out = render(camera, params, bg, **common)
+        else:
+            from .parallel.render_mc import render_multichip
+            out = render_multichip(
+                params, camera, bg, mesh, band_assign=raster.band_assign,
+                visible_capacity=max(raster.visible_capacity, 0), **common)
         if not bool(out.overflow):
             return out, raster
-        nd, ml = int(out.num_duplicates), int(out.max_tile_len)
-        changes = overflow_changes(raster.dup_capacity, raster.max_per_tile,
-                                   nd, ml)
+        banded = out.band_duplicates is not None
+        nd = int(out.band_duplicates.max() if banded else out.num_duplicates)
+        ml = int(out.max_tile_len)
+        changes = overflow_changes(
+            raster.dup_capacity, raster.max_per_tile, nd, ml,
+            raster.visible_capacity if banded else 0,
+            int(out.band_visible.max()) if banded else 0)
         if not changes or attempts == 3:
             print(f"[gs_tpu_torch] WARNING: {label} overflowed at "
                   f"dup_capacity {raster.dup_capacity}, max_per_tile "
@@ -176,8 +204,19 @@ def render_projected(proj: Projected, width: int, height: int,
                      bg: torch.Tensor, *, backend: str = "auto",
                      dup_capacity: int = 1 << 18, max_per_tile: int = 1024,
                      chunk: int = 64, bf16_features: bool = False,
-                     exact_cull: bool = False) -> RenderOutput:
+                     exact_cull: bool = False, row_map=None,
+                     row_cumown=None, col0_map=None,
+                     col1_map=None) -> RenderOutput:
+    """Render projected Gaussians. ``row_map``/``row_cumown`` (an
+    ascending row list and its exclusive owned-row prefix; the JAX
+    package's ``row_phase``/``row_stride`` band is the map
+    phase + j*stride), with ``col0_map``/``col1_map``
+    (per local row, the owned tile columns): render one band of a
+    multi-GPU frame into ``height`` = the band's rows x 16, coordinates
+    global (``parallel/render_mc.py``)."""
     backend = resolve_backend(backend)
+    rows = dict(row_map=row_map, row_cumown=row_cumown, col0_map=col0_map,
+                col1_map=col1_map)
     if bf16_features:
         raise NotImplementedError(
             "bf16_features (bf16 feature streaming) is not ported yet")
@@ -185,14 +224,17 @@ def render_projected(proj: Projected, width: int, height: int,
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     nv = zero_i
     if backend == "depthwise":
+        if row_map is not None:
+            raise ValueError("the depthwise oracle renders full frames only")
         image, invd, finalT = rasterize_depthwise(
             proj, width, height, bg, tile_x=TILE_X, tile_y=TILE_Y, chunk=chunk)
         nd, ml, ov = zero_i, zero_i, torch.zeros((), dtype=torch.bool, device=dev)
     elif backend == "binned":
-        bins = bin_gaussians(proj, width, height, TILE_X, TILE_Y, dup_capacity)
+        bins = bin_gaussians(proj, width, height, TILE_X, TILE_Y, dup_capacity,
+                             **rows)
         image, invd, finalT = rasterize_binned(
             proj, bins, width, height, bg, tile_x=TILE_X, tile_y=TILE_Y,
-            max_per_tile=max_per_tile, chunk=chunk)
+            max_per_tile=max_per_tile, chunk=chunk, row_map=row_map)
         nd = bins.num_duplicates
         ml = torch.max(bins.tile_end - bins.tile_start)
         ov = bins.overflow | (ml > max_per_tile)
@@ -200,7 +242,7 @@ def render_projected(proj: Projected, width: int, height: int,
     else:
         image, invd, finalT, nd, ml, ov, nv = rasterize(
             proj, width, height, bg, max_per_tile=max_per_tile,
-            dup_capacity=dup_capacity, exact_cull=exact_cull)
+            dup_capacity=dup_capacity, exact_cull=exact_cull, **rows)
     return RenderOutput(image=image, invdepth=invd, final_T=finalT,
                         radii=proj.radius, visibility=proj.visible,
                         num_duplicates=nd, max_tile_len=ml, overflow=ov,

@@ -1,5 +1,6 @@
-"""The training driver — port of ``gs_tpu/train/loop.py`` (tree layout, one
-device): schedule, densification, eval, overflow replay.
+"""The training driver — port of ``gs_tpu/train/loop.py`` (tree layout):
+schedule, densification, eval, overflow replay, on one device or with the
+Gaussians sharded over a group (``mesh``).
 
 Orchestrates the train step like the reference loop (ref: train.py:43-183):
 epoch-less random camera picks without replacement, densify/prune every
@@ -19,11 +20,22 @@ nothing reads the device back between syncs (every ``sync_every``
 iterations, at test iterations, and at every densify, whose
 ``torch.nonzero`` reads the counts).
 
-Not ported, being XLA/TPU machinery of the JAX trainer: the ``mesh``
-(multi-device) paths (``ROADMAP.md`` queue 1 item 9), the ``packed`` state
-layout (item 7), the ahead-of-time compile of the next capacity tier, the
-scan/chain block-dispatch executables and the jit caches. ``block_scan``
-here is a plain loop over schedule-aligned blocks with one sync per block.
+Under a ``mesh`` (a group of ``parallel/mesh.py``) the state is this
+process's shards of a capacity padded to a multiple of the group's size
+(``gs_tpu/train/loop.py:138-146``), and every step renders through
+``render_multichip``. ``visible_capacity`` 0 is sized from the per-shard
+alive counts at the start and grown on overflow like the binning buffers
+(``:567-614``); -1 gathers whole shards. A densify gathers the state, runs
+the one-device ``densify_and_prune`` with the same noise on every process
+and shards the result again: the JAX package's sharded densify equals the
+one-device one (``tests/test_sharding.py``), and so does this. Growth
+likewise gathers, grows and re-shards. Test views render banded too.
+
+Not ported, being XLA/TPU machinery of the JAX trainer: the ``packed``
+state layout (``ROADMAP.md`` queue 1 item 7), the ahead-of-time compile of
+the next capacity tier, the scan/chain block-dispatch executables and the
+jit caches. ``block_scan`` here is a plain loop over schedule-aligned
+blocks with one sync per block.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ from ..models.gaussian_model import (MAX_CAPACITY, TrainState,
                                      create_from_pcd, densify_and_prune,
                                      grow_capacity, init_state, reset_opacity)
 from ..ops.losses import psnr
+from ..parallel.mesh import gather_state, pad_state, shard_state
 from ..render import (MAX_DUP_CAPACITY, RenderOutput, overflow_changes,
                       render_grown)
 from .step import StepMetrics, make_train_step, mask_sh_rest
@@ -88,14 +101,19 @@ def _normalize_resolutions(cams: list) -> list:
 
 def _fold_window(last: StepMetrics, acc: Optional[StepMetrics]) -> StepMetrics:
     """The last step's metrics with the window's overflow flag and the
-    largest num_duplicates and max_tile_len since the last sync, on the
-    device: an overflow anywhere in the window must be seen at the sync."""
+    largest num_duplicates and max_tile_len (and, under a mesh, the largest
+    band's counts) since the last sync, on the device: an overflow anywhere
+    in the window must be seen at the sync."""
     if acc is None:
         return last
+    banded = {k: torch.maximum(getattr(last, k), getattr(acc, k))
+              for k in ("max_band_visible", "max_band_duplicates")
+              if getattr(last, k) is not None}
     return last._replace(
         overflow=last.overflow | acc.overflow,
         num_duplicates=torch.maximum(last.num_duplicates, acc.num_duplicates),
-        max_tile_len=torch.maximum(last.max_tile_len, acc.max_tile_len))
+        max_tile_len=torch.maximum(last.max_tile_len, acc.max_tile_len),
+        **banded)
 
 
 class Trainer:
@@ -106,10 +124,13 @@ class Trainer:
                  test_cams: Sequence[LoadedCamera] = (),
                  start_state: Optional[TrainState] = None,
                  start_iteration: int = 0, seed: int = 0,
-                 initial_capacity: Optional[int] = None):
-        """Trains on ``model_cfg.data_device``; the cameras must be there."""
+                 initial_capacity: Optional[int] = None, mesh=None):
+        """Trains on ``model_cfg.data_device``; the cameras must be there.
+        ``mesh``: a group of ``parallel/mesh.py`` to shard the Gaussians
+        over; ``start_state`` is then the whole state, as on one device."""
         if not train_cams:
             raise ValueError("the Trainer needs at least one training camera")
+        self.mesh = mesh
         self.device = torch.device(model_cfg.data_device)
         self.train_cams = _normalize_resolutions(list(train_cams))
         self.test_cams = list(test_cams)
@@ -160,6 +181,9 @@ class Trainer:
                                     num_images=len(self.train_cams))
         else:
             self.state = start_state
+        if mesh is not None:
+            self.state = shard_state(pad_state(self.state, mesh.size), mesh)
+            self._auto_visible_capacity()
 
         self._build_step()
         self._camera_stack: list[int] = []
@@ -189,7 +213,52 @@ class Trainer:
     def _build_step(self):
         self.train_step = make_train_step(
             self.opt, self.model_cfg, self.pipe, self.raster, self.cam_batch,
-            self.spatial_lr_scale, self.model_cfg.sh_degree)
+            self.spatial_lr_scale, self.model_cfg.sh_degree, mesh=self.mesh)
+
+    # ------------------------------------------------------------- the mesh
+
+    @property
+    def capacity(self) -> int:
+        """The whole state's capacity (under a mesh, over all shards)."""
+        if self.mesh is None:
+            return self.state.capacity
+        return self.state.capacity // len(self.mesh.local) * self.mesh.size
+
+    def _local_shards(self, x: torch.Tensor):
+        return x.chunk(len(self.mesh.local))
+
+    def num_alive(self) -> int:
+        """The alive count of the whole state (a collective under a mesh:
+        every process calls it)."""
+        if self.mesh is None:
+            return int(self.state.num_alive)
+        return int(self.mesh.sum([a.sum() for a in
+                                  self._local_shards(self.state.alive)]))
+
+    def full_state(self) -> TrainState:
+        """The whole state (gathered under a mesh: every process calls
+        it), for checkpoints, PLY snapshots and density control."""
+        if self.mesh is None:
+            return self.state
+        return gather_state(self.state, self.mesh)
+
+    def _auto_visible_capacity(self):
+        """``visible_capacity`` 0 (auto): the largest per-shard alive count
+        (visible <= alive) with 20 % headroom, 64-aligned; off when that is
+        no smaller than a shard. -1: off (``gs_tpu/train/loop.py:567-593``)."""
+        vcap = self.raster.visible_capacity
+        if vcap < 0:
+            self.raster = dataclasses.replace(self.raster, visible_capacity=0)
+            return
+        if vcap:
+            return
+        per_shard = self.mesh.gather_values(
+            [a.sum() for a in self._local_shards(self.state.alive)])
+        mx = int(per_shard.max())
+        auto = max(64, -(-int(mx * 1.2 + 63) // 64) * 64)
+        if auto < self.capacity // self.mesh.size:
+            self.raster = dataclasses.replace(self.raster,
+                                              visible_capacity=auto)
 
     def _next_camera(self) -> int:
         # random pop without replacement (ref: train.py:96-98)
@@ -204,12 +273,20 @@ class Trainer:
                            device=self.device)
 
     def _densify(self, state: TrainState, use_size_threshold: bool):
-        return densify_and_prune(
+        """One densify/prune. Under a mesh: gather, the one-device pass with
+        the same noise on every process (the same generator state), and
+        shard again."""
+        if self.mesh is not None:
+            state = gather_state(state, self.mesh)
+        state, info = densify_and_prune(
             state, self._densify_noise(state.capacity),
             grad_threshold=self.opt.densify_grad_threshold,
             min_opacity=0.005, extent=self.spatial_lr_scale,
             percent_dense=self.opt.percent_dense,
             use_size_threshold=use_size_threshold)
+        if self.mesh is not None:
+            state = shard_state(state, self.mesh)
+        return state, info
 
     # ----------------------------------------------------------------- step
 
@@ -336,9 +413,14 @@ class Trainer:
             return
         attempts = 0
         while bool(metrics.overflow):
+            banded = metrics.max_band_duplicates is not None
             changes = overflow_changes(
                 self.raster.dup_capacity, self.raster.max_per_tile,
-                int(metrics.num_duplicates), int(metrics.max_tile_len))
+                int(metrics.max_band_duplicates if banded
+                    else metrics.num_duplicates),
+                int(metrics.max_tile_len),
+                self.raster.visible_capacity if banded else 0,
+                int(metrics.max_band_visible) if banded else 0)
             replay = bool(changes) and attempts < 4
             if changes:
                 self._grow_raster(changes, will_replay=replay)
@@ -372,9 +454,12 @@ class Trainer:
         reference's --debug dump-on-kernel-failure (ref: README.md:168-171,
         train.py:101-102)."""
         path = os.path.join(self.model_cfg.model_path or ".", "dump.npz")
+        state = self.full_state()
+        if self.mesh is not None and not self.mesh.is_main:
+            return
         p = {k: t.detach().cpu().numpy()
-             for k, t in self.state.params._asdict().items()}
-        np.savez(path, **p, alive=self.state.alive.cpu().numpy(),
+             for k, t in state.params._asdict().items()}
+        np.savez(path, **p, alive=state.alive.cpu().numpy(),
                  cam_idx=cam_idx, iteration=self.iteration)
         print(f"[gs_tpu_torch] wrote debug dump to {path}")
 
@@ -389,15 +474,23 @@ class Trainer:
         self._build_step()
 
     def _maybe_grow(self, headroom: float = 0.85, factor: int = 4):
-        n_alive = int(self.state.num_alive)
-        cap = self.state.capacity
+        n_alive = self.num_alive()
+        cap = self.capacity
         if n_alive <= headroom * cap:
             return
         new_cap = next_capacity(cap, factor)
+        if self.mesh is not None:
+            # a multiple of the shards, within MAX_CAPACITY
+            k = self.mesh.size
+            new_cap = min(-(-new_cap // k) * k, MAX_CAPACITY // k * k)
         if new_cap > cap:
             print(f"[gs_tpu_torch] capacity {n_alive}/{cap} alive; "
                   f"growing to {new_cap}", flush=True)
-            self.state = grow_capacity(self.state, new_cap)
+            if self.mesh is None:
+                self.state = grow_capacity(self.state, new_cap)
+            else:
+                self.state = shard_state(grow_capacity(
+                    gather_state(self.state, self.mesh), new_cap), self.mesh)
         if n_alive > headroom * MAX_CAPACITY:
             # densify drops the rows that find no free slot from here on
             self.capacity_exhausted += 1
@@ -418,19 +511,25 @@ class Trainer:
         (coefficients above the active degree masked to zero, the full
         basis evaluated), the trainer's pipeline and raster settings, and a
         second render at grown buffers if the view overflows them
-        (``render_grown``; the trainer's own ``raster`` stays as it is)."""
+        (``render_grown``; the trainer's own ``raster`` stays as it is).
+        Under a mesh every process renders the same view, banded (K2 and
+        K1 per band)."""
         bg = torch.full((3,), 1.0 if self.model_cfg.white_background else 0.0,
                         device=self.device)
         sh_deg = min(self.iteration // 1000, self.model_cfg.sh_degree)
         params = mask_sh_rest(self.state.params, sh_deg)
-        out, _ = render_grown(
-            cam, params, bg, self.raster,
-            active_sh_degree=self.model_cfg.sh_degree,
-            scaling_modifier=scaling_modifier,
-            antialiasing=self.pipe.antialiasing,
-            convert_SHs_python=self.pipe.convert_SHs_python,
-            compute_cov3D_python=self.pipe.compute_cov3D_python,
-            alive=self.state.alive)
+        kw = dict(active_sh_degree=self.model_cfg.sh_degree,
+                  antialiasing=self.pipe.antialiasing, alive=self.state.alive)
+        if self.mesh is None:
+            kw.update(scaling_modifier=scaling_modifier,
+                      convert_SHs_python=self.pipe.convert_SHs_python,
+                      compute_cov3D_python=self.pipe.compute_cov3D_python)
+        elif scaling_modifier != 1.0:
+            # under a mesh every process renders the same view, banded; the
+            # reference's debug switches change no value and are not applied
+            raise ValueError("scaling_modifier is not supported under a mesh")
+        out, _ = render_grown(cam, params, bg, self.raster, mesh=self.mesh,
+                              **kw)
         return out
 
     @torch.no_grad()

@@ -1,7 +1,10 @@
 """The training step — port of ``gs_tpu/train/step.py::make_train_step``
-(tree layout, one device): render, L1 + SSIM (+ optional depth-L1) loss,
-backward, densification statistics, learning-rate schedule, (sparse) Adam,
-exposure update (ref: train.py:87-179).
+(tree layout): render, L1 + SSIM (+ optional depth-L1) loss, backward,
+densification statistics, learning-rate schedule, (sparse) Adam, exposure
+update (ref: train.py:87-179). With a ``mesh`` (a group of
+``parallel/mesh.py``) the state is this process's shards and the render is
+``parallel/render_mc.py::render_multichip``; the loss is the same on every
+process, and each updates its own shards.
 
 The JAX package compiles this into one function and picks the camera by a
 traced index; here the step runs eagerly, so the iteration and the camera
@@ -29,6 +32,7 @@ from ..models.gaussian_model import (TrainState, adam_update,
                                      group_lrs)
 from ..ops.losses import l1_loss
 from ..ops.ssim import ssim
+from ..parallel.render_mc import render_multichip
 from ..render import render_projected
 from ..utils.schedules import expon_lr
 
@@ -42,6 +46,11 @@ class StepMetrics(NamedTuple):
     max_tile_len: torch.Tensor
     overflow: torch.Tensor
     n_visible: torch.Tensor
+    # multi-GPU only: the largest shard's visible count (what
+    # visible_capacity must hold) and the largest band's num_duplicates
+    # (what the per-band dup_capacity must hold)
+    max_band_visible: Optional[torch.Tensor] = None
+    max_band_duplicates: Optional[torch.Tensor] = None
 
 
 def mask_sh_rest(params: GaussianParams, active_sh_degree: int) -> GaussianParams:
@@ -62,13 +71,15 @@ def apply_exposure(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
 def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
                     pipe: PipelineConfig, raster: RasterConfig,
                     cams: CameraBatch, spatial_lr_scale: float,
-                    max_sh_degree: int):
+                    max_sh_degree: int, mesh=None):
     """Returns ``step(state, cam_idx, gt_image, alpha_mask=None,
     invdepth_gt=None, depth_mask=None, depth_ok=0.0, iteration=1, *,
     bg=None, generator=None) -> (state, StepMetrics)``, on the cameras'
     device. ``bg`` overrides the background; otherwise it is white or black
     (``model_cfg.white_background``), or drawn from ``generator`` under
-    ``opt.random_background``."""
+    ``opt.random_background``. ``mesh``: render through the multi-GPU path
+    with the state sharded over that group (``raster``'s
+    ``visible_capacity`` and ``band_assign``)."""
     width, height = cams.width, cams.height
     dev = cams.device
     use_sparse = opt.optimizer_type == "sparse_adam"
@@ -99,10 +110,19 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
             use_exposure)
 
         masked = mask_sh_rest(GaussianParams(*leaves), active_sh_degree)
-        proj = preprocess(masked, cam, active_sh_degree=max_sh_degree,
-                          antialiasing=pipe.antialiasing, alive=state.alive)
-        proj = proj._replace(mean2d=proj.mean2d + tap)
-        out = render_projected(proj, width, height, bg, **render_kw)
+        if mesh is not None:
+            out = render_multichip(
+                masked, cam, bg, mesh, active_sh_degree=max_sh_degree,
+                antialiasing=pipe.antialiasing, alive=state.alive,
+                mean2d_tap=tap, visible_capacity=max(
+                    raster.visible_capacity, 0),
+                band_assign=raster.band_assign, **render_kw)
+        else:
+            proj = preprocess(masked, cam, active_sh_degree=max_sh_degree,
+                              antialiasing=pipe.antialiasing,
+                              alive=state.alive)
+            proj = proj._replace(mean2d=proj.mean2d + tap)
+            out = render_projected(proj, width, height, bg, **render_kw)
         image = out.image
         if use_exposure:
             image = apply_exposure(image, exposure_row)
@@ -143,11 +163,17 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
                 full = torch.zeros_like(state.exposure)
                 full[cam_idx] = grads[-1]
                 state = exposure_update(state, full, opt, iteration)
+            banded = out.band_visible is not None
             metrics = StepMetrics(
                 loss=loss.detach(), l1=ll1.detach(), ssim=ssim_v.detach(),
                 depth_l1=dl1.detach(), num_duplicates=out.num_duplicates,
                 max_tile_len=out.max_tile_len, overflow=out.overflow,
-                n_visible=torch.sum(out.visibility))
+                n_visible=(out.band_visible.sum() if banded
+                           else torch.sum(out.visibility)),
+                max_band_visible=(out.band_visible.max() if banded
+                                  else None),
+                max_band_duplicates=(out.band_duplicates.max() if banded
+                                     else None))
         return state, metrics
 
     return step

@@ -138,11 +138,44 @@ def test_checkpoint_round_trip_and_resume(tiny_scene, tmp_path):
     assert trainer.iteration == 7 and int(trainer.state.step) == 7
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--mesh", "auto"],
-                                   ["--multihost"]])
-def test_multi_device_refused(tiny_scene, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train_app.main(_train_args(tiny_scene, str(tmp_path / "m")) + flags)
+@pytest.mark.parametrize("mesh", ["2", "8"])
+def test_mesh_needs_as_many_cards(tiny_scene, tmp_path, mesh):
+    """--mesh N on a machine with fewer CUDA devices than N (here the CPU,
+    which has none) raises before anything trains; nothing falls back to
+    one device."""
+    model = tmp_path / "m"
+    with pytest.raises(RuntimeError, match=f"--mesh {mesh} needs {mesh} "
+                                           "CUDA devices"):
+        train_app.main(_train_args(tiny_scene, str(model))
+                       + ["--mesh", mesh])
+    assert not model.exists()
+
+
+def test_multihost_needs_its_environment(tiny_scene, tmp_path, monkeypatch):
+    """--multihost forms its group from GS_TPU_COORD/GS_TPU_NPROCS/
+    GS_TPU_PROCID or a launcher's variables, and raises without them."""
+    for var in ("GS_TPU_COORD", "GS_TPU_NPROCS", "GS_TPU_PROCID",
+                "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="--multihost needs its environment"):
+        train_app.main(_train_args(tiny_scene, str(tmp_path / "m"))
+                       + ["--multihost"])
+    monkeypatch.setenv("GS_TPU_COORD", "127.0.0.1:1")
+    with pytest.raises(ValueError, match="GS_TPU_NPROCS"):
+        train_app.main(_train_args(tiny_scene, str(tmp_path / "m"))
+                       + ["--multihost"])
+
+
+@pytest.mark.parametrize("mesh", ["1", "auto"])
+def test_mesh_one_is_the_single_device_path(tiny_scene, tmp_path, mesh):
+    """--mesh 1, and --mesh auto where there is at most one card (the CPU
+    here), train on one device with no group."""
+    model = str(tmp_path / "model")
+    trainer = train_app.main(_train_args(tiny_scene, model, iters=6)
+                             + ["--mesh", mesh])
+    assert trainer.mesh is None and trainer.iteration == 6
+    assert os.path.exists(os.path.join(model, "point_cloud", "iteration_6",
+                                       "point_cloud.ply"))
 
 
 def test_profile_trace_and_viewer_notice(tiny_scene, tmp_path, capsys):

@@ -115,6 +115,29 @@ def test_live_modules_load_no_lazy_dependency():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
+PARALLEL_MODULES = ("gs_tpu_torch.parallel.mesh",
+                    "gs_tpu_torch.parallel.render_mc")
+
+
+def test_parallel_modules_form_no_group():
+    """The multi-GPU modules import with no jax and form no
+    torch.distributed group at import; a LocalGroup needs none."""
+    code = ("import sys, importlib\n"
+            f"for m in {PARALLEL_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'gs_tpu')]\n"
+            "assert not bad, bad\n"
+            "from gs_tpu_torch.parallel.mesh import LocalGroup\n"
+            "assert LocalGroup(3, 'cpu').local == [0, 1, 2]\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
 def test_cpu_render_launches_no_kernel():
     from gs_tpu_torch.core.camera import make_camera
     from gs_tpu_torch.models.gaussian_model import create_from_pcd

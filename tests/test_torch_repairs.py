@@ -78,11 +78,12 @@ def test_capacity_cap_arithmetic():
 ])
 def test_maybe_grow_caps_and_warns(capsys, monkeypatch, alive, cap, grows,
                                    warns):
-    """_maybe_grow on a stand-in state (its count and capacity only), with
-    grow_capacity recorded instead of run."""
+    """_maybe_grow on a stand-in state (its count and capacity only) of a
+    one-device trainer, with grow_capacity recorded instead of run."""
     state = types.SimpleNamespace(num_alive=torch.tensor(alive), capacity=cap)
     tr = types.SimpleNamespace(state=state, capacity_exhausted=0,
-                               iteration=700)
+                               iteration=700, mesh=None, capacity=cap,
+                               num_alive=lambda: int(state.num_alive))
     grown = []
 
     def record(s, new_cap):

@@ -84,10 +84,17 @@ def test_orbit_cli_refuses_unknown_device(tmp_path):
     ["--band_assign", "cost"], ["--visible_capacity", "8"]],
     ids=lambda f: f[0])
 def test_orbit_cli_has_no_tpu_only_flags(tmp_path, flag):
-    """The JAX package's TPU-kernel and multi-chip knobs select nothing in
-    the port, so its CLI refuses them rather than ignore them."""
+    """The JAX package's TPU-kernel knobs select nothing in the port, so its
+    CLI refuses them rather than ignore them. The multi-GPU knobs
+    (``band_assign``, ``visible_capacity``) are RasterConfig fields of the
+    port too: the orbit CLI takes them, as the JAX package's does, and a
+    one-device render reads neither."""
     root = _model_dir(tmp_path, _arrays(n=20))
+    args = ["-m", root, "--data_device", "cpu", "--frames", "1"] + flag
+    if flag[0] in ("--band_assign", "--visible_capacity"):
+        torch_orbit.main(args)
+        assert os.listdir(os.path.join(root, "orbit_7"))
+        return
     with pytest.raises(SystemExit):
-        torch_orbit.main(["-m", root, "--data_device", "cpu", "--frames", "1"]
-                         + flag)
+        torch_orbit.main(args)
     assert not os.path.exists(os.path.join(root, "orbit_7"))
