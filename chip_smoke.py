@@ -24,6 +24,12 @@ Phases (each failure exits non-zero):
     loaded back, 8 frames at 1920x1080 through gs_tpu_torch.render.render
     with the launch counts read around them, then the orbit CLI
     (gs_tpu_torch.apps.view_orbit) for 2 frames; one profiled frame;
+    [bf16 serve]: the 8 frames again with bf16_features (colours and
+    invdepth through the tile sort as bf16 pairs), each within 1e-2 of the
+    f32 frame, K2 and K1 of one bf16 frame against their plain versions on
+    their inputs, a zero-green copy of the scene whose sorted pair rows on
+    the card are bitwise the CPU binning's (red survives), ms per frame
+    against the f32 frame's, and the orbit CLI with --bf16_features;
  5. [K1g] K1's grad variant on the 300-gaussian scene, an opaque version of
     it where pixels stop, and the bench frame: its image bitwise K1's, its
     residual (one past each pixel's last composited entry) the plain
@@ -48,6 +54,16 @@ Phases (each failure exits non-zero):
     to 5 significant digits, no overflow, K1g, K2, K3 and K4 launched once
     per step each; ms per step by host clock; stage times; the device's
     busy time per step, the median of 5 steps profiled one by one;
+    [packed step]: the same step from one state in the packed [R, C] and
+    the tree layout, 8 steps each in turns: losses within rtol 1e-5, the
+    unpacked state within atol 2e-5 + rtol 1e-3, K1g, K2, K3 and K4 once
+    per packed step and each held to its plain version on one step's
+    inputs; ms per step, device busy, launches and the profiler's
+    SelectBackward0, aten::add_, aten::stack and Adam rows of both;
+    [bf16 step]: one packed step with bf16_features against f32 (loss
+    within 5e-3, gradients within 5 % of the maximum for geometry, 2 % for
+    SH); [packed mesh]: the packed step in MESH_K column shards against
+    one device, each band's K2, K1g, K3 and K4 against plain;
  9. [grad] one step's parameter gradients on a 20,000-gaussian 256x192
     scene through the kernels against the plain binned path on the card,
     under the gradient rule;
@@ -68,7 +84,13 @@ Phases (each failure exits non-zero):
     which the test view overflows, renders it again (K2 and K1 twice) and
     writes the PNG an ample render writes, byte for byte; then the
     20,000-gaussian scene of [grad] trained twice, with an ample and a
-    too-small --dup_capacity, to the same state;
+    too-small --dup_capacity, to the same state; the CLI trains the packed
+    layout, its default, and says so; [packed trainer]:
+    Trainer(packed=True) against Trainer(packed=False) on the [trainer]
+    dataset for 60 iterations through an overflow replay and a densify at
+    50: equal alive masks, parameters under the Trainer rule, test PSNR
+    within 1e-3 dB; ms per iteration, device busy and the profiler rows of
+    both;
 11. the multi-GPU path on this card, through an in-process group of
     MESH_K = 4 shards (gs_tpu_torch.parallel.mesh.LocalGroup): [mesh
     kernels] the bench frame through render_multichip under the "stride",
@@ -147,8 +169,9 @@ Phases (each failure exits non-zero):
     to the same cameras.txt and images.txt, the first trained 30 iterations
     through gs_tpu_torch.apps.train.main;
 19. a JSON line of the kernels' numbers (with each kernel's launches on
-    every path, the mesh trainer's among them), then the card's name and
-    power limit, then the result line {"ok": true, "device": {...}}.
+    every path, the mesh trainer's, the packed step's and the bf16 frames'
+    among them), then the card's name and power limit, then the result
+    line {"ok": true, "device": {...}}.
 
 It exits non-zero without a CUDA device, or when run outside the repository.
 """
@@ -891,6 +914,7 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
                                             raster_tiles_fwd,
                                             raster_tiles_fwd_save)
     from gs_tpu_torch.render import MAX_DUP_CAPACITY, render
+    from gs_tpu_torch.models.packed_state import PackedState, unpack_state
     from gs_tpu_torch.train import loop
     from gs_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 
@@ -937,8 +961,11 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
           f"gs_tpu_torch.apps.train.main in {run_s:.2f} s (dataset load, "
           f"replays and evals included); launches {launches}; "
           f"dup_capacity {TRAINER_DUP} -> {trainer.raster.dup_capacity}; "
-          f"{int(trainer.state.num_alive)} alive of {trainer.state.capacity}",
-          flush=True)
+          f"{int(trainer.state.num_alive)} alive of {trainer.state.capacity}; "
+          f"layout {'packed' if trainer.packed else 'tree'} (the CLI's "
+          f"default)", flush=True)
+    check(trainer.packed and isinstance(trainer.state, PackedState),
+          "[trainer] the CLI's default is the packed layout")
     for d in rec["densify"]:
         print(f"[trainer] densify at {d['iteration']}"
               f"{' (replayed)' if d['replay'] else ''}: DensifyInfo("
@@ -997,10 +1024,12 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
     check(os.path.isfile(ply) and os.path.isfile(ckpt),
           "[trainer] PLY snapshot or checkpoint missing")
     state, it, slrs = load_checkpoint(ckpt, device=dev)
+    trained = (unpack_state(trainer.state) if trainer.packed
+               else trainer.state)
     check(it == TRAINER_ITERS and all(
-        torch.equal(a, b) for a, b in zip(leaves(state),
-                                          leaves(trainer.state))),
+        torch.equal(a, b) for a, b in zip(leaves(state), leaves(trained))),
           "[trainer] checkpoint != trained state")
+    del trained
     again_path = os.path.join(tmp.name, "again.pth")
     save_checkpoint(again_path, state, it, slrs)
     again, _, _ = load_checkpoint(again_path, device=dev)
@@ -2506,13 +2535,12 @@ def mesh_trainer_phase(torch, dev, root, dup, counters):
     # a densify under a mesh gathers every sharded field to each rank and
     # keeps its shard of the result: in a LocalGroup both are no-ops, so
     # what it costs beyond one device is these bytes over the interconnect
-    from gs_tpu_torch.parallel.mesh import SHARDED_FIELDS
+    from gs_tpu_torch.parallel.mesh import _map_sharded
     state = mesh.state
-    shard_bytes = sum(t.numel() * t.element_size()
-                      for name in SHARDED_FIELDS
-                      for t in (getattr(state, name)
-                                if isinstance(getattr(state, name), tuple)
-                                else (getattr(state, name),)))
+    sizes = []
+    _map_sharded(lambda t, axis: sizes.append(t.numel() * t.element_size()),
+                 state)
+    shard_bytes = sum(sizes)
     print(f"[mesh trainer] densify_and_prune ms (host clock, synchronised): "
           + "; ".join(f"{k} " + ", ".join(f"{x:.3f}" for x in v)
                       for k, v in densify_ms.items())
@@ -2566,6 +2594,477 @@ def mesh_trainer_phase(torch, dev, root, dup, counters):
     return launches, errs
 
 
+PACKED_ITERS = 60              # [packed trainer]: a densify at 50
+PACKED_STEADY = (20, 49)       # no densify, replay or eval in 21..49
+PROFILE_ROWS = ("SelectBackward0", "aten::add_", "aten::stack",
+                "gs_tpu_torch.adam")
+
+
+def profiled_steps(torch, fn):
+    """``fn`` (one step) profiled PROFILED_STEPS times one by one: the median
+    device busy ms, the kernel launches of one step, and the device ms of
+    PROFILE_ROWS in the last one (an autograd node or an annotation counts
+    the kernels of everything under it; an annotation's device-side span,
+    a second event of the same name, is not counted again)."""
+    from torch.profiler import ProfilerActivity, profile
+    busy = []
+    for _ in range(PROFILED_STEPS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        run = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy.append(sum(e.self_device_time_total for e in run) / 1e3)
+    rows = {}
+    for name in PROFILE_ROWS:
+        hit = [e for e in events if e.key == name
+               and e.device_type == torch.autograd.DeviceType.CPU]
+        rows[name] = (sum(getattr(e, "device_time_total", None)
+                          or getattr(e, "cuda_time_total", 0.0) for e in hit)
+                      / 1e3, sum(e.count for e in hit))
+    return float(np.median(busy)), sum(e.count for e in run), rows
+
+
+def packed_step_phase(torch, dev, p0, alive0, bench_camera, counters):
+    """[packed step]: the bench step ([train]'s configuration) from one
+    initial state, TRAIN_STEPS steps in the packed and in the tree layout,
+    in turns: each packed loss within rtol 1e-5 of the tree step's, the
+    unpacked final state within JAX's packed-against-tree rule (atol 2e-5,
+    rtol 1e-3, tests/test_packed.py:103-141), no overflow, K1g, K2, K3 and
+    K4 once per packed step; every launch of one more packed step against
+    its plain version on its inputs. Reports ms per step (host, median),
+    the device's busy time (median of PROFILED_STEPS profiled steps), the
+    launches per step and the PROFILE_ROWS of both layouts. Returns the
+    packed launches and each kernel's largest error."""
+    from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
+                                     PipelineConfig, RasterConfig)
+    from gs_tpu_torch.core.camera import stack_cameras
+    from gs_tpu_torch.models.gaussian_model import init_state
+    from gs_tpu_torch.models.packed_state import pack_state, unpack_state
+    from gs_tpu_torch.train.step import make_train_step
+
+    opt = OptimizationConfig(iterations=30_000)
+    raster = RasterConfig(backend="auto", dup_capacity=DUP_CAPACITY,
+                          max_per_tile=MAX_PER_TILE, chunk=64, exact_cull=True)
+    cams = stack_cameras([bench_camera(0)])
+    args = (opt, ModelConfig(), PipelineConfig(), raster, cams, 1.0, 3)
+    steps = {"tree": make_train_step(*args),
+             "packed": make_train_step(*args, packed=True)}
+    tree0 = init_state(p0, alive0, num_images=1)
+    states = {"tree": tree0, "packed": pack_state(tree0)}
+    gt = torch.zeros((3, H, W), device=dev)
+    losses = {k: [] for k in steps}
+    times = {k: [] for k in steps}
+    launches = {k: 0 for k in counters}
+    for it in range(1, TRAIN_STEPS + 1):
+        for name in ("tree", "packed"):
+            torch.cuda.synchronize()
+            before = {k: c.launches for k, c in counters.items()}
+            t0 = time.perf_counter()
+            states[name], m = steps[name](states[name], 0, gt, iteration=it)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            check(not bool(m.overflow), f"[packed step] {name} overflow")
+            losses[name].append(float(m.loss))
+            if name == "packed":
+                for k, c in counters.items():
+                    launches[k] += c.launches - before[k]
+    for a, b in zip(losses["packed"], losses["tree"]):
+        check(abs(a - b) <= 1e-5 * abs(b), f"[packed step] loss {a} != {b}")
+    check(all(launches[k] == TRAIN_STEPS for k in ("K1g", "K2", "K3", "K4"))
+          and launches["K1"] == 0, f"[packed step] launches {launches}")
+    un = unpack_state(states["packed"])
+    worst = 0.0
+    for name, a, b in zip(un._fields, un, states["tree"]):
+        for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+            if not x.is_floating_point():
+                check(torch.equal(x, y), f"[packed step] {name} differs")
+                continue
+            excess = ((x - y).abs() - 1e-3 * y.abs()).max()
+            worst = max(worst, float(excess))
+            check(float(excess) <= 2e-5,
+                  f"[packed step] {name}: beyond atol 2e-5 + rtol 1e-3")
+    bitwise = all(torch.equal(x, y) for a, b in zip(un, states["tree"])
+                  for x, y in (zip(a, b) if isinstance(a, tuple)
+                               else [(a, b)]))
+    with kernel_calls() as calls:
+        states["packed"], m = steps["packed"](states["packed"], 0, gt,
+                                              iteration=TRAIN_STEPS + 1)
+    check(not bool(m.overflow), "[packed step] checked step overflow")
+    errs = step_kernels_match(torch, calls, "packed step",
+                              f"packed step {TRAIN_STEPS + 1} of the bench "
+                              f"state")
+    del calls
+    prof = {name: profiled_steps(torch, lambda n=name: steps[n](
+        states[n], 0, gt, iteration=TRAIN_STEPS + 2)) for name in steps}
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"[packed step] {TRAIN_STEPS} bench steps per layout from one "
+          f"state, in turns: losses packed "
+          + ", ".join(f"{x:.7f}" for x in losses["packed"]) + " vs tree "
+          + ", ".join(f"{x:.7f}" for x in losses["tree"])
+          + f" (rtol 1e-5); the unpacked final state "
+          f"{'bitwise the tree state' if bitwise else 'within the rule'} "
+          f"(worst |diff| - 1e-3 |tree| {worst:.3e}, rule 2e-5); packed "
+          f"launches {launches}", flush=True)
+    for name in ("tree", "packed"):
+        busy, n_launch, rows = prof[name]
+        print(f"[packed step] {name}: ms per step (host clock, synchronised, "
+              f"median of {TRAIN_STEPS}) {med[name]:.3f}; device busy "
+              f"{busy:.4f} ms (median of {PROFILED_STEPS} profiled one by "
+              f"one) in {n_launch} kernel launches; "
+              + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]} calls)"
+                          for k, v in rows.items()), flush=True)
+    return launches, errs
+
+
+def packed_mesh_phase(torch, dev, p0, alive0, bench_camera):
+    """[packed mesh]: one packed bench step with the state in
+    LocalGroup(MESH_K) column shards against the one-device packed step on
+    the same state (the loss within 1e-6 relative, each row of Adam's
+    first moments and the densification statistics within 2e-4 x their
+    largest magnitude), and every K2, K1g, K3 and K4 launch of the banded
+    step against its plain version on its inputs. Returns each kernel's
+    largest error."""
+    from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
+                                     PipelineConfig, RasterConfig)
+    from gs_tpu_torch.core.camera import stack_cameras
+    from gs_tpu_torch.models.gaussian_model import init_state
+    from gs_tpu_torch.models.packed_state import pack_state
+    from gs_tpu_torch.parallel.mesh import LocalGroup
+    from gs_tpu_torch.train.step import make_train_step
+
+    raster = RasterConfig(backend="auto", dup_capacity=DUP_CAPACITY,
+                          max_per_tile=MAX_PER_TILE, chunk=64, exact_cull=True)
+    args = (OptimizationConfig(iterations=30_000), ModelConfig(),
+            PipelineConfig(), raster, stack_cameras([bench_camera(0)]), 1.0,
+            3)
+    state = pack_state(init_state(p0, alive0, num_images=1))
+    gt = torch.zeros((3, H, W), device=dev)
+    t0 = time.perf_counter()
+    s1, m1 = make_train_step(*args, packed=True)(state, 0, gt, iteration=1)
+    with kernel_calls() as calls:
+        s4, m4 = make_train_step(*args, packed=True,
+                                 mesh=LocalGroup(MESH_K, dev))(
+            state, 0, gt, iteration=1)
+    check(not bool(m4.overflow), "[packed mesh] overflow")
+    l1, l4 = float(m1.loss), float(m4.loss)
+    check(abs(l1 - l4) <= 1e-6 * abs(l1), f"[packed mesh] loss {l4} != {l1}")
+    ok, ratio_m, _ = grads_match(s4.m, s1.m)
+    check(ok, f"[packed mesh] Adam first moments: {ratio_m} > 2e-4")
+    ok, ratio_g, _ = grads_match(s4.grad_accum[None], s1.grad_accum[None])
+    check(ok, f"[packed mesh] grad_accum: {ratio_g} > 2e-4")
+    check(torch.equal(s4.denom, s1.denom)
+          and torch.equal(s4.max_radii2D, s1.max_radii2D),
+          "[packed mesh] visibility statistics differ")
+    print(f"[packed mesh] the packed bench step, {MESH_K} column shards of "
+          f"{state.capacity // MESH_K} against one device: loss {l4:.7f} vs "
+          f"{l1:.7f}; worst row of Adam's first moments {ratio_m:.3e}, "
+          f"grad_accum {ratio_g:.3e} of max (rule 2e-4); "
+          f"{time.perf_counter() - t0:.2f} s for both", flush=True)
+    errs = step_kernels_match(torch, calls, "packed mesh",
+                              f"the packed {MESH_K}-shard bench step",
+                              bands=MESH_K)
+    del calls, s1, s4, state
+    return errs
+
+
+def bf16_step_phase(torch, dev, p0, alive0, bench_camera):
+    """[bf16 step]: one packed bench step with bf16_features against the
+    f32 step on the same state, under JAX's envelope
+    (tests/test_pallas.py:110-151): the loss within 5e-3; the gradients
+    (Adam's first moments, 0.1 x the gradient) within 5 % of the f32
+    maximum for geometry and 2 % for SH."""
+    from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
+                                     PipelineConfig, RasterConfig)
+    from gs_tpu_torch.core.camera import stack_cameras
+    from gs_tpu_torch.models.gaussian_model import init_state
+    from gs_tpu_torch.models.packed_state import pack_state, unpack_state
+    from gs_tpu_torch.train.step import make_train_step
+
+    state = pack_state(init_state(p0, alive0, num_images=1))
+    gt = torch.zeros((3, H, W), device=dev)
+    out, ms = {}, {}
+    for bf16 in (False, True):
+        raster = RasterConfig(backend="auto", dup_capacity=DUP_CAPACITY,
+                              max_per_tile=MAX_PER_TILE, chunk=64,
+                              exact_cull=True, bf16_features=bf16)
+        step = make_train_step(OptimizationConfig(iterations=30_000),
+                               ModelConfig(), PipelineConfig(), raster,
+                               stack_cameras([bench_camera(0)]), 1.0, 3,
+                               packed=True)
+        out[bf16] = step(state, 0, gt, iteration=1)
+        check(not bool(out[bf16][1].overflow), "[bf16 step] overflow")
+        t = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, 0, gt, iteration=1)
+            torch.cuda.synchronize()
+            t.append(1e3 * (time.perf_counter() - t0))
+        ms[bf16] = float(np.median(t))
+    l32, l16 = float(out[False][1].loss), float(out[True][1].loss)
+    check(abs(l16 - l32) < 5e-3, f"[bf16 step] loss {l16} vs {l32}")
+    m32 = unpack_state(out[False][0]).m
+    m16 = unpack_state(out[True][0]).m
+    rel = {}
+    for name, a, b in zip(m32._fields, m32, m16):
+        rel[name] = float((b - a).abs().max()) / max(
+            float(a.abs().max()), 1e-30)
+        tol = 2e-2 if name.startswith("sh") else 5e-2
+        check(rel[name] <= tol or float(a.abs().max()) == 0.0,
+              f"[bf16 step] {name}: {rel[name]} > {tol}")
+    check(any(v > 0 for v in rel.values()), "[bf16 step] nothing quantised")
+    print(f"[bf16 step] the packed bench step with bf16_features against "
+          f"f32 on one state: loss {l16:.7f} vs {l32:.7f} (within 5e-3); "
+          f"gradient max |diff| / max |f32| per group: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+          + f" (rules 5e-2 geometry, 2e-2 SH); ms per step (host clock, "
+          f"synchronised, median of 5) bf16 {ms[True]:.3f}, f32 "
+          f"{ms[False]:.3f}", flush=True)
+    del out, state
+
+
+def bf16_serve_phase(torch, dev, params, alive, bg, bench_camera, kw,
+                     model_dir, orbit_args, counters):
+    """[bf16 serve]: FRAMES bench frames through render() with
+    bf16_features, each within 1e-2 absolute of the f32 frame (image and
+    invdepth; JAX's envelope); K2 and K1 of one bf16 frame against their
+    plain versions on their inputs; a zero-green copy of the scene whose
+    sorted bf16 pair rows on the card are bitwise the same binning's on
+    the CPU, its red surviving; ms per frame, host and device, against the
+    f32 frame's; the orbit CLI with --bf16_features. Returns the launches
+    of the FRAMES frames and K2's and K1's largest errors."""
+    from gs_tpu_torch.apps import view_orbit
+    from gs_tpu_torch.core.project import Projected, preprocess
+    from gs_tpu_torch.core.sh import C0
+    from gs_tpu_torch.ops.binning import (bin_gaussians_payload,
+                                          unpack_bf16_pair)
+    from gs_tpu_torch.ops.rasterize import raster_tiles_fwd_plain
+    from gs_tpu_torch.ops.rasterize_plain import pack_projected
+    from gs_tpu_torch.render import render
+
+    kw16 = dict(kw, bf16_features=True)
+    host = {"bf16": [], "f32": []}
+    with torch.no_grad():
+        render(bench_camera(0), params, bg, **kw16)           # warm
+        torch.cuda.synchronize()
+        launches = dict.fromkeys(counters, 0)
+        worst = {"image": 0.0, "invdepth": 0.0}
+        for i in range(FRAMES):
+            # the two in turns; the launches counted around the bf16 frames
+            out = {}
+            for name, a in (("f32", kw), ("bf16", kw16)):
+                before = {k: c.launches for k, c in counters.items()}
+                t0 = time.perf_counter()
+                out[name] = render(bench_camera(i), params, bg, **a)
+                torch.cuda.synchronize()
+                host[name].append(1e3 * (time.perf_counter() - t0))
+                if name == "bf16":
+                    for k, c in counters.items():
+                        launches[k] += c.launches - before[k]
+            check(not bool(out["bf16"].overflow),
+                  f"[bf16 serve] frame {i} overflow")
+            for k in worst:
+                worst[k] = max(worst[k], float(
+                    (getattr(out["bf16"], k) - getattr(out["f32"], k))
+                    .abs().max()))
+        check(max(worst.values()) <= 1e-2 and worst["image"] > 0,
+              f"[bf16 serve] bf16 frames vs f32: {worst}")
+        check(launches["K2"] == launches["K1"] == FRAMES
+              and launches["K1g"] == launches["K3"] == 0,
+              f"[bf16 serve] launches {launches}")
+        del out
+        cam = bench_camera(0)
+        dev_ms = {k: time_ms(torch, lambda a=a: render(cam, params, bg, **a),
+                             10) for k, a in (("bf16", kw16), ("f32", kw))}
+        busy = {k: profiled_steps(torch, lambda a=a: render(cam, params, bg,
+                                                             **a))[:2]
+                for k, a in (("bf16", kw16), ("f32", kw))}
+        with kernel_calls() as calls:
+            render(cam, params, bg, **kw16)
+        rows_as_given(calls, ("K1",), 0, "bf16 serve")
+        shape = k2_matches(torch, calls, "bf16 serve", "a bf16 frame")
+        k1_err = 0.0
+        for args, akw, got in calls["K1"]:
+            ok, err, frac = images_match(got, raster_tiles_fwd_plain(
+                *args, **akw))
+            check(ok, f"[bf16 serve] K1 != plain ({err}, {frac})")
+            k1_err = max(k1_err, err)
+        del calls
+
+        # a zero-green copy: green 0 before the clamp, so every (r, g) pair
+        # reads as a float32 denormal
+        sh_dc = params.sh_dc.clone()
+        sh_dc[:, :, 1] = -0.5 / C0
+        sh_rest = params.sh_rest.clone()
+        sh_rest[:, :, 1] = 0.0
+        green0 = params._replace(sh_dc=sh_dc, sh_rest=sh_rest)
+        proj = preprocess(green0, cam, active_sh_degree=3, alive=alive)
+        pk = pack_projected(proj)
+        bins, cols = bin_gaussians_payload(proj, pk, W, H, 16, 16,
+                                           DUP_CAPACITY, bf16_pairs=True)
+        projc = Projected(*[None if t is None else t.cpu() for t in proj])
+        bins_c, cols_c = bin_gaussians_payload(projc, pk.cpu(), W, H, 16, 16,
+                                               DUP_CAPACITY, bf16_pairs=True)
+        same = torch.equal(cols.cpu().view(torch.int32),
+                           cols_c.view(torch.int32))
+        check(same and torch.equal(bins.entry_gid.cpu(), bins_c.entry_gid),
+              "[bf16 serve] zero-green sorted payload: card != CPU")
+        valid = bins.entry_valid
+        r, g = unpack_bf16_pair(cols[6])
+        bits = cols[6].view(torch.int32)
+        denormal = int((((bits & 0x7F800000) == 0)
+                        & ((bits & 0x7FFFFFFF) != 0) & valid).sum())
+        check(not bool(g[valid].any()) and bool(r[valid].any()),
+              "[bf16 serve] zero-green: red lost or green not zero")
+        o16 = render(cam, green0, bg, **kw16)
+        o32 = render(cam, green0, bg, **kw)
+        red = float((o16.image[0] - o32.image[0]).abs().max())
+        check(red <= 1e-2 and float(o16.image[0].max()) > 0.1,
+              f"[bf16 serve] zero-green red {red}")
+        n_valid = int(valid.sum())
+        del proj, pk, bins, cols, projc, bins_c, cols_c, o16, o32, green0
+    print(f"[bf16 serve] {FRAMES} bench frames with bf16_features: max "
+          f"|bf16 - f32| image {worst['image']:.3e}, invdepth "
+          f"{worst['invdepth']:.3e} (rule 1e-2); launches {launches}; K2 "
+          f"{shape}, bitwise; K1 max |kernel - plain| {k1_err:.3e}; ms per "
+          f"frame, host (synchronised, in turns): "
+          + "; ".join(f"{k} " + ", ".join(f"{x:.2f}" for x in v)
+                      + f", median {float(np.median(v)):.3f}"
+                      for k, v in host.items())
+          + f"; render() on the device stream (CUDA events, mean of 10): "
+          f"bf16 {dev_ms['bf16']:.4f}, f32 {dev_ms['f32']:.4f}; device busy "
+          f"(median of {PROFILED_STEPS} profiled frames) and launches: "
+          + ", ".join(f"{k} {v[0]:.4f} ms in {v[1]}" for k, v in busy.items()),
+          flush=True)
+    print(f"[bf16 serve] zero-green scene: the sorted payload on the card is "
+          f"bitwise the CPU binning's ({n_valid} entries, {denormal} pairs "
+          f"that read as float32 denormals); red within {red:.3e} of the "
+          f"f32 frame's", flush=True)
+    for c in counters.values():
+        c.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        view_orbit.main(orbit_args + ["--bf16_features"])
+    orbit = {k: counters[k].launches for k in ("K2", "K1")}
+    check("overflow" not in log.getvalue(), "[bf16 serve] orbit overflow")
+    check(all(v == 2 for v in orbit.values()),
+          f"[bf16 serve] orbit launches {orbit}")
+    check(sorted(os.listdir(os.path.join(model_dir, "orbit_30000")))
+          == ["00000.png", "00001.png"], "[bf16 serve] orbit PNGs")
+    print(f"[bf16 serve] orbit CLI --bf16_features: 2 frames in "
+          f"{time.perf_counter() - t0:.2f} s, launches {orbit}", flush=True)
+    return launches, {"K2": 0.0, "K1": k1_err}
+
+
+def packed_trainer_phase(torch, dev, root, counters):
+    """[packed trainer]: Trainer(packed=True) against Trainer(packed=False)
+    on the [trainer] dataset (1,048,576 slots), PACKED_ITERS iterations
+    through an overflow replay (TRAINER_DUP, syncs every 10) and a densify
+    at 50 (at a threshold in a gap of the packed run's gradients, the same
+    for both): equal alive masks, parameters within the Trainer rule of
+    tests/test_torch_trainer.py, test PSNR equal within 1e-3 dB; ms and
+    launches per iteration over PACKED_STEADY."""
+    import dataclasses
+    import random
+    from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
+                                     PipelineConfig, RasterConfig)
+    from gs_tpu_torch.data.scene import Scene
+    from gs_tpu_torch.models.gaussian_model import group_lrs
+    from gs_tpu_torch.models.packed_state import PackedState
+    from gs_tpu_torch.train.loop import Trainer
+
+    random.seed(0)
+    scene = Scene(root, "", resolution=1, eval_split=True, device=dev)
+    opt = OptimizationConfig(iterations=300, densify_from_iter=10,
+                             densification_interval=50, densify_until_iter=60,
+                             opacity_reset_interval=1000)
+    thresholds, runs = {}, {}
+    for packed in (True, False):
+        # made inside the probe, so that the threshold's wrapper calls the
+        # probe's densify
+        with contextlib.redirect_stdout(io.StringIO()), \
+                probe_trainer(torch, counters, steady=PACKED_STEADY) as rec:
+            tr = Trainer(scene.get_train_cameras(), scene.point_cloud,
+                         spatial_lr_scale=scene.cameras_extent,
+                         model_cfg=ModelConfig(data_device=str(dev)),
+                         opt=opt, pipe=PipelineConfig(),
+                         raster=RasterConfig(dup_capacity=TRAINER_DUP),
+                         test_cams=scene.get_test_cameras(), seed=0,
+                         packed=packed)
+            tr.sync_every = 10
+            check(isinstance(tr.state, PackedState) == packed,
+                  f"[packed trainer] packed={packed}: the other layout")
+            densify = tr._densify
+
+            def at_threshold(state, use_size_threshold, _tr=tr, _d=densify):
+                if _tr.iteration not in thresholds:
+                    thresholds[_tr.iteration] = gap_threshold(state)
+                _tr.opt = dataclasses.replace(
+                    _tr.opt,
+                    densify_grad_threshold=thresholds[_tr.iteration][0])
+                return _d(state, use_size_threshold)
+
+            tr._densify = at_threshold
+            tr.train(iterations=PACKED_ITERS)
+        torch.cuda.synchronize()
+        ms, per_it = steady_window(rec, counters, PACKED_STEADY)
+        check(rec["replay"] and tr.overflow_exhausted == 0,
+              f"[packed trainer] packed={packed}: no replay")
+        check(len(rec["densify"]) >= 1, "[packed trainer] no densify")
+        check(all(per_it[k] == 1 for k in ("K1g", "K2", "K3", "K4")),
+              f"[packed trainer] launches per iteration {per_it}")
+        runs[packed] = dict(tr=tr, ms=ms, per_it=per_it,
+                            psnr=tr.evaluate(tr.test_cams)["psnr"],
+                            densify=rec["densify"][-1])
+    pk, tree = runs[True]["tr"], runs[False]["tr"]
+    check(torch.equal(pk.state.alive, tree.state.alive),
+          f"[packed trainer] alive masks differ in "
+          f"{int((pk.state.alive != tree.state.alive).sum())} slots")
+    worst = {}
+    for name, a, b in zip(tree.state.params._fields, tree.state.params,
+                          pk.state.params):
+        diff = (a - b).abs()
+        beyond = float((diff > 2e-4 * a.abs().max()).double().mean())
+        lr = max(getattr(group_lrs(opt, 1, tree.spatial_lr_scale), name),
+                 getattr(group_lrs(opt, PACKED_ITERS, tree.spatial_lr_scale),
+                         name))
+        worst[name] = (beyond, float(diff.max()) / lr)
+        check(beyond <= 0.01 and float(diff.max()) <= 2.01 * PACKED_ITERS * lr,
+              f"[packed trainer] {name}: {beyond:.2%} beyond 2e-4 x max, "
+              f"{float(diff.max()) / lr:.2f} lr")
+    dpsnr = abs(runs[True]["psnr"] - runs[False]["psnr"])
+    check(dpsnr < 1e-3, f"[packed trainer] test PSNR differs by {dpsnr}")
+    d = runs[True]["densify"]
+    print(f"[packed trainer] {PACKED_ITERS} iterations of the [trainer] "
+          f"dataset, {pk.capacity} slots, packed against tree: equal alive "
+          f"masks ({pk.num_alive()}); densify at {d['iteration']} cloned "
+          f"{d['n_cloned']}, split {d['n_split']} (thresholds {thresholds}); "
+          f"per parameter (share beyond 2e-4 x max, max diff in lr): "
+          + ", ".join(f"{k} {v[0]:.3%} {v[1]:.3f}" for k, v in worst.items())
+          + f"; test PSNR {runs[True]['psnr']:.4f} vs "
+          f"{runs[False]['psnr']:.4f} dB; ms per iteration over "
+          f"{PACKED_STEADY[0] + 1}..{PACKED_STEADY[1]} (host clock, "
+          f"synchronised at both ends): packed {runs[True]['ms']:.3f}, tree "
+          f"{runs[False]['ms']:.3f}; launches per iteration "
+          f"{runs[True]['per_it']}", flush=True)
+    for packed in (True, False):
+        tr = runs[packed]["tr"]
+        busy, n_launch, rows = profiled_steps(torch, tr.step)
+        it_ms = runs[packed]["ms"]
+        print(f"[packed trainer] {'packed' if packed else 'tree'}: one "
+              f"iteration's device busy {busy:.4f} ms (median of "
+              f"{PROFILED_STEPS} profiled one by one) in {n_launch} kernel "
+              f"launches, idle {1 - busy / it_ms:.1%} of the {it_ms:.3f} ms "
+              f"iteration; " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]} calls)"
+                                         for k, v in rows.items()),
+              flush=True)
+    del runs, pk, tree, tr, scene
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2598,6 +3097,13 @@ def main() -> int:
                                             raster_tiles_fwd_work)
     from gs_tpu_torch.ops.rasterize_plain import pack_projected
     from gs_tpu_torch.render import render
+
+    from gs_tpu_torch.ops.fold import fold_rows
+    from gs_tpu_torch.ops.rasterize import (raster_tiles_bwd,
+                                            raster_tiles_fwd_save)
+    counters = {"K2": expand_rows, "K1": raster_tiles_fwd,
+                "K1g": raster_tiles_fwd_save, "K3": raster_tiles_bwd,
+                "K4": fold_rows}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2861,11 +3367,11 @@ def main() -> int:
     expand_rows.launches = raster_tiles_fwd.launches = 0
     log = io.StringIO()
     t0 = time.perf_counter()
+    orbit_args = ["-m", model_dir, "--data_device", "cuda", "--frames", "2",
+                  "--width", str(W), "--height", str(H), "--dup_capacity",
+                  str(orbit_cap), "--max_per_tile", str(orbit_mpt)]
     with contextlib.redirect_stdout(log):
-        view_orbit.main(["-m", model_dir, "--data_device", "cuda", "--frames",
-                         "2", "--width", str(W), "--height", str(H),
-                         "--dup_capacity", str(orbit_cap), "--max_per_tile",
-                         str(orbit_mpt)])
+        view_orbit.main(orbit_args)
     orbit_s = time.perf_counter() - t0
     orbit_launches = {"K2": expand_rows.launches, "K1": raster_tiles_fwd.launches}
     print(log.getvalue().strip().splitlines()[-1])
@@ -2896,18 +3402,31 @@ def main() -> int:
           f"{1 - busy_ms / frame_ms:.1%}", flush=True)
     print(events.table(sort_by="cuda_time_total", row_limit=12,
                        max_name_column_width=60), flush=True)
+    t_bf16 = time.perf_counter()
+    bf16_launches, bf16_errs = bf16_serve_phase(
+        torch, dev, params, alive, bg, bench_camera, kw, model_dir,
+        orbit_args, counters)
+    print(f"[bf16 serve] in {time.perf_counter() - t_bf16:.1f} s", flush=True)
     tmp.cleanup()
+    del params, alive
 
     bare_step_ms, mid, kernels_train = train_phases(
         torch, dev, small, scam, p0, alive0, bench_camera)
+    t_packed = time.perf_counter()
+    packed_launches, packed_errs = packed_step_phase(
+        torch, dev, p0, alive0, bench_camera, counters)
+    bf16_step_phase(torch, dev, p0, alive0, bench_camera)
+    for k, v in packed_mesh_phase(torch, dev, p0, alive0,
+                                  bench_camera).items():
+        packed_errs[k] = max(packed_errs[k], v)
+    print(f"[packed] the packed step phases in "
+          f"{time.perf_counter() - t_packed:.1f} s", flush=True)
     trainer_launches, trainer_tmp, root, model, dup, steady_ms = \
         trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid)
-    from gs_tpu_torch.ops.fold import fold_rows
-    from gs_tpu_torch.ops.rasterize import (raster_tiles_bwd,
-                                            raster_tiles_fwd_save)
-    counters = {"K2": expand_rows, "K1": raster_tiles_fwd,
-                "K1g": raster_tiles_fwd_save, "K3": raster_tiles_bwd,
-                "K4": fold_rows}
+    t_packed = time.perf_counter()
+    packed_trainer_phase(torch, dev, root, counters)
+    print(f"[packed trainer] in {time.perf_counter() - t_packed:.1f} s",
+          flush=True)
     t_mesh = time.perf_counter()
     mesh_errs, _ = mesh_kernels_phase(torch, dev, p0, alive0, bench_camera,
                                       counters)
@@ -2961,9 +3480,13 @@ def main() -> int:
         k["viewer_launches"] = viewer_launches[k["id"]]
         k["live_launches"] = live_launches[k["id"]]
         k["mesh_launches"] = mesh_launches[k["id"]]
+        k["packed_launches"] = packed_launches[k["id"]]
+        k["bf16_launches"] = bf16_launches[k["id"]]
         k["max_abs_err"] = max(k["max_abs_err"], viewer_errs[k["id"]],
                                live_errs[k["id"]], rain_errs[k["id"]],
-                               mesh_errs.get(k["id"], 0.0))
+                               mesh_errs.get(k["id"], 0.0),
+                               packed_errs[k["id"]],
+                               bf16_errs.get(k["id"], 0.0))
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -24,5 +24,7 @@ and the native COLMAP parser (``native/``, host C++ built by ``g++``); and
 training on several GPUs (``parallel/``: the Gaussians sharded over a
 ``torch.distributed`` group, the image's tile rows banded across it, the
 kernels given each band's row map; ``--mesh`` and ``--multihost`` of the
-train CLI). Not ported: the packed state layout and ``bf16_features``.
+train CLI); the packed [R, C] training layout (``core/packed.py``,
+``models/packed_state.py``, the Trainer's default) and ``bf16_features``
+(bf16 colour streaming through the tile sort).
 """

@@ -76,7 +76,8 @@ class RasterConfig:
     ``gs_tpu.config.RasterConfig`` that the port reads. Those that select
     TPU kernels (``tile_block``, ``pallas_expand``, ``pallas_fold``) are
     left out: the CUDA backend always runs its kernels. ``bf16_features``
-    is refused until ported."""
+    streams the colours and invdepth through the tile sort as bf16 pairs
+    on the ``cuda`` backend, on one device (``ops/rasterize.py``)."""
     backend: str = "auto"            # auto (= cuda) | depthwise | binned | cuda
     dup_capacity: int = 1 << 20
     max_per_tile: int = 4096

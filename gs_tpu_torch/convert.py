@@ -6,7 +6,9 @@ arrays: a ``gs_tpu`` ``GaussianParams`` as ``{field: np.asarray(leaf)}``, a
 ``gs_tpu`` ``TrainState`` as ``{field: array}`` with its three
 ``GaussianParams`` fields (``params``, ``m``, ``v``) as nested dicts. The
 field names and ``[C, ...]`` layouts are the same on both sides, so both
-packages can step from one state.
+packages can step from one state. A ``gs_tpu`` ``PackedState`` crosses as
+``{field: array}`` too, its [R, C] blocks (``packed``, ``m``, ``v``) as they
+are.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from .core.camera import Camera
 from .core.gaussians import GaussianParams
 from .models.gaussian_model import TrainState
+from .models.packed_state import PackedState
 
 CAMERA_FIELDS = ("world_view", "full_proj", "camera_center", "tan_fovx",
                  "tan_fovy")
@@ -60,3 +63,16 @@ def state_from_numpy(arrays: dict, device="cuda") -> TrainState:
         k: params_from_numpy(arrays[k], device) if k in PARAM_FIELDS
         else torch.tensor(np.asarray(arrays[k]), device=device)
         for k in TrainState._fields})
+
+
+def packed_state_to_numpy(state: PackedState) -> dict:
+    """PackedState -> {field: numpy array}."""
+    return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+
+
+def packed_state_from_numpy(arrays: dict, device="cuda") -> PackedState:
+    """A ``gs_tpu`` PackedState's arrays -> the port's PackedState; each
+    array keeps its dtype."""
+    return PackedState(**{
+        k: torch.tensor(np.asarray(arrays[k]), device=device)
+        for k in PackedState._fields})

@@ -98,3 +98,12 @@ def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
         cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
         cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2],
     ], dim=-1)
+
+
+def unpack_symmetric(packed: torch.Tensor) -> torch.Tensor:
+    """[..., 6] -> [..., 3, 3]."""
+    xx, xy, xz, yy, yz, zz = (packed[..., i] for i in range(6))
+    row0 = torch.stack([xx, xy, xz], dim=-1)
+    row1 = torch.stack([xy, yy, yz], dim=-1)
+    row2 = torch.stack([xz, yz, zz], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)

@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .camera import Camera
-from .gaussians import GaussianParams
+from .gaussians import GaussianParams, unpack_symmetric
 from .sh import eval_sh_channels
 
 NEAR_CULL_Z = 0.2
@@ -42,6 +42,18 @@ class Projected(NamedTuple):
     # <= radius: opacity-aware binning half-widths (beyond them alpha < 1/255
     # everywhere, so culling those tiles is exact). ``radius`` keeps the
     # reference's 3-sigma value for the densification semantics.
+
+
+def project_points(camera: Camera, xyz: torch.Tensor):
+    """Returns (p_view [N,3], pix [N,2]) for the camera's matrix chain."""
+    hom = torch.cat([xyz, torch.ones_like(xyz[:, :1])], dim=1)   # [N,4]
+    p_view = hom @ camera.world_view.T
+    p_hom = hom @ camera.full_proj.T
+    p_w = 1.0 / (p_hom[:, 3] + 1e-7)
+    ndc = p_hom[:, :3] * p_w[:, None]
+    pix_x = ((ndc[:, 0] + 1.0) * float(camera.width) - 1.0) * 0.5
+    pix_y = ((ndc[:, 1] + 1.0) * float(camera.height) - 1.0) * 0.5
+    return p_view[:, :3], torch.stack([pix_x, pix_y], dim=-1)
 
 
 def _project_channels(camera: Camera, x, y, z):
@@ -138,6 +150,38 @@ def _cov2d_channels(camera: Camera, vx, vy, vz, sig):
     return cxx, cxy, cyy, det_orig, det_dilated
 
 
+def compute_cov2d(camera: Camera, p_view: torch.Tensor,
+                  cov3d_packed: torch.Tensor):
+    """EWA projection of the 3D covariance to 2D, in matrix form.
+
+    Returns (cov2d [N,3] = (xx, xy, yy) after low-pass, det_orig,
+    det_dilated)."""
+    tz = torch.clamp_min(p_view[:, 2], NEAR_CULL_Z)  # see _cov2d_channels
+    limx = 1.3 * camera.tan_fovx
+    limy = 1.3 * camera.tan_fovy
+    tx = torch.minimum(torch.maximum(p_view[:, 0] / tz, -limx), limx) * tz
+    ty = torch.minimum(torch.maximum(p_view[:, 1] / tz, -limy), limy) * tz
+    fx = camera.focal_x
+    fy = camera.focal_y
+    inv_z = 1.0 / tz
+    inv_z2 = inv_z * inv_z
+    zeros = torch.zeros_like(tz)
+    J = torch.stack([
+        torch.stack([fx * inv_z, zeros, -fx * tx * inv_z2], dim=-1),
+        torch.stack([zeros, fy * inv_z, -fy * ty * inv_z2], dim=-1),
+    ], dim=-2)                                           # [N,2,3]
+    JW = J @ camera.world_view[:3, :3]                   # [N,2,3]
+    cov = JW @ unpack_symmetric(cov3d_packed) @ JW.transpose(-1, -2)
+    cxx = cov[:, 0, 0]
+    cxy = cov[:, 0, 1]
+    cyy = cov[:, 1, 1]
+    det_orig = cxx * cyy - cxy * cxy
+    cxx = cxx + LOWPASS
+    cyy = cyy + LOWPASS
+    det_dilated = cxx * cyy - cxy * cxy
+    return torch.stack([cxx, cxy, cyy], dim=-1), det_orig, det_dilated
+
+
 def preprocess(params: GaussianParams, camera: Camera, *,
                active_sh_degree: int,
                scaling_modifier: float = 1.0,
@@ -162,6 +206,31 @@ def preprocess(params: GaussianParams, camera: Camera, *,
     return _preprocess_from_channels(
         camera, x, y, z, ls, quat, lop, coeffs,
         active_sh_degree=active_sh_degree,
+        scaling_modifier=scaling_modifier, antialiasing=antialiasing,
+        alive=alive, override_color=override_color,
+        cov3d_precomp=cov3d_precomp)
+
+
+def preprocess_packed(packed: torch.Tensor, camera: Camera, *,
+                      sh_degree: int, active_sh_degree: int,
+                      scaling_modifier: float = 1.0,
+                      antialiasing: bool = False,
+                      alive: Optional[torch.Tensor] = None,
+                      override_color: Optional[torch.Tensor] = None,
+                      cov3d_precomp: Optional[torch.Tensor] = None
+                      ) -> Projected:
+    """:func:`preprocess` over the channel-major packed block [R, C]
+    (``core/packed.py``), the training layout. One differentiable read of
+    every channel row feeds the same channel math, so the block's gradient
+    is one [R, C] stack, not a zero-filled tensor and an add per row."""
+    from .packed import all_channels
+    ch = all_channels(packed, sh_degree)
+    coeffs = None
+    if override_color is None:
+        coeffs = list(ch["sh_dc"]) + list(ch["sh_rest"])
+    return _preprocess_from_channels(
+        camera, ch["x"], ch["y"], ch["z"], ch["ls"], ch["quat"], ch["lop"],
+        coeffs, active_sh_degree=active_sh_degree,
         scaling_modifier=scaling_modifier, antialiasing=antialiasing,
         alive=alive, override_color=override_color,
         cov3d_precomp=cov3d_precomp)
@@ -248,6 +317,14 @@ def _preprocess_from_channels(camera: Camera, x, y, z, ls, quat, lop,
         visible=visible,
         radius_cull=radius_cull,
     )
+
+
+def mark_visible(camera: Camera, xyz: torch.Tensor) -> torch.Tensor:
+    """Frustum-visibility mask without a render: the rasterizer's
+    ``markVisible``, whose in-frustum test is view-space z > 0.2, the
+    preprocess's ``NEAR_CULL_Z``."""
+    p_view, _ = project_points(camera, xyz)
+    return p_view[:, 2] > NEAR_CULL_Z
 
 
 def tile_rect(mean2d: torch.Tensor, radius: torch.Tensor,

@@ -52,8 +52,16 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     ref: utils/sh_utils.py:57-112
     """
     assert sh.shape[-1] >= (deg + 1) ** 2
-    return eval_sh_channels(deg, [sh[..., i] for i in range(sh.shape[-1])],
-                            dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3])
+    return eval_sh_coeffs(deg, [sh[..., i] for i in range(sh.shape[-1])],
+                          dirs)
+
+
+def eval_sh_coeffs(deg: int, coeffs, dirs: torch.Tensor) -> torch.Tensor:
+    """The same evaluation over a list of per-band coefficient tensors
+    (``coeffs[i]``: [..., C]): callers with [N, K, C] parameters pass
+    middle-axis slices and skip the [N, C, K] transpose."""
+    return eval_sh_channels(deg, coeffs, dirs[..., 0:1], dirs[..., 1:2],
+                            dirs[..., 2:3])
 
 
 def eval_sh_channels(deg: int, coeffs, x, y, z) -> torch.Tensor:

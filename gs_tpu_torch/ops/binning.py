@@ -75,6 +75,33 @@ class FoldPlan(NamedTuple):
     # order, a permutation of [0, N)
 
 
+def pack_bf16_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two float32 tensors -> one float32-typed tensor whose bits are the
+    bf16 pair (``a`` rounded to nearest even in the low half, ``b`` in
+    the high half: ``jax.lax.bitcast_convert_type``'s order on a
+    little-endian host). Pure bit transport: only row movement (gathers,
+    sorts) may touch the result, never arithmetic, which would flush a
+    pair whose float32 reading is denormal (``b`` zero, ``a`` not)."""
+    pair = torch.stack([a.to(torch.bfloat16), b.to(torch.bfloat16)], dim=-1)
+    return pair.view(torch.float32).squeeze(-1)
+
+
+def unpack_bf16_pair(x: torch.Tensor):
+    """The inverse of :func:`pack_bf16_pair`: (low, high) as float32."""
+    pair = x.unsqueeze(-1).view(torch.bfloat16)
+    return pair[..., 0].to(torch.float32), pair[..., 1].to(torch.float32)
+
+
+def unpack_feature_pairs(cols: torch.Tensor) -> torch.Tensor:
+    """The sorted payload of ``bin_gaussians_payload(bf16_pairs=True)``,
+    [8, D] (six float32 rows, then the (r, g) and (b, invdepth) pairs), ->
+    the [10, D] float32 rows the raster kernels take."""
+    d = cols.shape[1]
+    halves = cols[6:8].contiguous().view(torch.bfloat16).reshape(2, d, 2)
+    rgbd = halves.permute(0, 2, 1).reshape(4, d).to(torch.float32)
+    return torch.cat([cols[:6], rgbd]).contiguous()
+
+
 def tile_grid(width: int, height: int, tile_x: int, tile_y: int):
     gx = -(-width // tile_x)
     gy = -(-height // tile_y)
@@ -183,8 +210,9 @@ def expansion_table(proj: Projected, payload: Optional[torch.Tensor],
 def bin_gaussians_payload(proj: Projected, payload: Optional[torch.Tensor],
                           width: int, height: int, tile_x: int, tile_y: int,
                           capacity: int, *, exact_cull: bool = False,
-                          fold_plan: bool = False, row_map=None,
-                          row_cumown=None, col0_map=None, col1_map=None):
+                          fold_plan: bool = False, bf16_pairs: bool = False,
+                          row_map=None, row_cumown=None, col0_map=None,
+                          col1_map=None):
     """Binning that carries per-gaussian ``payload`` [N, F] columns through
     the expansion and the tile sort. Returns (TileBins, sorted payload
     [F, capacity] float32 rows, or None without a payload), and a
@@ -206,6 +234,13 @@ def bin_gaussians_payload(proj: Projected, payload: Optional[torch.Tensor],
     range while counts and offsets stay as they were. Needs the
     ``rasterize_plain.pack_projected`` packet as payload (x, y, conic a/b/c,
     opacity in columns 0-5).
+
+    ``bf16_pairs``: the packet's colours and invdepth (columns 6-9) ride
+    the tile sort as two bf16 pairs (:func:`pack_bf16_pair`), so the
+    sorted payload is [8, capacity]: packed after K2's expansion, where the
+    JAX package's kernel branch packs (``gs_tpu/ops/binning.py:258-266``),
+    so only the sort's gather moves them (:func:`unpack_feature_pairs`
+    restores the ten rows).
     """
     gx, gy = tile_grid(width, height, tile_x, tile_y)
     num_tiles = gx * gy
@@ -217,6 +252,8 @@ def bin_gaussians_payload(proj: Projected, payload: Optional[torch.Tensor],
             "gids ride the expansion table as exact float32 values")
     if exact_cull and payload is None:
         raise ValueError("exact_cull needs the packet payload")
+    if bf16_pairs and (payload is None or payload.shape[1] != 10):
+        raise ValueError("bf16_pairs needs the 10-column packet payload")
     comb, offsets, counts0, total = expansion_table(
         proj, payload, width, height, tile_x, tile_y, row_map=row_map,
         row_cumown=row_cumown)
@@ -265,7 +302,12 @@ def bin_gaussians_payload(proj: Projected, payload: Optional[torch.Tensor],
 
     sorted_key, perm = torch.sort(tile_key, stable=True)
     sorted_gid = gid_e[perm]
-    sorted_cols = out16[6:6 + f].index_select(1, perm) if f else None
+    cols = out16[6:6 + f]
+    if bf16_pairs:
+        cols = torch.cat([cols[:6],
+                          pack_bf16_pair(cols[6], cols[7])[None],
+                          pack_bf16_pair(cols[8], cols[9])[None]])
+    sorted_cols = cols.index_select(1, perm) if f else None
 
     tiles = torch.arange(num_tiles, dtype=torch.int32, device=dev)
     start = torch.searchsorted(sorted_key, tiles, out_int32=True)

@@ -57,7 +57,7 @@ import torch
 from . import _cuda
 from ..core.project import Projected
 from .binning import (TileBins, bin_gaussians_payload, quad_limit,
-                      quad_min_rect, tile_grid)
+                      quad_min_rect, tile_grid, unpack_feature_pairs)
 from .composite import (ALPHA_MAX, T_EPS, alpha_from_power, composite_chunk,
                         splat_power, transmittance)
 from .fold import SOURCE as FOLD_SOURCE, fold_rows
@@ -619,10 +619,12 @@ class _RasterizeBinned(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, packets, proj, width, height, capacity, exact_cull,
-                max_chunks, rows, row_map):
+                max_chunks, rows, row_map, bf16):
         bins, feats, plan = bin_gaussians_payload(
             proj, packets, width, height, TILE, TILE, capacity,
-            exact_cull=exact_cull, fold_plan=True, **rows)
+            exact_cull=exact_cull, fold_plan=True, bf16_pairs=bf16, **rows)
+        if bf16:
+            feats = unpack_feature_pairs(feats)
         gx, _ = tile_grid(width, height, TILE, TILE)
         out, last = raster_tiles_fwd_save(feats, bins.tile_start,
                                           bins.tile_end, gx, max_chunks,
@@ -643,7 +645,7 @@ class _RasterizeBinned(torch.autograd.Function):
                                      row_map=ctx.row_map)
         d = fold_rows(d_entries, offsets, counts, gid)
         d_packets = torch.where(overflow, 0.0, d)
-        return (d_packets,) + (None,) * 8
+        return (d_packets,) + (None,) * 9
 
 
 def kernel_row_map(row_map, device):
@@ -656,13 +658,20 @@ def kernel_row_map(row_map, device):
 
 def rasterize(proj: Projected, width: int, height: int, bg: torch.Tensor, *,
               max_per_tile: int = 4096, dup_capacity: int = 1 << 20,
-              exact_cull: bool = False, row_map=None, row_cumown=None,
-              col0_map=None, col1_map=None):
+              exact_cull: bool = False, bf16_features: bool = False,
+              row_map=None, row_cumown=None, col0_map=None, col1_map=None):
     """Render through the kernels (16x16 tiles); differentiable with
     respect to ``proj``'s float fields and ``bg``. The ``row_*`` and
     ``col*_map`` arguments render one band of a multi-GPU frame
     (``ops/binning.py::bin_gaussians_payload``): ``height`` is then the
     band's and the images come back in its local row order.
+
+    ``bf16_features``: the colours and invdepth ride the tile sort as bf16
+    pairs and are unpacked to float32 before K1/K1g
+    (``gs_tpu/ops/rasterize_pallas.py:658-677``), so every kernel sees the
+    usual float32 features, quantised. The backward is straight-through:
+    K3 runs on the quantised features and K4 folds as before. Geometry
+    (means, conic, opacity) stays float32.
 
     Returns (image [3,H,W], invdepth [1,H,W], final_T [H,W],
     num_duplicates, max_tile_len, overflow, num_valid) — the last four as
@@ -678,12 +687,16 @@ def rasterize(proj: Projected, width: int, height: int, bg: torch.Tensor, *,
         proj_sg = Projected(*[None if t is None else t.detach() for t in proj])
         *fields, out = _RasterizeBinned.apply(packets, proj_sg, width, height,
                                               dup_capacity, exact_cull,
-                                              max_chunks, rows, kmap)
+                                              max_chunks, rows, kmap,
+                                              bf16_features)
         bins = TileBins(*fields)
     else:
         bins, feats = bin_gaussians_payload(proj, packets, width, height,
                                             TILE, TILE, dup_capacity,
-                                            exact_cull=exact_cull, **rows)
+                                            exact_cull=exact_cull,
+                                            bf16_pairs=bf16_features, **rows)
+        if bf16_features:
+            feats = unpack_feature_pairs(feats)
         out = raster_tiles_fwd(feats, bins.tile_start, bins.tile_end, gx,
                                max_chunks, row_map=kmap)
     img = out[:, 0:3] + out[:, 4:5] * bg[None, :, None]

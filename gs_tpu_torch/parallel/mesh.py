@@ -19,6 +19,11 @@ set of shards and the collectives between them. Each process holds its
 
 ``parallel/render_mc.py`` is written once against both: its phases loop
 over the local shards and meet at the collectives below.
+
+A ``models/packed_state.py::PackedState`` shards the same way: its [R, C]
+blocks (parameters and Adam moments) split on their column axis, every
+[C] tensor on its only axis (``gs_tpu/parallel/mesh.py:40-63``), so a
+process's shards sit side by side in its blocks' columns.
 """
 from __future__ import annotations
 
@@ -27,10 +32,13 @@ import os
 import torch
 
 from ..models.gaussian_model import TrainState, grow_capacity
+from ..models.packed_state import PackedState, grow_capacity_packed
 
 # the TrainState fields with a capacity axis; the rest are replicated
 SHARDED_FIELDS = ("params", "alive", "m", "v", "grad_accum", "denom",
                   "max_radii2D")
+# the PackedState fields whose capacity axis is their columns
+PACKED_BLOCKS = ("packed", "m", "v")
 
 
 class LocalGroup:
@@ -221,49 +229,63 @@ def padded_capacity(capacity: int, k: int) -> int:
     return -(-capacity // k) * k
 
 
-def pad_state(state: TrainState, k: int) -> TrainState:
-    """``state`` grown (dead slots at the end) to a capacity that k shards
-    split evenly, as ``gs_tpu/train/loop.py:138-146``."""
+def pad_state(state, k: int):
+    """``state`` (a TrainState or a PackedState) grown (dead slots at the
+    end) to a capacity that k shards split evenly, as
+    ``gs_tpu/train/loop.py:138-146``."""
     cap = padded_capacity(state.capacity, k)
-    return state if cap == state.capacity else grow_capacity(state, cap)
+    if cap == state.capacity:
+        return state
+    grow = (grow_capacity_packed if isinstance(state, PackedState)
+            else grow_capacity)
+    return grow(state, cap)
 
 
-def _map_sharded(fn, state: TrainState) -> TrainState:
+def _map_sharded(fn, state):
+    """``fn(x, axis)`` on every tensor of ``state`` with a capacity axis
+    (``axis``: 1 for a packed block, else 0); the rest as they are."""
+    packed = isinstance(state, PackedState)
     out = {}
     for name in state._fields:
         x = getattr(state, name)
-        if name in SHARDED_FIELDS:
-            x = (type(x)(*[fn(t) for t in x]) if name in ("params", "m", "v")
-                 else fn(x))
+        if packed and name in PACKED_BLOCKS:
+            x = fn(x, 1)
+        elif name in SHARDED_FIELDS:
+            x = (type(x)(*[fn(t, 0) for t in x])
+                 if not packed and name in ("params", "m", "v")
+                 else fn(x, 0))
         out[name] = x
-    return TrainState(**out)
+    return type(state)(**out)
 
 
-def shard_state(state: TrainState, group) -> TrainState:
+def shard_state(state, group):
     """The whole (replicated) ``state`` -> this process's local shards,
-    concatenated: the rows of shards ``group.local``. The capacity must
+    concatenated: the slots of shards ``group.local``. The capacity must
     divide into the group's shards."""
     _check_capacity(state.capacity, group.size)
     if len(group.local) == group.size:
         return state
     n = state.capacity // group.size
-    rows = torch.cat([torch.arange(d * n, (d + 1) * n) for d in group.local])
+    idx = torch.cat([torch.arange(d * n, (d + 1) * n) for d in group.local])
 
-    def take(x):
-        return x[rows.to(x.device)].contiguous()
+    def take(x, axis):
+        return x.index_select(axis, idx.to(x.device)).contiguous()
 
     return _map_sharded(take, state)
 
 
-def gather_state(state: TrainState, group) -> TrainState:
+def gather_state(state, group):
     """This process's local shards -> the whole state, on every process
     (every process of the group must call it)."""
     if len(group.local) == group.size:
         return state
 
-    def gather(x):
+    def gather(x, axis):
         y = x.to(torch.uint8) if x.dtype == torch.bool else x
-        y = group.gather_values([y]).reshape((-1,) + tuple(x.shape[1:]))
+        y = group.gather_values([y])                 # [k, *local shape]
+        if axis:
+            y = y.permute(1, 0, 2)                   # [R, k, n]
+        y = y.reshape(x.shape[:axis] + (-1,) + x.shape[axis + 1:])
         return y.to(x.dtype)
 
     return _map_sharded(gather, state)

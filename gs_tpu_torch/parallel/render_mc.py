@@ -1,5 +1,6 @@
 """Multi-GPU rendering: Gaussians sharded over a group, tile rows banded —
-port of ``gs_tpu/parallel/render_mc.py`` (tree layout).
+port of ``gs_tpu/parallel/render_mc.py``, on the tree or the packed
+layout.
 
 The phases, each over the process's local shards (``parallel/mesh.py``):
 
@@ -31,7 +32,8 @@ import torch
 
 from ..core.camera import Camera
 from ..core.gaussians import GaussianParams
-from ..core.project import Projected, preprocess, tile_rect
+from ..core.project import (Projected, preprocess, preprocess_packed,
+                            tile_rect)
 from ..ops.binning import tile_grid
 from ..ops.rasterize_plain import pack_projected
 from ..render import RenderOutput, render_projected
@@ -275,8 +277,7 @@ def render_multichip(params: GaussianParams, camera: Camera,
                      visible_capacity: int = 0,
                      band_assign: str = "cost",
                      split_rows: int = 0,
-                     exact_cull: bool = False,
-                     bf16_features: bool = False) -> RenderOutput:
+                     exact_cull: bool = False) -> RenderOutput:
     """Render one view with the Gaussians sharded over ``group``.
 
     ``params``, ``alive`` and ``mean2d_tap`` (the densification gradient
@@ -289,15 +290,15 @@ def render_multichip(params: GaussianParams, camera: Camera,
     (0: the whole shard); a shard with more visible Gaussians sets
     ``overflow``, as a binning capacity does. ``band_assign`` "cost" or
     "stride" and ``split_rows`` as ``gs_tpu/parallel/render_mc.py``.
-    ``packed_sh_degree`` (the packed [R, C] layout) is not ported yet
-    (``ROADMAP.md`` queue 1 item 7).
+
+    ``packed_sh_degree``: ``params`` is then the channel-major [R, C]
+    block of that SH degree (``core/packed.py``), the local shards side by
+    side on its column axis, and each shard's column slice goes through
+    ``preprocess_packed``. The SH ramp's mask (``mask_sh_rows``) is the
+    caller's, as ``mask_sh_rest`` is on the tree layout.
     """
-    if packed_sh_degree is not None:
-        raise NotImplementedError(
-            "packed_sh_degree: the packed state layout is not ported yet "
-            "(ROADMAP.md queue 1 item 7)")
     k, nl = group.size, len(group.local)
-    cap = params.capacity
+    cap = params.shape[1] if packed_sh_degree is not None else params.capacity
     if cap % nl:
         raise ValueError(f"{cap} local rows do not split into {nl} shards")
     n = cap // nl
@@ -309,10 +310,15 @@ def render_multichip(params: GaussianParams, camera: Camera,
     projs, rows, vis_over = [], [], []
     for s in range(nl):
         sl = slice(s * n, (s + 1) * n)
-        proj = preprocess(GaussianParams(*[t[sl] for t in params]), camera,
-                          active_sh_degree=active_sh_degree,
-                          antialiasing=antialiasing,
-                          alive=None if alive is None else alive[sl])
+        kw = dict(active_sh_degree=active_sh_degree,
+                  antialiasing=antialiasing,
+                  alive=None if alive is None else alive[sl])
+        if packed_sh_degree is not None:
+            proj = preprocess_packed(params[:, sl], camera,
+                                     sh_degree=packed_sh_degree, **kw)
+        else:
+            proj = preprocess(GaussianParams(*[t[sl] for t in params]),
+                              camera, **kw)
         if mean2d_tap is not None:
             proj = proj._replace(mean2d=proj.mean2d + mean2d_tap[sl])
         r = _shard_rows(proj)
@@ -341,8 +347,7 @@ def render_multichip(params: GaussianParams, camera: Camera,
     outs = [render_projected(proj_all, width, band_rows * TILE, bg,
                              backend=backend, dup_capacity=dup_capacity,
                              max_per_tile=max_per_tile, chunk=chunk,
-                             exact_cull=exact_cull,
-                             bf16_features=bf16_features, **kws[d])
+                             exact_cull=exact_cull, **kws[d])
             for d in group.local]
 
     # 4. the bands back into the frame

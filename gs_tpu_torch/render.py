@@ -124,7 +124,10 @@ def render_grown(camera: Camera, params: GaussianParams, bg: torch.Tensor,
         if mesh is None:
             out = render(camera, params, bg, **common)
         else:
+            # the multi-GPU render streams f32 features, as the JAX
+            # package's does: it takes no bf16_features
             from .parallel.render_mc import render_multichip
+            common.pop("bf16_features")
             out = render_multichip(
                 params, camera, bg, mesh, band_assign=raster.band_assign,
                 visible_capacity=max(raster.visible_capacity, 0), **common)
@@ -213,13 +216,13 @@ def render_projected(proj: Projected, width: int, height: int,
     phase + j*stride), with ``col0_map``/``col1_map``
     (per local row, the owned tile columns): render one band of a
     multi-GPU frame into ``height`` = the band's rows x 16, coordinates
-    global (``parallel/render_mc.py``)."""
+    global (``parallel/render_mc.py``). ``bf16_features`` streams the
+    colours and invdepth through the tile sort as bf16 pairs on the
+    ``cuda`` backend (``ops/rasterize.py``); ``binned`` and ``depthwise``
+    ignore it, as the JAX package's oracles do."""
     backend = resolve_backend(backend)
     rows = dict(row_map=row_map, row_cumown=row_cumown, col0_map=col0_map,
                 col1_map=col1_map)
-    if bf16_features:
-        raise NotImplementedError(
-            "bf16_features (bf16 feature streaming) is not ported yet")
     dev = proj.depth.device
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     nv = zero_i
@@ -242,7 +245,8 @@ def render_projected(proj: Projected, width: int, height: int,
     else:
         image, invd, finalT, nd, ml, ov, nv = rasterize(
             proj, width, height, bg, max_per_tile=max_per_tile,
-            dup_capacity=dup_capacity, exact_cull=exact_cull, **rows)
+            dup_capacity=dup_capacity, exact_cull=exact_cull,
+            bf16_features=bf16_features, **rows)
     return RenderOutput(image=image, invdepth=invd, final_T=finalT,
                         radii=proj.radius, visibility=proj.visible,
                         num_duplicates=nd, max_tile_len=ml, overflow=ov,

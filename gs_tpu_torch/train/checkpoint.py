@@ -21,13 +21,19 @@ import torch
 from ..convert import PARAM_FIELDS, state_from_numpy
 from ..core.gaussians import GaussianParams
 from ..models.gaussian_model import TrainState
+from ..models.packed_state import PackedState, unpack_state
 from ..utils.msgpack_reader import restore_flax
 
 GS_TPU_MAGIC = b"GSTPUCK1"
 
 
-def save_checkpoint(path: str, state: TrainState, iteration: int,
+def save_checkpoint(path: str, state, iteration: int,
                     spatial_lr_scale: float = 1.0):
+    """``state``: a TrainState, or a PackedState, unpacked here so the file
+    is the same whatever layout trained it (``load_checkpoint`` returns a
+    TrainState either way)."""
+    if isinstance(state, PackedState):
+        state = unpack_state(state)
     tensors = {k: ({f: t.detach().cpu() for f, t in v._asdict().items()}
                    if isinstance(v, GaussianParams) else v.detach().cpu())
                for k, v in state._asdict().items()}

@@ -1,6 +1,7 @@
-"""The training driver — port of ``gs_tpu/train/loop.py`` (tree layout):
-schedule, densification, eval, overflow replay, on one device or with the
-Gaussians sharded over a group (``mesh``).
+"""The training driver — port of ``gs_tpu/train/loop.py``: schedule,
+densification, eval, overflow replay, on one device or with the Gaussians
+sharded over a group (``mesh``), on the packed [R, C] state layout (the
+default, as in the JAX package) or the tree layout.
 
 Orchestrates the train step like the reference loop (ref: train.py:43-183):
 epoch-less random camera picks without replacement, densify/prune every
@@ -31,11 +32,17 @@ and shards the result again: the JAX package's sharded densify equals the
 one-device one (``tests/test_sharding.py``), and so does this. Growth
 likewise gathers, grows and re-shards. Test views render banded too.
 
-Not ported, being XLA/TPU machinery of the JAX trainer: the ``packed``
-state layout (``ROADMAP.md`` queue 1 item 7), the ahead-of-time compile of
-the next capacity tier, the scan/chain block-dispatch executables and the
-jit caches. ``block_scan`` here is a plain loop over schedule-aligned
-blocks with one sync per block.
+``packed`` (None means packed, ``gs_tpu/train/loop.py:96``) keeps the
+state as a ``models/packed_state.py::PackedState``, packed after the mesh
+shard; densify, opacity reset and growth go through the packed functions,
+which unpack, run the tree layout's and pack again. The snapshot, the
+checkpoints (``train/checkpoint.py`` unpacks) and every render of a view
+read ``PackedState.params``/``.alive``.
+
+Not ported, being XLA/TPU machinery of the JAX trainer: the ahead-of-time
+compile of the next capacity tier, the scan/chain block-dispatch
+executables and the jit caches. ``block_scan`` here is a plain loop over
+schedule-aligned blocks with one sync per block.
 """
 from __future__ import annotations
 
@@ -56,6 +63,9 @@ from ..data.camera_utils import LoadedCamera
 from ..models.gaussian_model import (MAX_CAPACITY, TrainState,
                                      create_from_pcd, densify_and_prune,
                                      grow_capacity, init_state, reset_opacity)
+from ..models.packed_state import (PackedState, densify_and_prune_packed,
+                                   grow_capacity_packed, pack_state,
+                                   reset_opacity_packed, unpack_state)
 from ..ops.losses import psnr
 from ..parallel.mesh import gather_state, pad_state, shard_state
 from ..render import (MAX_DUP_CAPACITY, RenderOutput, overflow_changes,
@@ -124,13 +134,17 @@ class Trainer:
                  test_cams: Sequence[LoadedCamera] = (),
                  start_state: Optional[TrainState] = None,
                  start_iteration: int = 0, seed: int = 0,
-                 initial_capacity: Optional[int] = None, mesh=None):
+                 initial_capacity: Optional[int] = None, mesh=None,
+                 packed: Optional[bool] = None):
         """Trains on ``model_cfg.data_device``; the cameras must be there.
         ``mesh``: a group of ``parallel/mesh.py`` to shard the Gaussians
-        over; ``start_state`` is then the whole state, as on one device."""
+        over; ``start_state`` (a TrainState or a PackedState) is then the
+        whole state, as on one device. ``packed``: train on the [R, C]
+        layout (None: yes, as the JAX trainer does)."""
         if not train_cams:
             raise ValueError("the Trainer needs at least one training camera")
         self.mesh = mesh
+        self.packed = True if packed is None else bool(packed)
         self.device = torch.device(model_cfg.data_device)
         self.train_cams = _normalize_resolutions(list(train_cams))
         self.test_cams = list(test_cams)
@@ -179,11 +193,15 @@ class Trainer:
                                             device=self.device)
             self.state = init_state(params, alive,
                                     num_images=len(self.train_cams))
+        elif isinstance(start_state, PackedState):
+            self.state = unpack_state(start_state)
         else:
             self.state = start_state
         if mesh is not None:
             self.state = shard_state(pad_state(self.state, mesh.size), mesh)
             self._auto_visible_capacity()
+        if self.packed:
+            self.state = pack_state(self.state)
 
         self._build_step()
         self._camera_stack: list[int] = []
@@ -213,7 +231,8 @@ class Trainer:
     def _build_step(self):
         self.train_step = make_train_step(
             self.opt, self.model_cfg, self.pipe, self.raster, self.cam_batch,
-            self.spatial_lr_scale, self.model_cfg.sh_degree, mesh=self.mesh)
+            self.spatial_lr_scale, self.model_cfg.sh_degree, mesh=self.mesh,
+            packed=self.packed)
 
     # ------------------------------------------------------------- the mesh
 
@@ -235,9 +254,10 @@ class Trainer:
         return int(self.mesh.sum([a.sum() for a in
                                   self._local_shards(self.state.alive)]))
 
-    def full_state(self) -> TrainState:
-        """The whole state (gathered under a mesh: every process calls
-        it), for checkpoints, PLY snapshots and density control."""
+    def full_state(self):
+        """The whole state, a TrainState or a PackedState (gathered under
+        a mesh: every process calls it), for checkpoints, PLY snapshots and
+        density control."""
         if self.mesh is None:
             return self.state
         return gather_state(self.state, self.mesh)
@@ -272,13 +292,15 @@ class Trainer:
         return torch.randn((capacity, 3), generator=self.generator,
                            device=self.device)
 
-    def _densify(self, state: TrainState, use_size_threshold: bool):
+    def _densify(self, state, use_size_threshold: bool):
         """One densify/prune. Under a mesh: gather, the one-device pass with
         the same noise on every process (the same generator state), and
         shard again."""
         if self.mesh is not None:
             state = gather_state(state, self.mesh)
-        state, info = densify_and_prune(
+        densify = densify_and_prune_packed if self.packed else \
+            densify_and_prune
+        state, info = densify(
             state, self._densify_noise(state.capacity),
             grad_threshold=self.opt.densify_grad_threshold,
             min_opacity=0.005, extent=self.spatial_lr_scale,
@@ -335,7 +357,8 @@ class Trainer:
             if i % opt.opacity_reset_interval == 0 or (
                     self.model_cfg.white_background and
                     i == opt.densify_from_iter):
-                self.state = reset_opacity(self.state)
+                self.state = (reset_opacity_packed if self.packed
+                              else reset_opacity)(self.state)
 
     def run_block(self, k: int) -> StepMetrics:
         """Run ``k`` iterations with no schedule and no sync. The caller
@@ -486,10 +509,12 @@ class Trainer:
         if new_cap > cap:
             print(f"[gs_tpu_torch] capacity {n_alive}/{cap} alive; "
                   f"growing to {new_cap}", flush=True)
+            grow = (grow_capacity_packed
+                    if isinstance(self.state, PackedState) else grow_capacity)
             if self.mesh is None:
-                self.state = grow_capacity(self.state, new_cap)
+                self.state = grow(self.state, new_cap)
             else:
-                self.state = shard_state(grow_capacity(
+                self.state = shard_state(grow(
                     gather_state(self.state, self.mesh), new_cap), self.mesh)
         if n_alive > headroom * MAX_CAPACITY:
             # densify drops the rows that find no free slot from here on

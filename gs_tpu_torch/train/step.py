@@ -1,10 +1,13 @@
-"""The training step — port of ``gs_tpu/train/step.py::make_train_step``
-(tree layout): render, L1 + SSIM (+ optional depth-L1) loss, backward,
-densification statistics, learning-rate schedule, (sparse) Adam, exposure
-update (ref: train.py:87-179). With a ``mesh`` (a group of
-``parallel/mesh.py``) the state is this process's shards and the render is
+"""The training step — port of ``gs_tpu/train/step.py::make_train_step``:
+render, L1 + SSIM (+ optional depth-L1) loss, backward, densification
+statistics, learning-rate schedule, (sparse) Adam, exposure update (ref:
+train.py:87-179). With a ``mesh`` (a group of ``parallel/mesh.py``) the
+state is this process's shards and the render is
 ``parallel/render_mc.py::render_multichip``; the loss is the same on every
-process, and each updates its own shards.
+process, and each updates its own shards. With ``packed`` the state is a
+``models/packed_state.py::PackedState``: the preprocess reads the [R, C]
+block through one autograd Function and Adam is one pass over the block
+(``core/packed.py``); the semantics are the tree layout's.
 
 The JAX package compiles this into one function and picks the camera by a
 traced index; here the step runs eagerly, so the iteration and the camera
@@ -26,10 +29,12 @@ import torch
 from ..config import ModelConfig, OptimizationConfig, PipelineConfig, RasterConfig
 from ..core.camera import CameraBatch
 from ..core.gaussians import GaussianParams
-from ..core.project import preprocess
+from ..core.packed import layout as packed_layout, mask_sh_rows
+from ..core.project import preprocess, preprocess_packed
 from ..models.gaussian_model import (TrainState, adam_update,
                                      add_densification_stats, exposure_update,
                                      group_lrs)
+from ..models.packed_state import adam_update_packed, group_lr_rows
 from ..ops.losses import l1_loss
 from ..ops.ssim import ssim
 from ..parallel.render_mc import render_multichip
@@ -71,7 +76,7 @@ def apply_exposure(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
 def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
                     pipe: PipelineConfig, raster: RasterConfig,
                     cams: CameraBatch, spatial_lr_scale: float,
-                    max_sh_degree: int, mesh=None):
+                    max_sh_degree: int, mesh=None, packed: bool = False):
     """Returns ``step(state, cam_idx, gt_image, alpha_mask=None,
     invdepth_gt=None, depth_mask=None, depth_ok=0.0, iteration=1, *,
     bg=None, generator=None) -> (state, StepMetrics)``, on the cameras'
@@ -79,7 +84,9 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
     (``model_cfg.white_background``), or drawn from ``generator`` under
     ``opt.random_background``. ``mesh``: render through the multi-GPU path
     with the state sharded over that group (``raster``'s
-    ``visible_capacity`` and ``band_assign``)."""
+    ``visible_capacity`` and ``band_assign``; ``bf16_features`` is not
+    read there, as in the JAX package's mesh branches). ``packed``: the
+    state is a ``PackedState``."""
     width, height = cams.width, cams.height
     dev = cams.device
     use_sparse = opt.optimizer_type == "sparse_adam"
@@ -88,8 +95,12 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
                  else torch.zeros(3, device=dev))
     render_kw = dict(backend=raster.backend, dup_capacity=raster.dup_capacity,
                      max_per_tile=raster.max_per_tile, chunk=raster.chunk,
-                     bf16_features=raster.bf16_features,
                      exact_cull=raster.exact_cull)
+    mesh_kw = dict(render_kw, antialiasing=pipe.antialiasing,
+                   active_sh_degree=max_sh_degree,
+                   visible_capacity=max(raster.visible_capacity, 0),
+                   band_assign=raster.band_assign)
+    lay = packed_layout(max_sh_degree)
 
     def step(state: TrainState, cam_idx: int, gt_image: torch.Tensor,
              alpha_mask: Optional[torch.Tensor] = None,
@@ -104,25 +115,35 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
             bg = (torch.rand(3, generator=generator, device=dev)
                   if opt.random_background else bg_static)
 
-        leaves = [t.detach().requires_grad_(True) for t in state.params]
+        if packed:
+            leaves = [state.packed.detach().requires_grad_(True)]
+            masked = mask_sh_rows(leaves[0], lay, active_sh_degree)
+        else:
+            leaves = [t.detach().requires_grad_(True) for t in state.params]
+            masked = mask_sh_rest(GaussianParams(*leaves), active_sh_degree)
         tap = torch.zeros((state.capacity, 2), device=dev, requires_grad=True)
         exposure_row = state.exposure[cam_idx].detach().requires_grad_(
             use_exposure)
 
-        masked = mask_sh_rest(GaussianParams(*leaves), active_sh_degree)
         if mesh is not None:
             out = render_multichip(
-                masked, cam, bg, mesh, active_sh_degree=max_sh_degree,
-                antialiasing=pipe.antialiasing, alive=state.alive,
-                mean2d_tap=tap, visible_capacity=max(
-                    raster.visible_capacity, 0),
-                band_assign=raster.band_assign, **render_kw)
+                masked, cam, bg, mesh, alive=state.alive, mean2d_tap=tap,
+                packed_sh_degree=max_sh_degree if packed else None,
+                **mesh_kw)
         else:
-            proj = preprocess(masked, cam, active_sh_degree=max_sh_degree,
-                              antialiasing=pipe.antialiasing,
-                              alive=state.alive)
+            if packed:
+                proj = preprocess_packed(
+                    masked, cam, sh_degree=max_sh_degree,
+                    active_sh_degree=max_sh_degree,
+                    antialiasing=pipe.antialiasing, alive=state.alive)
+            else:
+                proj = preprocess(masked, cam, active_sh_degree=max_sh_degree,
+                                  antialiasing=pipe.antialiasing,
+                                  alive=state.alive)
             proj = proj._replace(mean2d=proj.mean2d + tap)
-            out = render_projected(proj, width, height, bg, **render_kw)
+            out = render_projected(proj, width, height, bg,
+                                   bf16_features=raster.bf16_features,
+                                   **render_kw)
         image = out.image
         if use_exposure:
             image = apply_exposure(image, exposure_row)
@@ -147,7 +168,6 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(inputs, grads)]
-        pgrads = GaussianParams(*grads[:len(leaves)])
         tap_grad = grads[len(leaves)]
 
         with torch.no_grad():
@@ -156,9 +176,18 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
             stats_gate = out.visibility & (iteration < opt.densify_until_iter)
             state = add_densification_stats(state, tap_grad, stats_gate,
                                             width, height, out.radii)
-            lrs = group_lrs(opt, iteration, spatial_lr_scale)
-            state = adam_update(state, pgrads, lrs,
-                                out.visibility if use_sparse else None)
+            visible = out.visibility if use_sparse else None
+            # a profiler trace shows the update under this name
+            with torch.profiler.record_function("gs_tpu_torch.adam"):
+                if packed:
+                    lr = group_lr_rows(lay, opt, iteration, spatial_lr_scale,
+                                       device=dev)
+                    state = adam_update_packed(state, grads[0], lr, visible)
+                else:
+                    lrs = group_lrs(opt, iteration, spatial_lr_scale)
+                    state = adam_update(
+                        state, GaussianParams(*grads[:len(leaves)]), lrs,
+                        visible)
             if use_exposure:
                 full = torch.zeros_like(state.exposure)
                 full[cam_idx] = grads[-1]

@@ -169,3 +169,25 @@ def test_library_names_follow_the_sources():
     assert len(set(paths)) == len(paths) >= 4
     assert all(p.parent == _cuda.BUILD for p in paths)
     assert all((_cuda.CSRC / s).is_file() for s in _cuda.SOURCES)
+
+
+PACKED_MODULES = ("gs_tpu_torch.core.packed",
+                  "gs_tpu_torch.models.packed_state")
+
+
+def test_packed_modules_load_alone():
+    """The packed layout's modules import with no jax and no gs_tpu (they
+    keep their own copies of layout and sh_band_index), and build nothing
+    on import."""
+    code = ("import sys, importlib\n"
+            f"for m in {PACKED_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'gs_tpu')]\n"
+            "assert not bad, bad\n"
+            "from gs_tpu_torch.core.packed import layout\n"
+            "assert layout(3).rows == 64\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr

@@ -375,3 +375,56 @@ def test_cuda_identity_row_map_is_the_full_frame(scene, cuda_device):
         trast.raster_tiles_bwd(*args, out0, last0, dout, plan.dest),
         trast.raster_tiles_bwd(*args, out0, last0, dout, plan.dest,
                                row_map=ident))
+
+
+# ------------------------------------------------------- the packed layout
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_render_multichip_packed_matches_jax(scene, k):
+    """``packed_sh_degree``: the [R, C] block of the scene, its columns
+    sharded (JAX: P(None, 'gauss') on make_mesh(k); the port: LocalGroup(k)
+    column slices), against JAX's packed multi-chip render by the rules
+    above, the block's gradient row for row; and the port's packed frame
+    is its tree frame."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from gs_tpu.core.packed import pack_params as jax_pack_params
+    from gs_tpu.parallel.mesh import GAUSS_AXIS
+    from gs_tpu_torch.core.packed import pack_params
+
+    arrays, gt, bg = scene
+    alive = np.arange(N) < 200
+    mesh = make_mesh(k)
+    jblock = jax.device_put(
+        jax_pack_params(JGaussianParams(
+            **{f: jnp.asarray(v) for f, v in arrays.items()})),
+        NamedSharding(mesh, P(None, GAUSS_AXIS)))
+    tap0 = jax.device_put(jnp.zeros((N, 2), jnp.float32),
+                          gauss_sharding(mesh))
+    cam = default_camera(W, H)
+
+    def f(p, t):
+        o = jax_render_mc(p, cam, jnp.asarray(bg), mesh, active_sh_degree=2,
+                          alive=jnp.asarray(alive), mean2d_tap=t,
+                          backend="binned", packed_sh_degree=2, **KW,
+                          **ASSIGNS["cost"])
+        return _loss(o.image, o.invdepth, jnp.asarray(gt)), o
+
+    (ref_loss, ref), (jgb, jgt) = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True))(jblock, tap0)
+
+    block = pack_params(params_from_numpy(arrays, "cpu")).requires_grad_()
+    tap = torch.zeros((N, 2), requires_grad=True)
+    out = render_multichip(block, port_camera(), torch.tensor(bg),
+                           LocalGroup(k, "cpu"), active_sh_degree=2,
+                           alive=torch.tensor(alive), mean2d_tap=tap,
+                           packed_sh_degree=2, **KW, **ASSIGNS["cost"])
+    loss = _loss(out.image, out.invdepth, torch.tensor(gt))
+    gb, gtap = torch.autograd.grad(loss, [block, tap])
+    assert not bool(out.overflow) and not bool(ref.overflow)
+    assert_frames_match(out, jax.tree.map(np.asarray, ref))
+    assert math.isclose(float(loss), float(ref_loss), rel_tol=1e-5)
+    assert_grads_match({"block": gb.numpy(), "tap": gtap.numpy()},
+                       {"block": np.asarray(jgb), "tap": np.asarray(jgt)})
+    tree, _, _ = port_run(scene, k, alive, "cost")
+    for name in ("image", "invdepth", "final_T"):
+        assert torch.equal(getattr(out, name), getattr(tree, name)), name

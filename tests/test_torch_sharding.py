@@ -146,7 +146,7 @@ def test_pad_and_shard_arithmetic(setup):
 # ------------------------------------------------------------ the Trainer
 
 def port_trainer(mesh=None, dup_capacity=4096, initial_capacity=256,
-                 raster_kw=None, **opt):
+                 raster_kw=None, packed=None, **opt):
     images, pts, cols = make_data()
     tr = Trainer(_views(images, _camera(), CameraInfo, LoadedCamera),
                  (pts, cols, np.zeros_like(pts)), spatial_lr_scale=1.0,
@@ -156,7 +156,8 @@ def port_trainer(mesh=None, dup_capacity=4096, initial_capacity=256,
                  raster=RasterConfig(dup_capacity=dup_capacity,
                                      max_per_tile=512, chunk=32,
                                      **(raster_kw or {})),
-                 initial_capacity=initial_capacity, seed=7, mesh=mesh)
+                 initial_capacity=initial_capacity, seed=7, mesh=mesh,
+                 packed=packed)
     tr.sync_every = 4
     return tr
 
@@ -193,7 +194,7 @@ def test_mesh_trainer_matches_jax(jax_mesh_run, k):
     """The JAX run shards over 2 devices; the port's over k. Both are the
     one-device training, so every k meets the same reference."""
     assert len(jax_mesh_run["noise"]) == 1, "one densify, at iteration 10"
-    tr = port_trainer(mesh=LocalGroup(k, "cpu"))
+    tr = port_trainer(mesh=LocalGroup(k, "cpu"), packed=False)
     noise = list(jax_mesh_run["noise"])
     tr._densify_noise = lambda c: torch.tensor(noise.pop(0))
     log = {"cams": [], "losses": []}
@@ -256,3 +257,155 @@ def test_mesh_trainer_capacity_growth_matches_single():
     np.testing.assert_array_equal(one.state.alive.numpy(),
                                   mesh.state.alive.numpy())
     assert_params_close(_params(mesh), _params(one), steps=16)
+
+
+# ------------------------------------------------------- the packed layout
+
+@pytest.fixture(scope="module")
+def jax_packed_mesh_step(setup):
+    """One JAX packed step of the setup state on make_mesh(2), under a
+    RasterConfig with bf16_features on: the JAX mesh step does not read the
+    flag (``gs_tpu/train/step.py:91-106``), so this is its f32 step."""
+    import jax.numpy as jnp
+    from gs_tpu.core.camera import stack_cameras as jax_stack_cameras
+    from gs_tpu.core.gaussians import GaussianParams as JGaussianParams
+    from gs_tpu.models.gaussian_model import TrainState as JTrainState
+    from gs_tpu.models.packed_state import pack_state as jax_pack_state
+    from gs_tpu.parallel.mesh import shard_state as jax_shard_state
+    from gs_tpu.train.step import make_train_step as jax_make_train_step
+    from gs_tpu_torch.convert import state_to_numpy
+
+    state, _, gt, _, _ = setup
+    d = state_to_numpy(state)
+    js = JTrainState(**{k: JGaussianParams(**{f: jnp.asarray(x)
+                                             for f, x in v.items()})
+                        if k in ("params", "m", "v") else jnp.asarray(v)
+                        for k, v in d.items()})
+    mesh = make_mesh(2)
+    step = jax_make_train_step(
+        JOptimizationConfig(iterations=100, position_lr_max_steps=100),
+        JModelConfig(), JPipelineConfig(),
+        JRasterConfig(backend="binned", dup_capacity=1 << 13,
+                      max_per_tile=256, chunk=64, bf16_features=True),
+        jax_stack_cameras([default_camera(W, H)] * 3), spatial_lr_scale=2.0,
+        max_sh_degree=2, mesh=mesh, packed=True)
+    out, m = step(jax_shard_state(jax_pack_state(js), mesh), jnp.int32(1),
+                  jnp.asarray(gt.numpy()), None, None, None, jnp.float32(0.0),
+                  jnp.int32(1), jax.random.key(0))
+    return jax.tree.map(np.asarray, out._asdict()), float(m.loss)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16-config"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_packed_mesh_step_matches_jax(setup, jax_packed_mesh_step, k, bf16):
+    """The port's packed mesh step on LocalGroup(k) against JAX's on
+    make_mesh(2) (both are the one-device step): the loss within 1e-5
+    relative, Adam's first moments and the densification statistics under
+    the gradient rule. With ``bf16_features`` in the config the port's mesh
+    step is its f32 mesh step, bit for bit, as JAX's is."""
+    from gs_tpu_torch.models.packed_state import PackedState, pack_state
+    state, cams, gt, opt, raster = setup
+    ref, ref_loss = jax_packed_mesh_step
+    group = LocalGroup(k, "cpu")
+    args = (ModelConfig(), PipelineConfig())
+    runs = []
+    for flag in sorted({False, bf16}):
+        r = dataclasses.replace(raster, bf16_features=flag)
+        step = make_train_step(opt, *args, r, cams, 2.0, 2, mesh=group,
+                               packed=True)
+        runs.append(step(shard_state(pack_state(state), group), 1, gt,
+                         iteration=1))
+    s2, m2 = runs[-1]
+    assert isinstance(s2, PackedState) and not bool(m2.overflow)
+    for a, b in zip(runs[0][0], s2):
+        assert torch.equal(a, b)
+    assert math.isclose(float(m2.loss), ref_loss, rel_tol=1e-5)
+    for name in ("m", "grad_accum"):
+        want = ref[name]
+        err = float(np.abs(getattr(s2, name).numpy() - want).max())
+        assert err <= 2e-4 * float(np.abs(want).max()), name
+    for name in ("denom", "max_radii2D", "alive", "step"):
+        np.testing.assert_array_equal(getattr(s2, name).numpy(), ref[name],
+                                      err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def jax_packed_mesh_run():
+    images, pts, cols = make_data()
+    tr = JTrainer(_views(images, default_camera(W, H), JCameraInfo,
+                         JLoadedCamera),
+                  (pts, cols, np.zeros_like(pts)), spatial_lr_scale=1.0,
+                  model_cfg=JModelConfig(sh_degree=1),
+                  opt=JOptimizationConfig(**OPT), pipe=JPipelineConfig(),
+                  raster=JRasterConfig(backend="binned", dup_capacity=4096,
+                                       max_per_tile=512, chunk=32),
+                  initial_capacity=256, seed=7, mesh=make_mesh(2),
+                  packed=True)
+    tr.sync_every = 4
+    log = {"cams": [], "losses": [], "noise": []}
+    densify = tr._densify
+
+    def record_densify(state, key, use_size_threshold):
+        log["noise"].append(np.asarray(
+            jax.random.normal(key, (state.capacity, 3))))
+        return densify(state, key, use_size_threshold=use_size_threshold)
+
+    tr._densify = record_densify
+    tr.train(iterations=ITERS, on_step=_record(tr, log), log_every=1)
+    return dict(log, alive=np.asarray(tr.state.alive), params=_params(tr),
+                ema=tr.ema_loss)
+
+
+def test_packed_mesh_trainer_matches_jax(jax_packed_mesh_run):
+    """The port's default (packed) Trainer on LocalGroup(2) against JAX's
+    packed mesh Trainer, by test_mesh_trainer_matches_jax's rules."""
+    from gs_tpu_torch.models.packed_state import PackedState
+    ref = jax_packed_mesh_run
+    assert len(ref["noise"]) == 1, "one densify, at iteration 10"
+    tr = port_trainer(mesh=LocalGroup(2, "cpu"))
+    assert isinstance(tr.state, PackedState)
+    noise = list(ref["noise"])
+    tr._densify_noise = lambda c: torch.tensor(noise.pop(0))
+    log = {"cams": [], "losses": []}
+    tr.train(iterations=ITERS, on_step=_record(tr, log), log_every=1)
+    assert not noise and log["cams"] == ref["cams"]
+    np.testing.assert_allclose(log["losses"], ref["losses"], rtol=1e-5)
+    assert math.isclose(tr.ema_loss, ref["ema"], rel_tol=1e-5)
+    alive = tr.state.alive.numpy()
+    np.testing.assert_array_equal(alive, ref["alive"])
+    assert alive.sum() > 50 and tr.num_alive() == alive.sum()
+    assert_params_close(_params(tr), ref["params"], steps=ITERS)
+
+
+def test_packed_state_shards_by_columns(setup):
+    """A PackedState's blocks split on their columns, its [C] tensors on
+    their only axis; padding grows it packed."""
+    from gs_tpu_torch.models.packed_state import pack_state
+    ps = pack_state(setup[0])
+    padded = pad_state(ps, 3)
+    assert padded.capacity == 258 and padded.packed.shape == (40, 258)
+    assert int(padded.num_alive) == 100
+    assert torch.equal(padded.packed[:, :256], ps.packed)
+    assert torch.equal(padded.params.quat[256:, 0], torch.ones(2))
+    group = LocalGroup(2, "cpu")
+    assert shard_state(ps, group) is ps and gather_state(ps, group) is ps
+
+    class Rank1:
+        """Rank 1 of two processes; its all-gather returns its own shard
+        twice."""
+        size, local = 2, [1]
+
+        @staticmethod
+        def gather_values(xs):
+            return torch.stack([xs[0], xs[0]])
+
+    shard = shard_state(ps, Rank1)
+    assert torch.equal(shard.packed, ps.packed[:, 128:])
+    assert torch.equal(shard.m, ps.m[:, 128:])
+    assert torch.equal(shard.alive, ps.alive[128:])
+    assert torch.equal(shard.exposure, ps.exposure)
+    back = gather_state(shard, Rank1)
+    assert back.packed.shape == ps.packed.shape
+    assert torch.equal(back.packed, torch.cat([shard.packed] * 2, 1))
+    assert torch.equal(back.alive, torch.cat([shard.alive] * 2))
+    assert back.alive.dtype == torch.bool

@@ -87,7 +87,7 @@ def _views(images, camera, info_cls, loaded_cls):
         for i, img in enumerate(images)]
 
 
-def port_trainer(dup_capacity=4096, **opt):
+def port_trainer(dup_capacity=4096, packed=None, **opt):
     images, pts, cols = make_data()
     fovx = math.radians(60.0)
     cam = make_camera(np.eye(3), np.zeros(3), fovx,
@@ -100,7 +100,7 @@ def port_trainer(dup_capacity=4096, **opt):
                  pipe=PipelineConfig(),
                  raster=RasterConfig(dup_capacity=dup_capacity,
                                      max_per_tile=512, chunk=32),
-                 initial_capacity=256, seed=7)
+                 initial_capacity=256, seed=7, packed=packed)
     tr.sync_every = 4
     return tr
 
@@ -176,7 +176,7 @@ def test_trainer_matches_jax(jax_run):
     assert not (np.abs(g - THRESHOLD) < 0.1 * THRESHOLD).any()
     assert (g >= THRESHOLD).sum() > 10
 
-    tr = port_trainer()
+    tr = port_trainer(packed=False)
     noise = list(jax_run["noise"])
     tr._densify_noise = lambda c: torch.tensor(noise.pop(0))
     log = {"cams": [], "losses": []}
