@@ -9,7 +9,8 @@ Phases (each failure exits non-zero):
  1. print the card's name and power limit; build every kernel from
     gs_tpu_torch/csrc (one nvcc per source, all at once) and the native
     COLMAP parser (g++); static SASS counts of K1, K1g, K3 and K4
-    (shuffles, shared loads and stores);
+    (shuffles, shared loads and stores; K4's short-run and long-run
+    kernels each);
  2. K2 (expansion) against its plain version, bitwise: the three
     expansion test cases and the bench scene's [16, N] table into
     3,072,000 entries; kernel, plain and torch.repeat_interleave times;
@@ -45,8 +46,15 @@ Phases (each failure exits non-zero):
     depth-ordered runs against segment_sum_runend (in float64) within
     1e-6 of the largest sum, and bitwise from run to run; a render under
     capacity overflow folds to zero; kernel, plain and torch index_add_
-    times, the bytes bound, K3 and K4 back to back, and K4's registers,
-    shared memory and spills;
+    times, the bytes bound, K3 and K4 back to back, and the registers,
+    shared memory and spills of K4's two kernels; [K4 long]: K4 against
+    its plain version in float64 (within 1e-6 of the largest sum, bitwise
+    from run to run) on runs either side of its short-run limit and piece
+    length, one run of every row, many long runs, long runs that overlap
+    and long runs among 500,000 short ones; kernel, device (torch.profiler),
+    plain and index_add_ times and the bound on the last two; one call
+    on RAIN-like runs under torch.cuda.set_sync_debug_mode("error"), and
+    the same call captured in a CUDA graph and replayed;
  8. [train] 8 steps of the bench training configuration (bench.py's train
     probe: OptimizationConfig(iterations=30000), L1 + SSIM, Adam, a zero
     ground truth) through gs_tpu_torch.train.step.make_train_step after 2
@@ -162,8 +170,9 @@ Phases (each failure exits non-zero):
     (the reference's RAIN-GS init: a few Gaussians each covering up to the
     whole frame), 300 iterations; checks the loss falls and the alive count
     rises at each densify; [live kernels] on iteration 2's inputs, and K4's
-    (with torch index_add_ on the same rows) and K2's times there beside
-    the bench frame's;
+    (with torch index_add_ on the same rows, whose device time by
+    torch.profiler K4's must not exceed) and K2's times there beside the
+    bench frame's;
 18. [convert_stream]: the [live] frames as a .gstream and as a
     visual_merged .bag, both converted by gs_tpu_torch.apps.convert_stream
     to the same cameras.txt and images.txt, the first trained 30 iterations
@@ -281,7 +290,8 @@ def grads_match(got, ref, rel=2e-4):
 def sass_counts(path: str) -> dict:
     """Static SASS instruction counts of the tile rasterizers and the fold
     in the kernel library at ``path`` (``cuobjdump -sass``): per kernel
-    (K1, K1g, K3, K4's 10-row variant) the instructions in all, warp
+    (K1, K1g, K3, the 10-row variants of K4's short-run kernel "K4" and
+    long-run kernel "K4 long") the instructions in all, warp
     shuffles (SHFL), shared loads (LDS, of them 128-bit), shared stores
     (STS) and special-function ops (MUFU, expf and the reciprocal's seed).
     {} when the toolkit has no cuobjdump."""
@@ -298,7 +308,8 @@ def sass_counts(path: str) -> dict:
             name = ("K1" if "raster_fwd_kernelILb0" in fn else
                     "K1g" if "raster_fwd_kernelILb1" in fn else
                     "K3" if "raster_bwd_kernel" in fn else
-                    "K4" if "fold_rows_kernelILi10E" in fn else None)
+                    "K4" if "fold_short_kernelILi10E" in fn else
+                    "K4 long" if "fold_long_kernelILi10E" in fn else None)
             if name:
                 counts[name] = dict.fromkeys(
                     ("instructions", "SHFL", "LDS", "LDS.128", "STS", "MUFU"), 0)
@@ -326,6 +337,43 @@ def attributes_line(attrs, names):
         f"thread, {attrs[k]['ctas_per_sm']} CTAs of {attrs[k]['threads']} "
         f"threads per SM"
         for k in names)
+
+
+def device_ms(torch, fn, iters: int, parts: dict | None = None) -> float:
+    """Device time of one call, by torch.profiler over ``iters`` calls: the
+    sum of the kernels and memsets it launched (each one's into ``parts``
+    if given). Free of the host's launch rate, which sets CUDA-event times
+    of calls shorter than their launch overhead."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = {e.key: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+    if parts is not None:
+        parts.update(rows)
+    return sum(rows.values())
+
+
+def bench_scene(torch, dev):
+    """The bench scene: N_GAUSS seeded points in the camera's view, as
+    create_from_pcd makes them, at 0.3 of its scales. Returns (points,
+    colours, params, alive)."""
+    from gs_tpu_torch.models.gaussian_model import create_from_pcd
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([rng.uniform(-3.5, 3.5, (N_GAUSS, 1)),
+                          rng.uniform(-2.0, 2.0, (N_GAUSS, 1)),
+                          rng.uniform(2.5, 9.0, (N_GAUSS, 1))], axis=1)
+    cols = rng.uniform(0, 1, (N_GAUSS, 3))
+    cap = max(1024, -(-int(N_GAUSS * 1.02) // 1024) * 1024)
+    params, alive = create_from_pcd(pts, cols, sh_degree=3, capacity=cap,
+                                    device=dev)
+    return (pts, cols, params._replace(
+        log_scale=params.log_scale + math.log(0.3)), alive)
 
 
 def bound_of(work_bytes, work_ops):
@@ -484,6 +532,7 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
                            device=dev)
         gid_e[plan.dest.to(torch.int64)] = bins.entry_gid.to(torch.int64)
         k4_ms = time_ms(torch, lambda: fold_rows(*fold_args), 20)
+        k4_dev_ms = device_ms(torch, lambda: fold_rows(*fold_args), 20)
         k4_plain_ms = time_ms(torch, lambda: fold_rows_plain(*fold_args), 5)
         k4_lib_ms = time_ms(torch, lambda: torch.zeros(
             (n + 1, 10), device=dev).index_add_(0, gid_e, d_entries), 20)
@@ -496,12 +545,13 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
         k4_bound, k4_by, _, _ = bound_of(in_runs * 40 + n * (12 + 40),
                                          in_runs * 10)
         k4_index_bound = (in_runs * 44 + n * 48) / HBM_BYTES_PER_S * 1e3
-        print(f"[K4] bench frame: kernel {k4_ms:.4f} ms, plain "
+        print(f"[K4] bench frame: kernel {k4_ms:.4f} ms (device "
+              f"{k4_dev_ms:.4f} ms by torch.profiler), plain "
               f"{k4_plain_ms:.4f} ms, index_add_ {k4_lib_ms:.4f} ms, bound "
               f"{k4_bound:.4f} ms ({k4_by}; {k4_bound / k4_ms:.1%} of it; "
               f"the index layout's bytes {k4_index_bound:.4f} ms); K3 then "
               f"K4 {k34_ms:.4f} ms (K3 {k3_ms:.4f} + K4 {k4_ms:.4f}); "
-              + attributes_line(attrs, ["K4"]), flush=True)
+              + attributes_line(attrs, ["K4", "K4 long"]), flush=True)
         del (got, again, ref64, ref32, d_entries, fold_args, gid_e, bins,
              plan, args, bwd_args, out_g, last, dout)
 
@@ -686,9 +736,98 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
          "source": "gs_tpu_torch/csrc/fold.cu",
          "replaces": "gs_tpu/ops/fold_pallas.py:50",
          "launches": launches["K4"], "max_abs_err": k4_err,
-         "ms": k4_ms, "kernel_ms": k4_ms, "plain_ms": k4_plain_ms,
-         "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": k4_lib_ms},
+         "ms": k4_ms, "kernel_ms": k4_ms, "device_ms": k4_dev_ms,
+         "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
+         "library_ms": k4_lib_ms},
     ]
+
+
+def k4_long_phase(torch, dev):
+    """[K4 long]: K4 on tests/torch_fold_cases.py's LONG_RUN_CASES (the
+    card tests' shapes) against fold_rows_plain in float64 (within 1e-6 of
+    the largest sum) and bitwise from run to run; kernel, device, plain and
+    index_add_ times and the bytes bound on "many-long" and "mixed"; on
+    the RAIN-like runs, one call that must not synchronise the host and
+    the call captured in a CUDA graph, replayed to the same bits. Returns
+    K4's largest error and the "mixed" numbers for the kernels line."""
+    from gs_tpu_torch.ops.fold import (PIECE_ROWS, SHORT_RUN_ROWS, fold_rows,
+                                       fold_rows_plain)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fold_cases import (LONG_RUN_CASES, long_run_case,
+                                  rain_like_runs)
+    worst, numbers = 0.0, {}
+    for name in LONG_RUN_CASES:
+        args = tuple(torch.from_numpy(a).to(dev) for a in long_run_case(name))
+        data, offsets, counts, gid = args
+        got = fold_rows(*args)
+        torch.cuda.synchronize()
+        ref = fold_rows_plain(data.double(), offsets, counts, gid)
+        scale = float(ref.abs().max())
+        err = float((got.double() - ref).abs().max())
+        same = torch.equal(got, fold_rows(*args))
+        e = data.shape[0]
+        lo = offsets.to(torch.int64).clamp(0, e)
+        c = ((offsets.to(torch.int64) + counts).clamp(0, e) - lo).clamp_min(0)
+        n_long = int((c > SHORT_RUN_ROWS).sum())
+        pieces = int(((c[c > SHORT_RUN_ROWS] + PIECE_ROWS - 1)
+                      // PIECE_ROWS).sum())
+        line = (f"[K4 long] {name}: {c.shape[0]} runs, {n_long} longer than "
+                f"{SHORT_RUN_ROWS} rows in {pieces} pieces of up to "
+                f"{PIECE_ROWS}, the longest {int(c.max())}, {data.shape[0]} "
+                f"rows; max |kernel - plain (float64)| {err:.3e} = "
+                f"{err / scale:.3e} of the largest sum (rule 1e-6); repeat "
+                f"bitwise {same}")
+        check(err <= 1e-6 * scale, f"[K4 long] {name}: K4 != plain ({err})")
+        check(same, f"[K4 long] {name}: K4 not deterministic")
+        worst = max(worst, err)
+        if name in ("many-long", "mixed"):
+            n, rows = c.shape[0], int(c.sum())
+            k4_ms = time_ms(torch, lambda: fold_rows(*args), 20)
+            k4_dev = device_ms(torch, lambda: fold_rows(*args), 20)
+            plain_ms = time_ms(torch, lambda: fold_rows_plain(*args), 5)
+            # index_add_ needs each row's Gaussian: the runs lie back to
+            # back from row 0
+            gid_rows = torch.repeat_interleave(gid.to(torch.int64), c)
+            run_rows = data[:rows]
+            lib_ms = time_ms(torch, lambda: torch.zeros(
+                (n, 10), device=dev).index_add_(0, gid_rows, run_rows), 20)
+            bound, by, _, _ = bound_of(rows * 40 + n * (12 + 40), rows * 10)
+            line += (f"; kernel {k4_ms:.4f} ms (device {k4_dev:.4f} ms by "
+                     f"torch.profiler), plain {plain_ms:.4f} ms, index_add_ "
+                     f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
+                     f"{bound / k4_dev:.1%} of the device time)")
+            numbers = {"long_ms": k4_ms, "long_device_ms": k4_dev,
+                       "long_plain_ms": plain_ms, "long_bound_ms": bound,
+                       "long_library_ms": lib_ms}
+        print(line, flush=True)
+    # no host synchronisation: the step is meant for CUDA-graph capture,
+    # which also refuses a synchronising or uncapturable call of the C entry
+    args = tuple(torch.from_numpy(a).to(dev) for a in rain_like_runs())
+    got = fold_rows(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fold_rows(*args)
+    except RuntimeError as exc:
+        fail(f"[K4 long] fold_rows synchronised the host: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            captured = fold_rows(*args)
+    except RuntimeError as exc:
+        fail(f"[K4 long] fold_rows cannot be captured in a CUDA graph: {exc}")
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(captured, got),
+          "[K4 long] fold_rows replayed from a CUDA graph != its launch")
+    print("[K4 long] RAIN-like runs: fold_rows under set_sync_debug_mode("
+          "'error'): no synchronisation; captured in a CUDA graph and "
+          "replayed: bitwise the launch", flush=True)
+    del graph, captured
+    return worst, numbers
 
 
 TRAINER_ITERS = 300
@@ -792,10 +931,17 @@ def steady_window(rec, counters, steady=STEADY):
             {k: (st["c1"][k] - st["c0"][k]) / n for k in counters})
 
 
+# the port's hand-written kernels by a fragment of their names
+PORT_KERNELS = {"K2": "expand_rows_kernel", "K1/K1g": "raster_fwd_kernel",
+                "K3": "raster_bwd_kernel", "K4 short": "fold_short_kernel",
+                "K4 long": "fold_long_kernel"}
+
+
 def profile_iterations(torch, trainer, iteration_ms, tag, table=True):
     """The device's busy time in one trainer iteration, the median of
     PROFILED_STEPS iterations profiled one by one, and its idle share of
-    ``iteration_ms``; with ``table``, the last one's kernels by time."""
+    ``iteration_ms``; the last one's device time in each hand-written
+    kernel (K4 in its two); with ``table``, its kernels by time."""
     from torch.profiler import ProfilerActivity, profile
     busy = []
     for _ in range(PROFILED_STEPS):
@@ -817,6 +963,14 @@ def profile_iterations(torch, trainer, iteration_ms, tag, table=True):
           f"is idle {1 - busy_ms / iteration_ms:.1%}"
           + ("; the table is the last iteration's" if table else ""),
           flush=True)
+    ours = {name: 0.0 for name in PORT_KERNELS}
+    for e in events:
+        for name, fragment in PORT_KERNELS.items():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and fragment in e.key):
+                ours[name] += e.self_device_time_total / 1e3
+    print(f"[{tag}] the last iteration's device ms in the port's kernels: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ours.items()), flush=True)
     if table:
         print(events.table(sort_by="cuda_time_total", row_limit=15,
                            max_name_column_width=60), flush=True)
@@ -1827,10 +1981,12 @@ def live_rain_phase(torch, dev, tmpdir, frames, dup, bench, counters):
     a reset at 100 turns on the world-size prune at 150, which removes
     every Gaussian of this init, each far above a tenth of the extent); the
     kernels of iteration RAIN_CAPTURE held to their plain versions and K4
-    and K2 timed on them beside the bench frame's. Returns the kernels'
-    errors."""
+    and K2 timed on them beside the bench frame's; K4's device time must
+    not exceed index_add_'s on the same rows. Returns the kernels' errors
+    and K4's numbers there for the kernels line."""
     from gs_tpu_torch.ops.expand import expand_rows, expand_rows_plain
-    from gs_tpu_torch.ops.fold import fold_rows, fold_rows_plain
+    from gs_tpu_torch.ops.fold import (PIECE_ROWS, SHORT_RUN_ROWS, fold_rows,
+                                       fold_rows_plain)
     bare = [f._replace(points=None) for f in frames]
     extra = ["--init_points", str(RAIN_POINTS), "--test_iterations",
              str(TRAINER_ITERS), "--dup_capacity", str(dup)]
@@ -1875,6 +2031,7 @@ def live_rain_phase(torch, dev, tmpdir, frames, dup, bench, counters):
     rows = int(counts.to(torch.int64).sum())
     owned = int(comb[1].to(torch.int64).sum())
     k4_ms = time_ms(torch, lambda: fold_rows(*fold_args), 20)
+    k4_dev_ms = device_ms(torch, lambda: fold_rows(*fold_args), 20)
     k4_plain_ms = time_ms(torch, lambda: fold_rows_plain(*fold_args), 5)
     # index_add_ needs each row's Gaussian: the runs lie in order, run i at
     # rows [offsets[i], offsets[i] + counts[i]); it reads the runs' rows
@@ -1882,13 +2039,20 @@ def live_rain_phase(torch, dev, tmpdir, frames, dup, bench, counters):
     gid_rows = torch.repeat_interleave(fold_args[3].to(torch.int64),
                                        counts.to(torch.int64))
     run_rows = data[:rows]
-    k4_lib_ms = time_ms(torch, lambda: torch.zeros(
-        (n, 10), device=dev).index_add_(0, gid_rows, run_rows), 20)
+
+    def index_add():
+        return torch.zeros((n, 10), device=dev).index_add_(0, gid_rows,
+                                                           run_rows)
+    k4_lib_ms = time_ms(torch, index_add, 20)
+    lib_dev_ms = device_ms(torch, index_add, 20)
     check(torch.allclose(
         torch.zeros((n, 10), device=dev).index_add_(0, gid_rows, run_rows),
         fold_rows(*fold_args), rtol=1e-4,
         atol=1e-6 * float(data.abs().max()) * int(counts.max())),
         "[live rain] index_add_ computes another function than K4")
+    c = counts.to(torch.int64)
+    long_runs = c[c > SHORT_RUN_ROWS]
+    pieces = int(((long_runs + PIECE_ROWS - 1) // PIECE_ROWS).sum())
     k4_bound, k4_by, _, _ = bound_of(min(rows, data.shape[0]) * 40
                                      + n * (12 + 40), rows * 10)
     k2_ms = time_ms(torch, lambda: expand_rows(comb, offsets, capacity), 20)
@@ -1900,16 +2064,26 @@ def live_rain_phase(torch, dev, tmpdir, frames, dup, bench, counters):
         capacity * math.ceil(math.log2(n_tab + 1)))
     print(f"[live rain] iteration {RAIN_CAPTURE}'s inputs: K4 folds {rows} "
           f"rows into {n} slots, {int((counts > 0).sum())} runs, the longest "
-          f"{int(counts.max())} rows, {math.ceil(n / 128)} CTAs of 128 runs: "
-          f"kernel {k4_ms:.4f} ms (bench frame {bench['K4']:.4f}), plain "
-          f"{k4_plain_ms:.4f} ms, index_add_ {k4_lib_ms:.4f} ms, bound "
-          f"{k4_bound:.4f} ms ({k4_by}); K2 "
+          f"{int(counts.max())} rows, {long_runs.shape[0]} longer than "
+          f"{SHORT_RUN_ROWS} in {pieces} pieces of up to {PIECE_ROWS}: "
+          f"kernel {k4_ms:.4f} ms (device {k4_dev_ms:.4f} ms by "
+          f"torch.profiler; bench frame {bench['K4']:.4f}), plain "
+          f"{k4_plain_ms:.4f} ms, index_add_ {k4_lib_ms:.4f} ms (device "
+          f"{lib_dev_ms:.4f} ms), bound {k4_bound:.4f} ms ({k4_by}, "
+          f"{k4_bound / k4_dev_ms:.1%} of the device time); K2 "
           f"[16, {n_tab}] -> {capacity} entries ({owned} owned): kernel "
           f"{k2_ms:.4f} ms (bench frame {bench['K2']:.4f}), plain "
           f"{k2_plain_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_by})",
           flush=True)
+    # on the device: K4's CUDA-event time here is its wrapper's launch rate
+    check(k4_dev_ms <= lib_dev_ms,
+          f"[live rain] K4 (device {k4_dev_ms:.4f} ms) slower than "
+          f"index_add_ (device {lib_dev_ms:.4f} ms)")
     del trainer, calls, rec
-    return errs
+    return errs, {"live_rain_ms": k4_ms, "live_rain_device_ms": k4_dev_ms,
+                  "live_rain_plain_ms": k4_plain_ms,
+                  "live_rain_bound_ms": k4_bound,
+                  "live_rain_library_ms": k4_lib_ms}
 
 
 def visual_merged_record(i, frame):
@@ -3085,7 +3259,6 @@ def main() -> int:
     from gs_tpu_torch.core.project import preprocess
     from gs_tpu_torch.core.sh import rgb2sh
     from gs_tpu_torch.data.ply import load_gaussian_ply, save_gaussian_ply
-    from gs_tpu_torch.models.gaussian_model import create_from_pcd
     from gs_tpu_torch.ops import _cuda
     from gs_tpu_torch.ops.binning import (bin_gaussians_payload,
                                           expansion_table, tile_grid)
@@ -3137,16 +3310,8 @@ def main() -> int:
                 f"{k} {v}" for k, v in c.items()), flush=True)
 
     # the bench scene, rebuilt with the port, written and loaded back
-    rng = np.random.default_rng(0)
-    pts = np.concatenate([rng.uniform(-3.5, 3.5, (N_GAUSS, 1)),
-                          rng.uniform(-2.0, 2.0, (N_GAUSS, 1)),
-                          rng.uniform(2.5, 9.0, (N_GAUSS, 1))], axis=1)
-    cols = rng.uniform(0, 1, (N_GAUSS, 3))
-    cap = max(1024, -(-int(N_GAUSS * 1.02) // 1024) * 1024)
     t0 = time.perf_counter()
-    p0, alive0 = create_from_pcd(pts, cols, sh_degree=3, capacity=cap,
-                                 device=dev)
-    p0 = p0._replace(log_scale=p0.log_scale + math.log(0.3))
+    pts, cols, p0, alive0 = bench_scene(torch, dev)
     torch.cuda.synchronize()
     print(f"[scene] create_from_pcd of {N_GAUSS} points: "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -3412,6 +3577,9 @@ def main() -> int:
 
     bare_step_ms, mid, kernels_train = train_phases(
         torch, dev, small, scam, p0, alive0, bench_camera)
+    t_long = time.perf_counter()
+    long_err, long_k4 = k4_long_phase(torch, dev)
+    print(f"[K4 long] in {time.perf_counter() - t_long:.1f} s", flush=True)
     t_packed = time.perf_counter()
     packed_launches, packed_errs = packed_step_phase(
         torch, dev, p0, alive0, bench_camera, counters)
@@ -3449,8 +3617,8 @@ def main() -> int:
         torch, dev, trainer_tmp.name, frames, live_cams, dup, steady_ms,
         counters)
     bench = {"K2": k2_ms, "K4": kernels_train[2]["ms"]}
-    rain_errs = live_rain_phase(torch, dev, trainer_tmp.name, frames, dup,
-                                   bench, counters)
+    rain_errs, rain_k4 = live_rain_phase(torch, dev, trainer_tmp.name, frames,
+                                         dup, bench, counters)
     convert_stream_phase(torch, dev, trainer_tmp.name, frames, dup)
     print(f"[live] the new phases in {time.perf_counter() - t_new:.1f} s",
           flush=True)
@@ -3475,6 +3643,10 @@ def main() -> int:
          "bound_by": "bytes" if k1_bound_b >= k1_bound_o else "operations",
          "library_ms": None},
     ] + kernels_train
+    k4 = kernels_train[2]
+    k4.update(long_k4)
+    k4.update(rain_k4)
+    k4["max_abs_err"] = max(k4["max_abs_err"], long_err)
     for k in kernels:
         k["trainer_launches"] = trainer_launches[k["id"]]
         k["viewer_launches"] = viewer_launches[k["id"]]

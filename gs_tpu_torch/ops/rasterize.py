@@ -342,7 +342,8 @@ def block_skip_counts(feats: torch.Tensor, tile_start: torch.Tensor,
 
 
 def kernel_attributes(device=None) -> dict:
-    """What the compiler made of K1, K1g, K3 and K4 (its 10-row variant)
+    """What the compiler made of K1, K1g, K3 and K4's two kernels (their
+    10-row variants; "K4" the short-run kernel, "K4 long" the long-run one)
     on the card: per kernel {registers, shared_bytes (static, per CTA),
     local_bytes (spills, per thread), ctas_per_sm, threads (per CTA)}.
     Builds the kernels if needed."""
@@ -355,7 +356,8 @@ def kernel_attributes(device=None) -> dict:
             ("K1", SOURCE, "gs_raster_tiles_fwd_attributes", [0]),
             ("K1g", SOURCE, "gs_raster_tiles_fwd_attributes", [1]),
             ("K3", SOURCE_BWD, "gs_raster_tiles_bwd_attributes", []),
-            ("K4", FOLD_SOURCE, "gs_fold_rows_attributes", [])):
+            ("K4", FOLD_SOURCE, "gs_fold_rows_attributes", [0]),
+            ("K4 long", FOLD_SOURCE, "gs_fold_rows_attributes", [1])):
         attrs = (ctypes.c_int * 5)()
         fn = _cuda.function(source, entry, [ctypes.c_int] * (len(lead) + 1)
                             + [ctypes.c_void_p])

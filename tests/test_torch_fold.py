@@ -2,14 +2,21 @@
 (``ops/segment.py``), against the JAX package's ``fold_rows`` (Pallas,
 interpret mode) and ``segment_sum_runend``, in the cases of
 tests/test_fold.py:20-50: empty runs, one huge run, a sentinel tail and
-entries arriving tile-ordered. The port's fold takes the entries
+entries arriving tile-ordered; and in the shape of the RAIN-GS init's
+second iteration (23 visible Gaussians among 1,024 slots, one covering the
+1080p screen's 8,160 tiles). The port's fold takes the entries
 entry-major, each Gaussian's as one run, the runs in any (here a seeded
 depth) order, each sum scattered to its Gaussian's row; the sums differ
 only in summation order, so they are held to 1e-4 absolute on unit-normal
 rows, as there. The render's backward zeroes the fold under capacity
 overflow. On a card (marker ``cuda``): the kernel against its plain
 version in float64, with a run of 8,160 entries (a splat covering the
-1080p screen) among them, and bitwise from run to run."""
+1080p screen) among them, runs either side of the short kernel's limit
+and of the long kernel's piece length, one run of every row, many long
+runs, long runs that overlap and long runs among 500,000 short ones
+(``torch_fold_cases.py``, which chip_smoke.py folds too), each bitwise
+from run to run, and one call that makes no host synchronisation and
+replays from a CUDA graph."""
 import numpy as np
 import pytest
 import torch
@@ -19,24 +26,36 @@ import jax.numpy as jnp
 from gs_tpu.ops.fold_pallas import ROWS, fold_rows as jax_fold_rows
 from gs_tpu.ops.segment import segment_sum_runend as jax_segment_sum_runend
 
-from gs_tpu_torch.ops.fold import fold_rows, fold_rows_plain
+from gs_tpu_torch.ops.fold import fold_rows, fold_rows_plain, piece_slots
 from gs_tpu_torch.ops.segment import segment_sum_runend
 from gs_tpu_torch.render import render
 
 from test_torch_render import small_scene
+from torch_fold_cases import LONG_RUN_CASES, long_run_case
 
-CASES = [(300, 2048, 0), (7, 128, 1), (1000, 8192, 2)]
+CASES = [pytest.param(n, dcap, seed, None, id=f"{n}-{dcap}-{seed}")
+         for n, dcap, seed in [(300, 2048, 0), (7, 128, 1), (1000, 8192, 2)]]
+# [live rain] at iteration 2: 23 visible Gaussians among 1,024 slots, the
+# longest a splat covering the 1080p screen (8,160 tiles)
+CASES.append(pytest.param(1024, 65536, 5, 23, id="live-rain"))
 # a run of 8,160 entries (a 1080p-screen splat) and ~22 % empty runs
 LONG_CASES = [(3000, 32768, 3, 8160), (2000, 32768, 4, 8160)]
 
 
-def fold_case(n, dcap, seed, giant=600):
+def fold_case(n, dcap, seed, giant=600, live=None):
     """Per-gaussian counts, and the entries' gids and rows in a random
-    (tile) order, with a sentinel tail."""
+    (tile) order, with a sentinel tail. With ``live``, only that many
+    Gaussians have entries: one run of 8,160, the others 1-2,399 long."""
     rng = np.random.default_rng(seed)
-    counts = rng.poisson(3.0, n).astype(np.int32)
-    counts[rng.integers(0, n, n // 5)] = 0          # empty runs
-    counts[min(5, n - 1)] = min(giant, dcap // 3)   # one huge run
+    if live is None:
+        counts = rng.poisson(3.0, n).astype(np.int32)
+        counts[rng.integers(0, n, n // 5)] = 0          # empty runs
+        counts[min(5, n - 1)] = min(giant, dcap // 3)   # one huge run
+    else:
+        counts = np.zeros(n, np.int32)
+        visible = rng.choice(n, live, replace=False)
+        counts[visible] = rng.integers(1, 2400, live)
+        counts[visible[0]] = 8160
     total = int(counts.sum())
     assert total <= dcap
     gid = np.concatenate([np.repeat(np.arange(n, dtype=np.int32), counts),
@@ -67,9 +86,9 @@ def to_torch(arrays, device="cpu"):
     return tuple(torch.tensor(a, device=device) for a in arrays)
 
 
-@pytest.mark.parametrize("n,dcap,seed", CASES)
-def test_fold_matches_jax(n, dcap, seed):
-    counts, gid_s, cols_s = fold_case(n, dcap, seed)
+@pytest.mark.parametrize("n,dcap,seed,live", CASES)
+def test_fold_matches_jax(n, dcap, seed, live):
+    counts, gid_s, cols_s = fold_case(n, dcap, seed, live=live)
     ref = np.asarray(jax_segment_sum_runend(
         tuple(jnp.asarray(c) for c in cols_s), jnp.asarray(gid_s),
         jnp.asarray(counts), n))                    # [n, 10]
@@ -169,9 +188,9 @@ def assert_kernel_matches_float64(args):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,dcap,seed", CASES)
-def test_cuda_fold_matches_plain(cuda_device, n, dcap, seed):
-    counts, gid_s, cols_s = fold_case(n, dcap, seed)
+@pytest.mark.parametrize("n,dcap,seed,live", CASES)
+def test_cuda_fold_matches_plain(cuda_device, n, dcap, seed, live):
+    counts, gid_s, cols_s = fold_case(n, dcap, seed, live=live)
     order = np.random.default_rng(seed + 100).permutation(n)
     assert_kernel_matches_float64(
         to_torch(run_layout(counts, gid_s, cols_s, order), cuda_device))
@@ -199,6 +218,62 @@ def test_cuda_fold_runs_in_any_order(cuda_device):
     args = (rng.standard_normal((e, 10)).astype(np.float32), offsets, counts,
             rng.permutation(n).astype(np.int32))
     assert_kernel_matches_float64(to_torch(args, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(LONG_RUN_CASES))
+def test_cuda_fold_long_run_shapes(cuda_device, name):
+    assert_kernel_matches_float64(to_torch(long_run_case(name), cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_fold_does_not_synchronise(cuda_device):
+    """One call on [live rain]'s shape: no host synchronisation that torch
+    sees, one launch counted; and the call captured in a CUDA graph and
+    replayed (the step is meant for capture, which refuses any
+    synchronising or uncapturable call of the C entry too)."""
+    counts, gid_s, cols_s = fold_case(1024, 65536, 5, live=23)
+    order = np.random.default_rng(5).permutation(1024)
+    args = to_torch(run_layout(counts, gid_s, cols_s, order), cuda_device)
+    ref = fold_rows_plain(*args)
+    torch.cuda.synchronize()
+    before = fold_rows.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fold_rows(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fold_rows.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-6 * float(got.abs().max()))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fold_rows(*args)
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, got)
+
+
+@pytest.mark.parametrize("short_run_rows,piece_rows", [(256, 256), (1, 1),
+                                                       (100, 7), (7, 100)])
+def test_piece_slots_hold_every_piece_of_runs_that_do_not_overlap(
+        short_run_rows, piece_rows):
+    """The long kernel's scratch, sized from E alone, holds every piece of
+    any runs that do not overlap: the worst case is all runs one row past
+    the short kernel's limit, or a run of every row."""
+    rng = np.random.default_rng(piece_rows)
+    for e in (0, 1, 255, 256, 257, 1000, 8160, 100_003):
+        assert piece_slots(e, short_run_rows, piece_rows) >= -(-e // piece_rows)
+        k = e // (short_run_rows + 1)
+        worst = k * -(-(short_run_rows + 1) // piece_rows)
+        assert piece_slots(e, short_run_rows, piece_rows) >= worst
+        for _ in range(20):
+            cuts = np.sort(rng.integers(0, e + 1, rng.integers(0, 60)))
+            lengths = np.diff(np.concatenate([[0], cuts, [e]]))
+            long = lengths[lengths > short_run_rows]
+            pieces = int((-(-long // piece_rows)).sum())
+            assert pieces <= piece_slots(e, short_run_rows, piece_rows)
 
 
 def test_run_sums_do_not_carry_the_prefix_rounding():
