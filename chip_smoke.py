@@ -177,10 +177,28 @@ Phases (each failure exits non-zero):
     visual_merged .bag, both converted by gs_tpu_torch.apps.convert_stream
     to the same cameras.txt and images.txt, the first trained 30 iterations
     through gs_tpu_torch.apps.train.main;
-19. a JSON line of the kernels' numbers (with each kernel's launches on
-    every path, the mesh trainer's, the packed step's and the bf16 frames'
-    among them), then the card's name and power limit, then the result
-    line {"ok": true, "device": {...}}.
+19. the block dispatch (gs_tpu_torch/train/graph.py, CUDA graphs of the
+    step), after [bf16 step] and [packed trainer]: [graph step] the packed
+    bench step eager twice and through the chain graph from one state for
+    8 steps, the graph bitwise the eager run (or within the eager run's
+    own run-to-run spread, if it has one), host ms, device busy, launches,
+    the capture's ms and its graph pool's peak; [graph trainer] the
+    [trainer] dataset through the training CLI's default block mode on
+    CUDA, chain and scan, against --no_block_scan, 200 iterations from
+    524,288 slots through the first sync's overflow replay and a growth
+    to 4x at the densify at 100 (captured again): the losses at the syncs
+    and the final states bitwise, ms per iteration, busy, idle, every
+    capture, launches; [graph options] 30 iterations in block mode each
+    with -d depths (K1-rendered inverse depths), --train_test_exp,
+    --antialiasing, --optimizer_type sparse_adam, --random_background and
+    views of unequal size: finite losses, the training views' L1 falling,
+    one more step through the graph bitwise the eager step. Every earlier
+    phase that trains through the CLI passes --no_block_scan, so it runs
+    and measures step mode as before;
+20. a JSON line of the kernels' numbers (with each kernel's launches on
+    every path, the mesh trainer's, the packed step's, the bf16 frames'
+    and the graph phases' among them), then the card's name and power
+    limit, then the result line {"ok": true, "device": {...}}.
 
 It exits non-zero without a CUDA device, or when run outside the repository.
 """
@@ -343,17 +361,24 @@ def device_ms(torch, fn, iters: int, parts: dict | None = None) -> float:
     """Device time of one call, by torch.profiler over ``iters`` calls: the
     sum of the kernels and memsets it launched (each one's into ``parts``
     if given). Free of the host's launch rate, which sets CUDA-event times
-    of calls shorter than their launch overhead."""
+    of calls shorter than their launch overhead. A profile that recorded
+    no device activity at all (seen once for K4's 20 calls of a few us at
+    [live rain]) is taken again, up to three times in all; none fails."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = {e.key: e.self_device_time_total / 1e3 / iters
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = {e.key: e.self_device_time_total / 1e3 / iters
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        if sum(rows.values()) > 0:
+            break
+    check(sum(rows.values()) > 0,
+          "torch.profiler recorded no device activity in three profiles")
     if parts is not None:
         parts.update(rows)
     return sum(rows.values())
@@ -1093,7 +1118,7 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
             "--save_iterations", str(TRAINER_ITERS),
             "--checkpoint_iterations", str(TRAINER_ITERS),
             "--dup_capacity", str(TRAINER_DUP), "--disable_viewer",
-            "--data_device", dev.type]
+            "--data_device", dev.type, "--no_block_scan"]
     log = io.StringIO()
     for c in counters.values():
         c.launches = 0
@@ -1206,7 +1231,7 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
             "--test_iterations", str(TRAINER_ITERS + 5),
             "--save_iterations", str(TRAINER_ITERS + 5),
             "--dup_capacity", str(dup), "--disable_viewer", "--quiet",
-            "--data_device", dev.type])
+            "--data_device", dev.type, "--no_block_scan"])
     check(resumed.iteration == TRAINER_ITERS + 5 and os.path.isfile(
         os.path.join(model2, "point_cloud",
                      f"iteration_{TRAINER_ITERS + 5}", "point_cloud.ply")),
@@ -1602,7 +1627,8 @@ def viewer_phase(torch, dev, root, dup, steady_ms, counters):
             "--test_iterations", str(VIEWER_ITERS),
             "--save_iterations", str(VIEWER_ITERS),
             "--dup_capacity", str(dup), "--ip", "127.0.0.1",
-            "--port", str(port), "--data_device", dev.type]
+            "--port", str(port), "--data_device", dev.type,
+            "--no_block_scan"]
     T.step, T.render_view, S._render_view = step, render_view, serve
     th = threading.Thread(target=client_thread, daemon=True)
     for c in counters.values():
@@ -2166,7 +2192,7 @@ def convert_stream_phase(torch, dev, tmpdir, frames, dup):
             "-s", outs["gstream"], "-m", model, "-r", "1", "--iterations",
             "30", "--test_iterations", "30", "--save_iterations", "30",
             "--dup_capacity", str(dup), "--disable_viewer", "--quiet",
-            "--data_device", dev.type])
+            "--data_device", dev.type, "--no_block_scan"])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     check(trainer.iteration == 30 and math.isfinite(trainer.ema_loss)
@@ -2305,7 +2331,8 @@ def full_eval_phase(torch, dev, tmpdir, root, dup, counters):
     with contextlib.redirect_stdout(log):
         full_eval.main(["-tat", tat, "--output_path", out, "--iterations",
                         str(FULL_EVAL_ITERS), "--data_device", dev.type,
-                        "-r", "1", "--dup_capacity", str(dup)])
+                        "-r", "1", "--dup_capacity", str(dup),
+                        "--no_block_scan"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
@@ -2734,7 +2761,7 @@ def mesh_trainer_phase(torch, dev, root, dup, counters):
             "--densify_from_iter", "4", "--densification_interval", "5",
             "--test_iterations", "10", "--save_iterations", "10",
             "--dup_capacity", str(band_dup), "--disable_viewer", "--quiet",
-            "--data_device", dev.type]
+            "--data_device", dev.type, "--no_block_scan"]
     log = io.StringIO()
     t0 = time.perf_counter()
     if cards >= 2:
@@ -3239,6 +3266,480 @@ def packed_trainer_phase(torch, dev, root, counters):
     del runs, pk, tree, tr, scene
 
 
+# ------------------------------------------------------- the block dispatch
+
+GRAPH_ITERS = 200              # [graph trainer]: densifies at 100 and 150
+GRAPH_CAPACITY = 524_288       # 95 % of it alive: the densify at 100 grows it
+GRAPH_STEADY = (150, 199)      # no capture, densify, sync or eval in 151..199
+GRAPH_BUCKET = 50              # --densification_interval: the scan's bucket
+OPTION_ITERS = 30              # [graph options]: evaluations at 10 and 30
+
+
+def state_equal(torch, a, b) -> bool:
+    from gs_tpu_torch.train.graph import state_leaves
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(state_leaves(a), state_leaves(b)))
+
+
+def state_spread(torch, a, b) -> list:
+    """Per state tensor, the largest |a - b| (0 for equal integer tensors,
+    inf for unequal ones)."""
+    from gs_tpu_torch.train.graph import state_leaves
+    out = []
+    for x, y in zip(state_leaves(a), state_leaves(b)):
+        if x.is_floating_point():
+            out.append(float((x - y).abs().max()) if x.numel() else 0.0)
+        else:
+            out.append(0.0 if torch.equal(x, y) else math.inf)
+    return out
+
+
+def graph_step_phase(torch, dev, p0, alive0, bench_camera, counters):
+    """[graph step]: the packed bench step ([packed step]'s configuration)
+    from one state for TRAIN_STEPS steps, eager twice and through the chain
+    graph (``train/graph.py::make_train_step_chain``: one capture, one
+    replay a step). The two eager runs first, against each other; the graph
+    run bitwise the first eager run (states and metrics), or, if the eager
+    step is not bitwise against itself, within its own run-to-run spread.
+    Reports host ms per step (median), device busy (median of
+    PROFILED_STEPS profiled one by one), kernel launches per step, the
+    capture's ms and its graph pool's peak. Returns the wrappers' launches
+    over the replays."""
+    from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
+                                     PipelineConfig, RasterConfig)
+    from gs_tpu_torch.core.camera import stack_cameras
+    from gs_tpu_torch.models.gaussian_model import init_state
+    from gs_tpu_torch.models.packed_state import pack_state
+    from gs_tpu_torch.train.graph import TrainingData, make_train_step_chain
+    from gs_tpu_torch.train.step import make_train_step
+
+    opt = OptimizationConfig(iterations=30_000)
+    raster = RasterConfig(backend="auto", dup_capacity=DUP_CAPACITY,
+                          max_per_tile=MAX_PER_TILE, chunk=64, exact_cull=True)
+    step = make_train_step(opt, ModelConfig(), PipelineConfig(), raster,
+                           stack_cameras([bench_camera(0)]), 1.0, 3,
+                           packed=True)
+    s0 = pack_state(init_state(p0, alive0, num_images=1))
+    gt = torch.zeros((3, H, W), device=dev)
+    fields = ("loss", "l1", "ssim", "num_duplicates", "max_tile_len",
+              "overflow", "n_visible")
+
+    def eager_run():
+        st, ms, times = s0, [], []
+        for it in range(1, TRAIN_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step(st, 0, gt, iteration=it)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            ms.append([getattr(m, f).clone() for f in fields])
+        return st, ms, times
+
+    e1, e2 = eager_run(), eager_run()
+    eager_bitwise = state_equal(torch, e1[0], e2[0]) and all(
+        torch.equal(a, b) for x, y in zip(e1[1], e2[1]) for a, b in zip(x, y))
+    spread = state_spread(torch, e1[0], e2[0])
+    print(f"[graph step] the eager bench step against itself, "
+          f"{TRAIN_STEPS} steps from one state twice: "
+          + ("bitwise equal" if eager_bitwise else
+             f"not bitwise; largest |run 1 - run 2| per state tensor "
+             f"{spread}"), flush=True)
+
+    chain = make_train_step_chain(step, use_alpha=False, use_depth=False,
+                                  bucket=TRAIN_STEPS)
+    its = np.arange(1, TRAIN_STEPS + 1)
+    ints = torch.from_numpy(np.stack([np.zeros_like(its), its], 1))
+    floats = torch.zeros((TRAIN_STEPS, 6))
+    floats[:, :3] = torch.from_numpy(step.schedule(its))
+    chain.load(ints, floats, torch.ones(TRAIN_STEPS, dtype=torch.bool))
+    data = TrainingData(gt[None])
+    before = {k: c.launches for k, c in counters.items()}
+    chain.bind(s0, data)
+    check(chain.graph is not None and len(chain.captures) == 1,
+          "[graph step] no capture")
+    cap = chain.captures[0]
+    warm = {k: c.launches - before[k] for k, c in counters.items()}
+    gs, gms, gtimes = chain.state, [], []
+    before = {k: c.launches for k, c in counters.items()}
+    for j in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs, m = chain(gs, data, j)
+        torch.cuda.synchronize()
+        gtimes.append(1e3 * (time.perf_counter() - t0))
+        gms.append([getattr(m, f).clone() for f in fields])
+    launches = {k: c.launches - before[k] for k, c in counters.items()}
+    check(all(launches[k] == TRAIN_STEPS for k in ("K1g", "K2", "K3", "K4"))
+          and launches["K1"] == 0, f"[graph step] launches {launches}")
+    check(not any(bool(m[fields.index("overflow")]) for m in gms),
+          "[graph step] overflow")
+    graph_bitwise = state_equal(torch, gs, e1[0]) and all(
+        torch.equal(a, b) for x, y in zip(gms, e1[1]) for a, b in zip(x, y))
+    losses = [float(m[0]) for m in gms]
+    if eager_bitwise:
+        check(graph_bitwise, "[graph step] the graph step is not bitwise "
+              "the eager step, which is bitwise against itself: "
+              f"{state_spread(torch, gs, e1[0])}")
+        how = "bitwise the eager run (states and every metric)"
+    else:
+        got = state_spread(torch, gs, e1[0])
+        check(all(g <= s for g, s in zip(got, spread)),
+              f"[graph step] beyond the eager run-to-run spread: {got} "
+              f"against {spread}")
+        how = (f"within the eager run-to-run spread (largest |graph - "
+               f"eager| per tensor {got}, spread {spread})")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"[graph step] losses {losses}")
+    eager_busy, eager_n, _ = profiled_steps(torch, lambda: step(
+        e1[0], 0, gt, iteration=TRAIN_STEPS + 1))
+    graph_busy, graph_n, _ = profiled_steps(torch, lambda: chain(
+        gs, data, TRAIN_STEPS - 1))
+    e_ms, g_ms = float(np.median(e1[2])), float(np.median(gtimes))
+    print(f"[graph step] {TRAIN_STEPS} bench steps through the chain graph "
+          f"from the same state: {how}; losses "
+          + ", ".join(f"{x:.7f}" for x in losses)
+          + f"; launches over the replays {launches} (the warm-up's "
+          f"{warm}); capture {cap['ms']:.1f} ms, graph pool peak "
+          f"{cap['pool_peak_bytes']} bytes", flush=True)
+    busy_note = ("" if graph_busy > 0 else
+                 " (the profiler saw no kernel of the replay: graph busy "
+                 "not measured)")
+    print(f"[graph step] ms per step (host clock, synchronised, median of "
+          f"{TRAIN_STEPS}): eager {e_ms:.3f} (second run "
+          f"{float(np.median(e2[2])):.3f}), graph {g_ms:.3f}; device busy "
+          f"(median of {PROFILED_STEPS} profiled one by one): eager "
+          f"{eager_busy:.4f} ms in {eager_n} kernel launches, graph "
+          f"{graph_busy:.4f} ms in {graph_n}{busy_note}; idle eager "
+          f"{1 - eager_busy / e_ms:.1%}, graph {1 - graph_busy / g_ms:.1%}",
+          flush=True)
+    del e1, e2, chain, gs
+    return launches
+
+
+def run_train_cli(torch, args, counters, dispatch=None, steady=None):
+    """The training CLI on ``args``: with ``dispatch`` the Trainer's
+    block_dispatch is set to it (the CLI has no flag for it, as the JAX
+    CLI has none). Records the syncs and replays (probe_trainer), the host
+    ms of the block that starts at ``steady[0]`` (block mode) or of the
+    iterations steady[0]+1..steady[1] (step mode), and the launch counts.
+    Returns the Trainer, the record, that window's ms per iteration, the
+    launches and the CLI's output."""
+    from gs_tpu_torch.apps import train as train_app
+    from gs_tpu_torch.train import loop
+    T = loop.Trainer
+    init, run_block = T.__init__, T.run_block
+    window = {}
+
+    def set_dispatch(self, *a, **kw):
+        init(self, *a, **kw)
+        if dispatch is not None:
+            self.block_dispatch = dispatch
+
+    def timed_block(self, k):
+        if steady is None or self.iteration != steady[0] or self._replaying:
+            return run_block(self, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_block(self, k)
+        torch.cuda.synchronize()
+        window["ms"] = 1e3 * (time.perf_counter() - t0) / k
+        return out
+
+    T.__init__, T.run_block = set_dispatch, timed_block
+    for c in counters.values():
+        c.launches = 0
+    log = io.StringIO()
+    try:
+        with probe_trainer(torch, counters, steady=steady or STEADY) as rec, \
+                contextlib.redirect_stdout(log):
+            tr = train_app.main(args)
+        torch.cuda.synchronize()
+    finally:
+        T.__init__, T.run_block = init, run_block
+    launches = {k: c.launches for k, c in counters.items()}
+    if "ms" not in window and rec["steady"].get("t1") is not None:
+        window["ms"] = steady_window(rec, counters, steady)[0]
+    return tr, rec, window.get("ms"), launches, log.getvalue()
+
+
+def graph_trainer_phase(torch, dev, root, counters):
+    """[graph trainer]: the [trainer] dataset through the training CLI in
+    its default block mode on CUDA, chain and then scan, against
+    --no_block_scan (step mode): GRAPH_ITERS iterations from
+    GRAPH_CAPACITY slots, the first sync's overflow replay (TRAINER_DUP),
+    a densify and opacity reset at 100 whose growth to 4x the capacity
+    captures again, a densify at 150. The losses at every sync and the
+    final states of the three runs: bitwise, or, if not, within a second
+    step-mode run's spread. ms per iteration over GRAPH_STEADY (the block
+    151..200 in block mode), device busy per iteration over one more
+    bucket at the same capacity, idle share, every capture's ms and pool
+    peak, and each run's
+    launches (a chain run launches what the step-mode run does plus one
+    warm-up step per capture). Returns the chain run's launches."""
+    from gs_tpu_torch.train.graph import state_leaves
+    model = os.path.join(os.path.dirname(root), "graph_model")
+    args = ["-s", root, "-m", model, "-r", "1", "--eval",
+            "--iterations", str(GRAPH_ITERS),
+            "--densify_from_iter", "50",
+            "--densification_interval", str(GRAPH_BUCKET),
+            "--densify_until_iter", "160", "--opacity_reset_interval", "100",
+            "--test_iterations", str(GRAPH_ITERS),
+            "--save_iterations", str(GRAPH_ITERS),
+            "--initial_capacity", str(GRAPH_CAPACITY),
+            "--dup_capacity", str(TRAINER_DUP), "--disable_viewer",
+            "--data_device", dev.type]
+    runs = {}
+    for name, extra, dispatch in (("step", ["--no_block_scan"], None),
+                                  ("chain", [], None),
+                                  ("scan", [], "scan")):
+        t0 = time.perf_counter()
+        tr, rec, ms, launches, out = run_train_cli(
+            torch, args + extra, counters, dispatch,
+            steady=(GRAPH_STEADY if name == "step"
+                    else (GRAPH_STEADY[0], GRAPH_STEADY[1] + 1)))
+        wall = time.perf_counter() - t0
+        check(tr.iteration == GRAPH_ITERS, f"[graph trainer] {name}: "
+              f"stopped at {tr.iteration}")
+        check(rec["replay"] and tr.overflow_exhausted == 0,
+              f"[graph trainer] {name}: no overflow replay")
+        check(tr.state.capacity == 4 * GRAPH_CAPACITY,
+              f"[graph trainer] {name}: no growth ({tr.state.capacity})")
+        check(all(math.isfinite(x) for _, x, _ in rec["syncs"]),
+              f"[graph trainer] {name}: non-finite loss")
+        if name == "step":
+            check(not tr.captures, "[graph trainer] step mode captured")
+        else:
+            check(len(tr.captures) >= 2 and "captured the" in out,
+                  f"[graph trainer] {name}: captures {tr.captures}")
+        check(all(v > 0 for v in launches.values()),
+              f"[graph trainer] {name}: launches {launches}")
+        # one bucket more of the trained state, profiled, no schedule and no
+        # sync in it: the device's busy time per iteration (device records
+        # only: 50 steps of host records are ~10^6 events)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if name == "step":
+                for _ in range(GRAPH_BUCKET):
+                    tr._dispatch_step()
+            else:
+                tr.run_block(GRAPH_BUCKET)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3 / GRAPH_BUCKET
+        n_k = sum(e.count for e in kern) / GRAPH_BUCKET
+        runs[name] = dict(rec=rec, ms=ms, launches=launches,
+                          wall=wall, busy=busy, kernels=n_k,
+                          state=[t.clone() for t in state_leaves(tr.state)],
+                          captures=list(tr.captures))
+        first, last = GRAPH_STEADY[0] + 1, GRAPH_STEADY[1]
+        print(f"[graph trainer] {name}: {GRAPH_ITERS} iterations through "
+              f"gs_tpu_torch.apps.train.main in {wall:.2f} s; ms per "
+              f"iteration {ms:.3f} (host clock, synchronised, over "
+              + (f"{first}..{last}" if name == "step"
+                 else f"the block {first}..{last + 1}")
+              + f"); device busy {busy:.4f} ms per iteration over one "
+              f"profiled bucket of {GRAPH_BUCKET} ({n_k:.1f} kernels each)"
+              + (f", idle {1 - busy / ms:.1%}" if busy > 0 else
+                 ", the profiler saw no kernel (busy not measured)")
+              + f"; launches {launches}; replays "
+              + ", ".join(f"{r['window']} {r['ms']:.1f} ms"
+                          for r in rec["replay"])
+              + f"; captures " + ", ".join(
+                  f"capacity {c['capacity']} {c['ms']:.1f} ms pool peak "
+                  f"{c['pool_peak_bytes']}" for c in tr.captures), flush=True)
+        del tr
+    step = runs["step"]
+    for name in ("chain", "scan"):
+        r = runs[name]
+        syncs = [x for _, x, _ in r["rec"]["syncs"]]
+        ref = [x for _, x, _ in step["rec"]["syncs"]]
+        bitwise = syncs == ref and all(
+            torch.equal(a, b) for a, b in zip(r["state"], step["state"]))
+        if not bitwise:
+            # the eager run's own spread decides
+            tr2, rec2, _, _, _ = run_train_cli(torch, args + [
+                "--no_block_scan"], counters)
+            spread = [float((a - b).abs().max()) if a.is_floating_point()
+                      else (0.0 if torch.equal(a, b) else math.inf)
+                      for a, b in zip(state_leaves(tr2.state), step["state"])]
+            got = [float((a - b).abs().max()) if a.is_floating_point()
+                   else (0.0 if torch.equal(a, b) else math.inf)
+                   for a, b in zip(r["state"], step["state"])]
+            check(all(g <= s for g, s in zip(got, spread)),
+                  f"[graph trainer] {name} against step mode {got}, beyond "
+                  f"the step mode's run-to-run spread {spread}")
+            del tr2
+        print(f"[graph trainer] {name} against step mode: losses at the "
+              f"syncs " + ", ".join(f"{i}: {x:.7f}"
+                                     for i, x, _ in r["rec"]["syncs"])
+              + (" and the final state bitwise equal" if bitwise else
+                 " within the step mode's run-to-run spread"), flush=True)
+    # a chain run launches the step-mode run's kernels plus one warm-up
+    # step per capture; K1 only in the evaluations
+    n_cap = len(runs["chain"]["captures"])
+    for k in ("K2", "K1g", "K3", "K4"):
+        want = step["launches"][k] + n_cap
+        check(runs["chain"]["launches"][k] == want,
+              f"[graph trainer] chain {k} launches "
+              f"{runs['chain']['launches'][k]} != {want}")
+    launches = runs["chain"]["launches"]
+    del runs, step
+    return launches
+
+
+def option_datasets(torch, dev, root, p0, alive0):
+    """Two variants of the [trainer] dataset for [graph options]: ``depths``
+    beside its images (each view's inverse depth from a K1 render, as a
+    16-bit PNG, and depth_params.json with its scale), and a copy whose
+    last view is W - 16 pixels wide (its own PINHOLE camera), so the
+    Trainer gets views of unequal size."""
+    from PIL import Image
+    from gs_tpu_torch.core.camera import focal2fov, make_camera
+    from gs_tpu_torch.data import colmap
+    from gs_tpu_torch.render import render
+    sparse = os.path.join(root, "sparse", "0")
+    extr = colmap.read_extrinsics_binary(os.path.join(sparse, "images.bin"))
+    intr = colmap.read_intrinsics_binary(os.path.join(sparse, "cameras.bin"))
+    fx = intr[1].params[0]
+    fovx = 2 * math.atan(W / (2 * fx))
+    os.makedirs(os.path.join(root, "depths"), exist_ok=True)
+    params, narrow = {}, W - 16
+    uneven = os.path.join(os.path.dirname(root), "uneven")
+    os.makedirs(os.path.join(uneven, "sparse", "0"))
+    os.makedirs(os.path.join(uneven, "images"))
+    last = max(extr)
+    with torch.no_grad():
+        for k, e in sorted(extr.items()):
+            cam = make_camera(np.eye(3), e.tvec, fovx, focal2fov(fx, H), W, H,
+                              device=dev)
+            out = render(cam, p0, torch.zeros(3, device=dev),
+                         active_sh_degree=3, alive=alive0,
+                         dup_capacity=1 << 23, max_per_tile=4096,
+                         exact_cull=True)
+            inv = out.invdepth[0].cpu().numpy()
+            scale = float(inv.max())
+            base = os.path.splitext(e.name)[0]
+            Image.fromarray(np.round(inv / scale * 65535).astype(np.uint16)
+                            ).save(os.path.join(root, "depths", base + ".png"))
+            params[base] = {"scale": scale, "offset": 0.0}
+            src = os.path.join(root, "images", e.name)
+            dst = os.path.join(uneven, "images", e.name)
+            if k == last:
+                cam = make_camera(np.eye(3), e.tvec,
+                                  focal2fov(fx, narrow), focal2fov(fx, H),
+                                  narrow, H, device=dev)
+                img = render(cam, p0, torch.zeros(3, device=dev),
+                             active_sh_degree=3, alive=alive0,
+                             dup_capacity=1 << 23, max_per_tile=4096,
+                             exact_cull=True).image
+                arr = (np.clip(img.cpu().numpy(), 0, 1) * 255 + 0.5)
+                Image.fromarray(arr.astype(np.uint8).transpose(1, 2, 0)
+                                ).save(dst)
+            else:
+                os.symlink(src, dst)
+            del out
+    with open(os.path.join(sparse, "depth_params.json"), "w") as f:
+        json.dump(params, f)
+    intr2 = dict(intr)
+    intr2[2] = colmap.Intrinsics(2, "PINHOLE", narrow, H, np.array(
+        [fx, fx, narrow / 2, H / 2]))
+    extr2 = {k: (e._replace(camera_id=2) if k == last else e)
+             for k, e in extr.items()}
+    colmap.write_intrinsics_binary(intr2, os.path.join(uneven, "sparse", "0",
+                                                       "cameras.bin"))
+    colmap.write_extrinsics_binary(extr2, os.path.join(uneven, "sparse", "0",
+                                                       "images.bin"))
+    os.symlink(os.path.join(sparse, "points3D.bin"),
+               os.path.join(uneven, "sparse", "0", "points3D.bin"))
+    return uneven
+
+
+def graph_options_phase(torch, dev, root, p0, alive0, counters):
+    """[graph options] (the reference's optional training paths): the
+    [trainer] dataset through the training CLI's default block mode for
+    OPTION_ITERS iterations (1,048,576 slots, evaluations at 10 and 30)
+    with each of -d depths, --train_test_exp, --antialiasing,
+    --optimizer_type sparse_adam and --random_background, and on a copy
+    whose views are of unequal size. For each: every sync's loss finite,
+    the training views' L1 lower at 30 than at 10, and one more step of the
+    trained state through the captured graph bitwise the same step run
+    eagerly (functional, on a copy) with the same inputs."""
+    from gs_tpu_torch.train.graph import clone_state
+    uneven = option_datasets(torch, dev, root, p0, alive0)
+    base = ["-r", "1", "--eval", "--iterations", str(OPTION_ITERS),
+            "--test_iterations", "10", str(OPTION_ITERS),
+            "--save_iterations", str(OPTION_ITERS),
+            "--dup_capacity", str(TRAINER_DUP), "--disable_viewer",
+            "--quiet", "--data_device", dev.type]
+    cases = (("depth", root, ["-d", "depths"]),
+             ("train_test_exp", root, ["--train_test_exp"]),
+             ("antialiasing", root, ["--antialiasing"]),
+             ("sparse_adam", root, ["--optimizer_type", "sparse_adam"]),
+             ("random_background", root, ["--random_background"]),
+             ("unequal views", uneven, []))
+    results = {}
+    for name, src, extra in cases:
+        model = os.path.join(os.path.dirname(root), "opt_" + name[:5])
+        evals = []
+        from gs_tpu_torch.train import loop
+        evaluate = loop.Trainer.evaluate
+
+        def record(self, cams, max_views=None):
+            out = evaluate(self, cams, max_views)
+            if cams is not self.test_cams:
+                evals.append((self.iteration, out["l1"]))
+            return out
+
+        loop.Trainer.evaluate = record
+        t0 = time.perf_counter()
+        try:
+            tr, rec, _, launches, out = run_train_cli(
+                torch, ["-s", src, "-m", model] + base + extra, counters)
+        finally:
+            loop.Trainer.evaluate = evaluate
+        wall = time.perf_counter() - t0
+        losses = [x for _, x, _ in rec["syncs"]]
+        check(tr.iteration == OPTION_ITERS and losses
+              and all(math.isfinite(x) for x in losses),
+              f"[graph options] {name}: losses {losses}")
+        check(len(evals) == 2 and evals[1][1] < evals[0][1],
+              f"[graph options] {name}: the training views' L1 did not "
+              f"fall: {evals}")
+        check(tr._runner is not None and tr._runner.graph is not None,
+              f"[graph options] {name}: no graph")
+        if name == "depth":
+            check(tr.use_depth and bool((tr.depth_oks > 0).any()),
+                  "[graph options] depth: no depth prior loaded")
+        if name == "unequal views":
+            check("non-uniform camera resolutions" in out,
+                  "[graph options] unequal views were not resized")
+        # one more step: the replay against the eager step on a copy
+        runner = tr._runner
+        cams = [tr._next_camera()]
+        runner.load(*tr._bucket_inputs(cams, runner.bucket))
+        ref_state, ref = runner.step_body(clone_state(tr.state),
+                                          runner.ints[0], runner.floats[0],
+                                          inplace=False)
+        ref = [x.clone() for x in ref if isinstance(x, torch.Tensor)]
+        st, m = runner(tr.state, tr._data, 0)
+        got = [x for x in m if isinstance(x, torch.Tensor)]
+        same = state_equal(torch, st, ref_state) and all(
+            torch.equal(a, b) for a, b in zip(got, ref))
+        check(same, f"[graph options] {name}: the graph step is not the "
+              f"eager step: {state_spread(torch, st, ref_state)}")
+        results[name] = (losses, evals, wall, launches)
+        print(f"[graph options] {name}: {OPTION_ITERS} iterations in "
+              f"{wall:.2f} s; losses at the syncs "
+              + ", ".join(f"{x:.6f}" for x in losses)
+              + f"; training views' L1 " + ", ".join(
+                  f"{i}: {x:.5f}" for i, x in evals)
+              + f"; one more step through the graph bitwise the eager step "
+              f"(camera {cams[0]}); launches {launches}", flush=True)
+        del tr, runner, ref_state, st
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3584,6 +4085,11 @@ def main() -> int:
     packed_launches, packed_errs = packed_step_phase(
         torch, dev, p0, alive0, bench_camera, counters)
     bf16_step_phase(torch, dev, p0, alive0, bench_camera)
+    t_graph = time.perf_counter()
+    graph_step_launches = graph_step_phase(torch, dev, p0, alive0,
+                                           bench_camera, counters)
+    print(f"[graph step] in {time.perf_counter() - t_graph:.1f} s",
+          flush=True)
     for k, v in packed_mesh_phase(torch, dev, p0, alive0,
                                   bench_camera).items():
         packed_errs[k] = max(packed_errs[k], v)
@@ -3594,6 +4100,14 @@ def main() -> int:
     t_packed = time.perf_counter()
     packed_trainer_phase(torch, dev, root, counters)
     print(f"[packed trainer] in {time.perf_counter() - t_packed:.1f} s",
+          flush=True)
+    t_graph = time.perf_counter()
+    graph_trainer_launches = graph_trainer_phase(torch, dev, root, counters)
+    print(f"[graph trainer] in {time.perf_counter() - t_graph:.1f} s",
+          flush=True)
+    t_graph = time.perf_counter()
+    graph_options_phase(torch, dev, root, p0, alive0, counters)
+    print(f"[graph options] in {time.perf_counter() - t_graph:.1f} s",
           flush=True)
     t_mesh = time.perf_counter()
     mesh_errs, _ = mesh_kernels_phase(torch, dev, p0, alive0, bench_camera,
@@ -3654,6 +4168,8 @@ def main() -> int:
         k["mesh_launches"] = mesh_launches[k["id"]]
         k["packed_launches"] = packed_launches[k["id"]]
         k["bf16_launches"] = bf16_launches[k["id"]]
+        k["graph_step_launches"] = graph_step_launches[k["id"]]
+        k["graph_trainer_launches"] = graph_trainer_launches[k["id"]]
         k["max_abs_err"] = max(k["max_abs_err"], viewer_errs[k["id"]],
                                live_errs[k["id"]], rain_errs[k["id"]],
                                mesh_errs.get(k["id"], 0.0),

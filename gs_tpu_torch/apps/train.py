@@ -12,12 +12,16 @@ dir has the JAX package's layout (``cfg_args``, ``config.json``,
 ``cameras.json``, ``input.ply``, ``point_cloud/iteration_N/``).
 
 Training runs on ``--data_device`` (``cuda`` by default), where the training
-images live. Step mode is the default; --block_scan runs schedule-aligned
-blocks with one sync each. Unless --disable_viewer is given, a SIBR-protocol
-viewer server listens on --ip:--port (``viewer/server.py``) and is polled
-after every iteration (after every block in block mode, whose length is
-then capped to about a second of iterations); a port that cannot be bound
-is reported and training goes on. A checkpoint may be the port's or the
+images live. On a CUDA device the default is block mode, as the JAX CLI's
+on its accelerator (``gs_tpu/apps/train.py:340-341``): schedule-aligned
+blocks with one sync each, dispatched as CUDA graphs of the step
+(``train/graph.py``); --no_block_scan keeps step mode. Elsewhere step mode
+is the default and --block_scan asks for blocks. Unless --disable_viewer
+is given, a SIBR-protocol viewer server listens on --ip:--port
+(``viewer/server.py``) and is polled after every iteration (after every
+block in block mode, whose length is then capped to about a second of
+iterations); a port that cannot be bound is reported and training goes
+on. A checkpoint may be the port's or the
 JAX package's (``train/checkpoint.py``).
 
 Several devices (``gs_tpu/apps/train.py:75-151``): ``--mesh N`` (or
@@ -164,8 +168,9 @@ def main(argv=None, *, group=None):
     parser.add_argument("--detect_anomaly", action="store_true")
     parser.add_argument("--block_scan", action="store_true",
                         help="run schedule-aligned blocks of steps with one "
-                             "sync each")
-    parser.add_argument("--no_block_scan", action="store_true")
+                             "sync each (the default on a CUDA device)")
+    parser.add_argument("--no_block_scan", action="store_true",
+                        help="step mode, on any device")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", type=str, default="",
                         help="directory for a torch.profiler trace (Chrome "
@@ -415,11 +420,12 @@ def _train(args, model_cfg, opt, pipe, raster, group):
     if args.checkpoint_every > 0:
         boundaries |= set(range(args.checkpoint_every, opt.iterations + 1,
                                 args.checkpoint_every))
+    block_scan = (args.block_scan or trainer.device.type == "cuda") \
+        and not args.no_block_scan
     try:
         elapsed = trainer.train(
             test_iterations=set(args.test_iterations), on_step=on_step,
-            on_test=on_test, log_every=1,
-            block_scan=args.block_scan and not args.no_block_scan,
+            on_test=on_test, log_every=1, block_scan=block_scan,
             boundary_iterations=boundaries, block_cap=block_cap)
     finally:
         if viewer is not None:

@@ -134,7 +134,8 @@ def make_camera(R: np.ndarray, t: np.ndarray, fovx: float, fovy: float,
 class CameraBatch:
     """A stack of cameras sharing (width, height), selected by index — the
     JAX package's traced-index pick of the training camera
-    (``gs_tpu/core/camera.py:145-181``), here a plain index."""
+    (``gs_tpu/core/camera.py:145-181``): by a plain index (``select``) or
+    by a device index (``select_index``, the training step's)."""
     world_view: torch.Tensor      # [B,4,4]
     full_proj: torch.Tensor       # [B,4,4]
     camera_center: torch.Tensor   # [B,3]
@@ -149,6 +150,23 @@ class CameraBatch:
     @property
     def device(self) -> torch.device:
         return self.world_view.device
+
+    def select_index(self, index: torch.Tensor) -> Camera:
+        """The camera at a device index (``index`` [1] int64 on the
+        batch's device), picked by ``index_select``: nothing is read back,
+        so a CUDA graph may capture it."""
+        def pick(x):
+            return x.index_select(0, index)[0]
+
+        return Camera(
+            world_view=pick(self.world_view),
+            full_proj=pick(self.full_proj),
+            camera_center=pick(self.camera_center),
+            tan_fovx=pick(self.tan_fovx),
+            tan_fovy=pick(self.tan_fovy),
+            width=self.width,
+            height=self.height,
+        )
 
     def select(self, i) -> Camera:
         return Camera(

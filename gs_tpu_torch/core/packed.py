@@ -163,10 +163,13 @@ def sh_band_index(lay: PackedLayout) -> np.ndarray:
     return idx
 
 
-def mask_sh_rows(packed: torch.Tensor, lay: PackedLayout,
-                 active_sh_degree: int) -> torch.Tensor:
+def mask_sh_rows(packed: torch.Tensor, lay: PackedLayout, active_sh_degree,
+                 band_index: torch.Tensor = None) -> torch.Tensor:
     """Zero the sh_rest rows above the active degree (the SH ramp):
-    the packed form of ``train/step.py::mask_sh_rest``."""
-    keep = sh_band_index(lay) < (active_sh_degree + 1) ** 2
-    return packed * torch.from_numpy(
-        keep.astype(np.float32)[:, None]).to(packed.device)
+    the packed form of ``train/step.py::mask_sh_rest``. ``active_sh_degree``
+    may be a 0-d tensor; ``band_index``: :func:`sh_band_index` on the
+    block's device, made once by the caller (None makes it here)."""
+    if band_index is None:
+        band_index = torch.from_numpy(sh_band_index(lay)).to(packed.device)
+    keep = band_index < (active_sh_degree + 1) ** 2
+    return packed * keep.to(torch.float32)[:, None]

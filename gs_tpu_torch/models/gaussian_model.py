@@ -18,6 +18,16 @@ through ``compact`` and ``grow_capacity``, never past ``MAX_CAPACITY``.
 Every function returns a new state and writes into none of its inputs, so a
 caller may keep the old state (the trainer's overflow replay does). The split noise is an argument: JAX's and
 torch's generators differ, so the tests feed both packages the same draws.
+
+The per-step updates (Adam, the exposure optimizer, the densification
+statistics) take two more arguments, as the JAX package's do for its
+block scan. ``valid``, a bool tensor, makes the update an exact no-op when
+False, step counters included (the masked tail steps of a scan bucket,
+``train/graph.py``); None is the ungated update, bit for bit. ``inplace``
+writes each result into the state's own tensor with the last operation
+that computes it (``out=``), where the default allocates a new one: the
+CUDA-graph step (``train/graph.py``) updates its static state so, and
+nowhere else is it used. The values are the same either way.
 """
 from __future__ import annotations
 
@@ -169,46 +179,84 @@ def group_lrs(opt: OptimizationConfig, step,
     )
 
 
+def _gate(mask: Optional[torch.Tensor], valid: Optional[torch.Tensor]):
+    """The row mask and the step's ``valid`` flag combined (None: none)."""
+    if valid is None:
+        return mask
+    return valid if mask is None else mask & valid
+
+
+def _put(gate, old: torch.Tensor, inplace: bool, op, *args) -> torch.Tensor:
+    """``op(*args)`` where ``gate`` holds (everywhere when None), ``old``
+    elsewhere; written into ``old`` when ``inplace``."""
+    out = old if inplace else None
+    if gate is None:
+        return op(*args, out=out)
+    return torch.where(gate, op(*args), old, out=out)
+
+
+def _count(step: torch.Tensor, valid, inplace: bool) -> torch.Tensor:
+    """A step counter advanced by one (by ``valid`` when given)."""
+    inc = 1 if valid is None else valid.to(step.dtype)
+    return torch.add(step, inc, out=step if inplace else None)
+
+
 def adam_update(state: TrainState, grads: GaussianParams,
                 lrs: GaussianParams,
-                visible_mask: Optional[torch.Tensor] = None) -> TrainState:
+                visible_mask: Optional[torch.Tensor] = None,
+                valid: Optional[torch.Tensor] = None,
+                inplace: bool = False) -> TrainState:
     """Dense Adam, or sparse (row-masked) when ``visible_mask`` is given:
-    rows outside the mask keep their parameters and moments."""
-    step = state.step + 1
+    rows outside the mask keep their parameters and moments. ``valid``
+    False: no update at all, the step count included."""
+    step = _count(state.step, valid, inplace)
     t = step.to(torch.float32)
     bc1 = 1.0 - ADAM_B1 ** t
     bc2 = 1.0 - ADAM_B2 ** t
 
-    def masked(new, old):
-        if visible_mask is None:
-            return new
-        mask = visible_mask.reshape((-1,) + (1,) * (new.dim() - 1))
-        return torch.where(mask, new, old)
-
     ms, vs, ps = [], [], []
     for g, m, v, p, lr in zip(grads, state.m, state.v, state.params, lrs):
-        m_new = masked(ADAM_B1 * m + (1 - ADAM_B1) * g, m)
-        v_new = masked(ADAM_B2 * v + (1 - ADAM_B2) * g * g, v)
+        gate = _gate(None if visible_mask is None else visible_mask.reshape(
+            (-1,) + (1,) * (p.dim() - 1)), valid)
+        m_new = _put(gate, m, inplace, torch.add, ADAM_B1 * m,
+                     (1 - ADAM_B1) * g)
+        v_new = _put(gate, v, inplace, torch.add, ADAM_B2 * v,
+                     (1 - ADAM_B2) * g * g)
         ms.append(m_new)
         vs.append(v_new)
-        ps.append(masked(
-            p - lr * (m_new / bc1) / (torch.sqrt(v_new / bc2) + ADAM_EPS), p))
+        ps.append(_put(gate, p, inplace, torch.sub, p, lr * (m_new / bc1) / (
+            torch.sqrt(v_new / bc2) + ADAM_EPS)))
     return state._replace(params=GaussianParams(*ps), m=GaussianParams(*ms),
                           v=GaussianParams(*vs), step=step)
 
 
+def exposure_lr(opt: OptimizationConfig, iteration) -> float:
+    """The exposure optimizer's rate at ``iteration`` (ref: train.py's
+    exposure scheduler)."""
+    return expon_lr(iteration, opt.exposure_lr_init, opt.exposure_lr_final,
+                    lr_delay_steps=opt.exposure_lr_delay_steps,
+                    lr_delay_mult=opt.exposure_lr_delay_mult,
+                    max_steps=opt.iterations)
+
+
 def exposure_update(state: TrainState, exp_grad: torch.Tensor,
-                    opt: OptimizationConfig, iteration) -> TrainState:
-    lr = expon_lr(iteration, opt.exposure_lr_init, opt.exposure_lr_final,
-                  lr_delay_steps=opt.exposure_lr_delay_steps,
-                  lr_delay_mult=opt.exposure_lr_delay_mult,
-                  max_steps=opt.iterations)
-    step = state.exp_step + 1
+                    opt: OptimizationConfig, iteration,
+                    valid: Optional[torch.Tensor] = None, *, lr=None,
+                    inplace: bool = False) -> TrainState:
+    """One Adam step of the per-image exposures. ``lr``: the rate (a 0-d
+    tensor from the step's schedule row); None computes it from
+    ``iteration``."""
+    if lr is None:
+        lr = exposure_lr(opt, iteration)
+    step = _count(state.exp_step, valid, inplace)
     t = step.to(torch.float32)
-    m = ADAM_B1 * state.exp_m + (1 - ADAM_B1) * exp_grad
-    v = ADAM_B2 * state.exp_v + (1 - ADAM_B2) * exp_grad ** 2
-    p = state.exposure - lr * (m / (1 - ADAM_B1 ** t)) / (
-        torch.sqrt(v / (1 - ADAM_B2 ** t)) + EXP_ADAM_EPS)
+    m = _put(valid, state.exp_m, inplace, torch.add, ADAM_B1 * state.exp_m,
+             (1 - ADAM_B1) * exp_grad)
+    v = _put(valid, state.exp_v, inplace, torch.add, ADAM_B2 * state.exp_v,
+             (1 - ADAM_B2) * exp_grad ** 2)
+    p = _put(valid, state.exposure, inplace, torch.sub, state.exposure,
+             lr * (m / (1 - ADAM_B1 ** t)) / (
+                 torch.sqrt(v / (1 - ADAM_B2 ** t)) + EXP_ADAM_EPS))
     return state._replace(exposure=p, exp_m=m, exp_v=v, exp_step=step)
 
 
@@ -216,22 +264,36 @@ def exposure_update(state: TrainState, exp_grad: torch.Tensor,
 
 def add_densification_stats(state: TrainState, mean2d_grad: torch.Tensor,
                             visibility: torch.Tensor, width: int, height: int,
-                            radii: torch.Tensor) -> TrainState:
+                            radii: torch.Tensor, *,
+                            scale: Optional[torch.Tensor] = None,
+                            valid: Optional[torch.Tensor] = None,
+                            inplace: bool = False) -> TrainState:
     """Accumulate ||dL/d mean2D|| in the reference's ndc-half-res units.
 
     ``mean2d_grad`` is in pixels; the reference's screenspace tensor carries
     gradients scaled by (0.5*W, 0.5*H) (ref: gaussian_model.py:431-433 +
-    the CUDA ddelx_dx factor).
+    the CUDA ddelx_dx factor). ``scale``: that [2] factor on the device,
+    made once by the caller (None makes it here).
     """
-    scale = torch.tensor([0.5 * width, 0.5 * height], dtype=torch.float32,
-                         device=mean2d_grad.device)
+    if scale is None:
+        scale = torch.tensor([0.5 * width, 0.5 * height], dtype=torch.float32,
+                             device=mean2d_grad.device)
+    visibility = _gate(visibility, valid)
     norm = torch.linalg.vector_norm(mean2d_grad * scale, dim=-1)
+
+    def out(x):
+        return x if inplace else None
+
     return state._replace(
-        grad_accum=state.grad_accum + torch.where(visibility, norm, 0.0),
-        denom=state.denom + visibility.to(torch.float32),
+        grad_accum=torch.add(state.grad_accum,
+                             torch.where(visibility, norm, 0.0),
+                             out=out(state.grad_accum)),
+        denom=torch.add(state.denom, visibility.to(torch.float32),
+                        out=out(state.denom)),
         max_radii2D=torch.where(visibility,
                                 torch.maximum(state.max_radii2D, radii),
-                                state.max_radii2D),
+                                state.max_radii2D,
+                                out=out(state.max_radii2D)),
     )
 
 

@@ -22,9 +22,9 @@ from ..config import OptimizationConfig
 from ..core.gaussians import GaussianParams, inverse_sigmoid
 from ..core.packed import (PackedLayout, layout, lr_rows, pack_params,
                            unpack_params)
-from .gaussian_model import (ADAM_B1, ADAM_B2, ADAM_EPS, TrainState,
-                             compact, densify_and_prune, grow_capacity,
-                             group_lrs)
+from .gaussian_model import (ADAM_B1, ADAM_B2, ADAM_EPS, TrainState, _count,
+                             _gate, _put, compact, densify_and_prune,
+                             grow_capacity, group_lrs)
 
 
 def degree_from_rows(rows: int) -> int:
@@ -98,24 +98,28 @@ def group_lr_rows(lay: PackedLayout, opt: OptimizationConfig, step,
 
 def adam_update_packed(ps: PackedState, grad: torch.Tensor,
                        lr: torch.Tensor,
-                       visible_mask: Optional[torch.Tensor] = None
-                       ) -> PackedState:
+                       visible_mask: Optional[torch.Tensor] = None,
+                       valid: Optional[torch.Tensor] = None,
+                       inplace: bool = False) -> PackedState:
     """Dense Adam, or column-masked sparse Adam with ``visible_mask`` [C],
     as one elementwise pass over the block. The math and constants of
     ``gaussian_model.adam_update`` (eps 1e-15, ref: gaussian_model.py:170;
-    sparse masking ref: train.py:173-175), so the two agree bitwise."""
-    step = ps.step + 1
+    sparse masking ref: train.py:173-175), so the two agree bitwise.
+    ``valid`` False: no update at all, the step count included (the JAX
+    package's masked-tail gate, fused into the same selects); ``inplace``:
+    as ``gaussian_model.adam_update``."""
+    step = _count(ps.step, valid, inplace)
     t = step.to(torch.float32)
     bc1 = 1.0 - ADAM_B1 ** t
     bc2 = 1.0 - ADAM_B2 ** t
-    m = ADAM_B1 * ps.m + (1 - ADAM_B1) * grad
-    v = ADAM_B2 * ps.v + (1 - ADAM_B2) * grad * grad
-    p = ps.packed - lr * (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
-    if visible_mask is not None:
-        gate = visible_mask[None, :]
-        m = torch.where(gate, m, ps.m)
-        v = torch.where(gate, v, ps.v)
-        p = torch.where(gate, p, ps.packed)
+    gate = _gate(None if visible_mask is None else visible_mask[None, :],
+                 valid)
+    m = _put(gate, ps.m, inplace, torch.add, ADAM_B1 * ps.m,
+             (1 - ADAM_B1) * grad)
+    v = _put(gate, ps.v, inplace, torch.add, ADAM_B2 * ps.v,
+             (1 - ADAM_B2) * grad * grad)
+    p = _put(gate, ps.packed, inplace, torch.sub, ps.packed,
+             lr * (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS))
     return ps._replace(packed=p, m=m, v=v, step=step)
 
 

@@ -8,7 +8,9 @@ an unchanged one is reused. :func:`build` starts one ``nvcc`` per missing
 library, all at once. A missing ``nvcc`` or a failed compile raises.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` raises on anything but 0.
+:func:`check` raises on anything but 0. :func:`function` looks each entry
+up once and keeps it, with its argument types set, so a launch costs one
+dictionary lookup and the ctypes call.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)
 
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def find_nvcc() -> str:
@@ -87,7 +90,12 @@ def build(sources=SOURCES) -> dict[str, str]:
 
 def function(source: str, name: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry ``name`` of ``source``'s library (built if missing),
-    with its argument types set and an ``int`` (cudaError_t) result."""
+    with its argument types set and an ``int`` (cudaError_t) result. The
+    first call per (source, name) looks it up and sets ``argtypes``; later
+    calls return the same entry."""
+    fn = _entries.get((source, name))
+    if fn is not None:
+        return fn
     lib = _libs.get(source)
     if lib is None:
         path = library_path(source)
@@ -100,6 +108,7 @@ def function(source: str, name: str, argtypes) -> ctypes._CFuncPtr:
     fn = getattr(lib, name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    _entries[(source, name)] = fn
     return fn
 
 

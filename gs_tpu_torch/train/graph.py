@@ -1,0 +1,403 @@
+"""Block dispatch of the training step — port of
+``gs_tpu/train/step.py::{make_train_step_chain, make_train_steps_scan}``.
+
+The JAX package trains a block of steps on its accelerator with the
+training data on the device and the camera picked by a traced index, one
+compiled executable dispatched per step ("chain", the default) or per
+bucket of ``densification_interval`` steps ("scan", a ``lax.scan`` whose
+tail steps a ``valid`` mask turns into exact no-ops). PyTorch's
+counterpart of a compiled executable replayed per call is a CUDA graph:
+on a CUDA device, :func:`make_train_step_chain` captures one step and
+replays it once per step, and :func:`make_train_steps_scan` captures a
+whole bucket and replays it once per bucket. On the CPU the same bodies
+run eagerly, in the same order on the same buffers: that is the path the
+CPU tests hold against the JAX package, as the kernels' plain versions are.
+
+The graphs read and write static tensors. A bucket's inputs (camera
+indices, iterations, schedule rows, backgrounds and the ``valid`` mask)
+are uploaded into static buffers once per bucket; the chain copies its
+row of them into its step inputs on the device before each replay. The
+state is updated in place: the step's last operation writes each new
+value into the state's own tensor (``inplace`` in
+``models/gaussian_model.py``), so no step copies the state (a packed state
+of 1,048,576 slots holds ~0.8 GB of parameters and moments). Alternating
+between two captures would need a second state and buys nothing here. A
+state handed in from outside (a densify's result, an opacity reset, the
+trainer's snapshot for an overflow replay, a checkpoint) is copied into
+the static tensors; one of another shape (a capacity growth) makes new
+static tensors and a new capture. A caller that keeps a state past the
+next replay (the trainer's snapshot) keeps a copy of every static tensor
+in it (``unshared``): those change at every replay.
+
+A capture first runs one step on a copy of the state on a side stream,
+as ``torch.cuda.graphs`` requires, so that every first call (the kernels'
+C entries, cuBLAS, the autograd engine's threads) happens before the
+capture. Its time and the private pool's peak are printed and kept in
+``captures``. The JAX trainer compiles the next capacity tier ahead of
+time in a thread (``_spawn_aot``), because an XLA compile takes minutes;
+a capture takes about one eager step plus the graph's instantiation, so
+the next tier is captured when it is needed and nothing runs in the
+background. A failed capture or replay raises: nothing retries through
+the eager loop.
+
+The random background of a bucket is drawn before it, all B draws at
+once, in both modes, as the JAX trainer splits one key into B per bucket:
+chain and scan see the same backgrounds and no generator runs inside a
+graph. The kernel wrappers' launch counters count Python calls, which a
+replay does not make: each graph keeps the launches its capture made and
+adds them to the counters at every replay.
+"""
+from __future__ import annotations
+
+import time
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..core.gaussians import GaussianParams
+from .step import StepMetrics
+
+
+class TrainingData(NamedTuple):
+    """The training views on the device, stacked by camera index."""
+    images: torch.Tensor                     # [V, 3, H, W]
+    alphas: Optional[torch.Tensor] = None    # [V, 1, H, W]
+    invdepths: Optional[torch.Tensor] = None  # [V, H, W]
+    depth_masks: Optional[torch.Tensor] = None
+    depth_oks: Optional[torch.Tensor] = None  # [V] float32
+
+
+def state_leaves(state) -> list:
+    """Every tensor of a TrainState or PackedState, in order."""
+    out = []
+    for x in state:
+        out.extend(x if isinstance(x, GaussianParams) else (x,))
+    return out
+
+
+def state_from_leaves(like, leaves):
+    """A state of ``like``'s type from :func:`state_leaves`' order."""
+    it = iter(leaves)
+    return type(like)(*[GaussianParams(*[next(it) for _ in x])
+                        if isinstance(x, GaussianParams) else next(it)
+                        for x in like])
+
+
+def clone_state(state):
+    return state_from_leaves(state, [t.clone() for t in state_leaves(state)])
+
+
+def launch_counters() -> tuple:
+    """The kernel wrappers whose ``launches`` count their launches."""
+    from ..ops.expand import expand_rows
+    from ..ops.fold import fold_rows
+    from ..ops.rasterize import (raster_tiles_bwd, raster_tiles_fwd,
+                                 raster_tiles_fwd_save)
+    return (expand_rows, raster_tiles_fwd, raster_tiles_fwd_save,
+            raster_tiles_bwd, fold_rows)
+
+
+class _Graphed:
+    """What the chain and the scan share: the static state, the bucket's
+    input buffers, the capture and the replay."""
+
+    mode = ""
+
+    def __init__(self, train_step, *, use_alpha: bool, use_depth: bool,
+                 bucket: int):
+        self.core = train_step.core
+        self.device = torch.device(train_step.device)
+        self.random_background = train_step.random_background
+        self.use_alpha, self.use_depth = use_alpha, use_depth
+        self.bucket = max(int(bucket), 1)
+        self.graphed = self.device.type == "cuda"
+        self.state = None            # the static state the graph updates
+        self.data: Optional[TrainingData] = None
+        self.graph = None
+        self.counts: dict = {}       # kernel wrapper -> launches per replay
+        self.captures: list = []     # {capacity, ms, pool_peak_bytes}
+        dev, b = self.device, self.bucket
+        # per step: camera index and iteration; schedule row and background
+        self.ints = torch.zeros((b, 2), dtype=torch.int64, device=dev)
+        self.floats = torch.zeros((b, 6), dtype=torch.float32, device=dev)
+        self.valid = torch.zeros((b,), dtype=torch.bool, device=dev)
+
+    # ------------------------------------------------------------ the state
+
+    def owns(self, state) -> bool:
+        """Whether ``state``'s tensors are this graph's static ones."""
+        return self.state is not None and all(
+            a is b for a, b in zip(state_leaves(state),
+                                   state_leaves(self.state)))
+
+    def unshared(self, state):
+        """``state`` with each of this graph's static tensors in it
+        replaced by a copy: what a caller keeps past the next replay (a
+        densify's result keeps the step counters and exposures it was
+        given)."""
+        if self.state is None:
+            return state
+        mine = {id(t) for t in state_leaves(self.state)}
+        return state_from_leaves(state, [
+            t.clone() if id(t) in mine else t for t in state_leaves(state)])
+
+    def bind(self, state, data: TrainingData):
+        """Make the static state hold ``state``: a copy into the static
+        tensors where the shapes agree, else new static tensors (and a new
+        capture on CUDA)."""
+        if self.owns(state) and data is self.data:
+            return
+        mine = None if self.state is None else state_leaves(self.state)
+        theirs = state_leaves(state)
+        if (data is self.data and mine is not None
+                and type(state) is type(self.state)
+                and [(t.shape, t.dtype) for t in mine]
+                == [(t.shape, t.dtype) for t in theirs]):
+            with torch.no_grad():
+                for a, b in zip(mine, theirs):
+                    if a is not b:
+                        a.copy_(b)
+            return
+        self.graph = None
+        self.state = clone_state(state)
+        self.data = data
+        if self.graphed:
+            self._capture()
+
+    def load(self, ints: torch.Tensor, floats: torch.Tensor,
+             valid: torch.Tensor):
+        """A bucket's inputs into the static buffers: ``ints`` [B, 2]
+        int64 (camera index, iteration), ``floats`` [B, 6] float32 (the
+        schedule row, the background), ``valid`` [B] bool."""
+        self.ints.copy_(ints, non_blocking=True)
+        self.floats.copy_(floats, non_blocking=True)
+        self.valid.copy_(valid, non_blocking=True)
+
+    # ------------------------------------------------------------- the step
+
+    def step_body(self, state, ints: torch.Tensor, floats: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None, inplace: bool = True):
+        """One step on ``state`` (in place unless ``inplace`` is False), its
+        camera and iteration from ``ints`` [2], its schedule row and
+        background from ``floats`` [6], its views gathered from the data by
+        the device index."""
+        d = self.data
+        index = ints[0].reshape(1)
+
+        def pick(x):
+            return x.index_select(0, index)[0]
+
+        gt = pick(d.images)
+        alpha = pick(d.alphas) if self.use_alpha else None
+        if self.use_depth:
+            invd, dmask, dok = (pick(d.invdepths), pick(d.depth_masks),
+                                pick(d.depth_oks))
+        else:
+            invd = dmask = dok = None
+        bg = floats[3:] if self.random_background else None
+        return self.core(state, ints[0], ints[1], floats[:3], gt, alpha,
+                         invd, dmask, dok, bg, valid=valid, inplace=inplace)
+
+    # -------------------------------------------------- capture and replay
+
+    def _capture(self):
+        dev = self.device
+        t0 = time.perf_counter()
+        warm = clone_state(self.state)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.warm_up(warm)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        del warm
+        counters = launch_counters()
+        before = [f.launches for f in counters]
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.graph_body()
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        # the capture ran no kernel: its launches count at each replay
+        self.counts = {f: f.launches - n for f, n in zip(counters, before)}
+        for f, n in self.counts.items():
+            f.launches -= n
+        self.graph = graph
+        ms = 1e3 * (time.perf_counter() - t0)
+        capacity = self.state.alive.shape[0]
+        self.captures.append(dict(capacity=capacity, ms=ms,
+                                  pool_peak_bytes=peak))
+        print(f"[gs_tpu_torch] captured the {self.mode} step at capacity "
+              f"{capacity} in {ms:.1f} ms (graph pool peak {peak} bytes)",
+              flush=True)
+
+    def replay(self):
+        self.graph.replay()
+        for f, n in self.counts.items():
+            f.launches += n
+
+    def dispatch(self):
+        """The graph's replay on CUDA, the body itself on the CPU; on CUDA
+        without a graph (its capture raised) it raises again."""
+        if self.graph is not None:
+            self.replay()
+        elif self.graphed:
+            raise RuntimeError(f"the {self.mode} step was not captured")
+        else:
+            self.graph_body()
+
+    def warm_up(self, state):
+        raise NotImplementedError
+
+    def graph_body(self):
+        raise NotImplementedError
+
+
+class ChainStep(_Graphed):
+    """One step per call over the device-resident data (see
+    :func:`make_train_step_chain`)."""
+
+    mode = "chain"
+
+    def __init__(self, train_step, **kw):
+        super().__init__(train_step, **kw)
+        dev = self.device
+        self.row_ints = torch.zeros((2,), dtype=torch.int64, device=dev)
+        self.row_floats = torch.zeros((6,), dtype=torch.float32, device=dev)
+        self.out: Optional[StepMetrics] = None
+        # the bucket's overflow, num_duplicates and max_tile_len
+        self.fold = None
+
+    def warm_up(self, state):
+        _, m = self.step_body(state, self.row_ints, self.row_floats)
+        self._make_fold(m)
+
+    def _make_fold(self, m: StepMetrics):
+        # outside any capture: a zero fill made inside one would replay
+        if self.fold is None:
+            self.fold = [torch.zeros_like(x) for x in (
+                m.overflow, m.num_duplicates, m.max_tile_len)]
+
+    def graph_body(self):
+        self.state, self.out = self.step_body(self.state, self.row_ints,
+                                              self.row_floats)
+        self._make_fold(self.out)
+        self._fold_in(self.out)
+
+    def _fold_in(self, m: StepMetrics):
+        """The bucket's worst overflow and largest counts, in place."""
+        ov, nd, ml = self.fold
+        torch.logical_or(ov, m.overflow, out=ov)
+        torch.maximum(nd, m.num_duplicates, out=nd)
+        torch.maximum(ml, m.max_tile_len, out=ml)
+
+    def __call__(self, state, data: TrainingData, j: int):
+        """Step ``j`` of the loaded bucket on ``state`` (copied into the
+        static state unless it is that already). Returns the static state
+        and the step's metrics, which the next call overwrites."""
+        self.bind(state, data)
+        self.row_ints.copy_(self.ints[j])
+        self.row_floats.copy_(self.floats[j])
+        self.dispatch()
+        return self.state, self.out
+
+    def run(self, state, data: TrainingData, b: int):
+        """The first ``b`` steps of the loaded bucket, one replay each.
+        Returns the static state and the last step's metrics with the
+        bucket's worst overflow and largest counts (copies)."""
+        self.bind(state, data)
+        if self.fold is not None:
+            for x in self.fold:
+                x.zero_()
+        for j in range(b):
+            self(self.state, data, j)
+        ov, nd, ml = self.fold
+        m = StepMetrics(*[x.clone() if isinstance(x, torch.Tensor) else x
+                          for x in self.out])
+        return self.state, m._replace(overflow=ov.clone(),
+                                      num_duplicates=nd.clone(),
+                                      max_tile_len=ml.clone())
+
+
+class ScanSteps(_Graphed):
+    """One bucket per call (see :func:`make_train_steps_scan`)."""
+
+    mode = "scan"
+
+    def __init__(self, train_step, **kw):
+        super().__init__(train_step, **kw)
+        self.out: Optional[StepMetrics] = None
+
+    def warm_up(self, state):
+        self.step_body(state, self.ints[0], self.floats[0],
+                       valid=self.valid[0])
+
+    def graph_body(self):
+        state, ms = self.state, []
+        for j in range(self.bucket):
+            state, m = self.step_body(state, self.ints[j], self.floats[j],
+                                      valid=self.valid[j])
+            ms.append(m)
+        self.state = state
+        v = self.valid
+        last = torch.clamp(v.sum() - 1, min=0).reshape(1)
+
+        def column(name):
+            return torch.stack([getattr(m, name) for m in ms])
+
+        def pick(name):
+            return column(name).index_select(0, last)[0]
+
+        def largest(name):
+            x = column(name)
+            return torch.where(v, x, torch.zeros_like(x)).max()
+
+        self.out = StepMetrics(
+            loss=pick("loss"), l1=pick("l1"), ssim=pick("ssim"),
+            depth_l1=pick("depth_l1"),
+            num_duplicates=largest("num_duplicates"),
+            max_tile_len=largest("max_tile_len"),
+            overflow=(column("overflow") & v).any(),
+            n_visible=pick("n_visible"))
+
+    def __call__(self, state, data: TrainingData):
+        """The loaded bucket on ``state``, one replay: its valid steps
+        update the state, the masked ones leave it exactly as it was.
+        Returns the static state and the last valid step's metrics with
+        the bucket's worst overflow and largest counts (copies)."""
+        self.bind(state, data)
+        self.dispatch()
+        return self.state, StepMetrics(*[
+            x.clone() if isinstance(x, torch.Tensor) else x
+            for x in self.out])
+
+    def run(self, state, data: TrainingData, b: int):
+        return self(state, data)
+
+
+def make_train_step_chain(train_step, *, use_alpha: bool, use_depth: bool,
+                          bucket: int = 1) -> ChainStep:
+    """Single-step dispatch with the device-resident training data: the
+    step gathers its image (and alpha mask, depth map, depth mask and
+    depth weight) by the camera's device index, so consecutive calls move
+    no frame. On CUDA the step is captured once as a CUDA graph over the
+    static state and the step inputs, and each call copies its row of the
+    loaded bucket into those inputs and replays. ``bucket``: the rows
+    :meth:`ChainStep.load` takes. ``train_step``: a
+    ``train/step.py::make_train_step`` result (one device, no mesh)."""
+    return ChainStep(train_step, use_alpha=use_alpha, use_depth=use_depth,
+                     bucket=bucket)
+
+
+def make_train_steps_scan(train_step, *, use_alpha: bool, use_depth: bool,
+                          bucket: int) -> ScanSteps:
+    """``bucket`` steps per dispatch, each step gated by its entry of the
+    bucket's ``valid`` mask (False: the state is left exactly as it was),
+    so blocks of any length share one capture. The bucket's metrics are
+    the last valid step's, with the worst overflow and the largest
+    ``num_duplicates`` and ``max_tile_len`` over its valid steps
+    (``gs_tpu/train/step.py:291-299``)."""
+    return ScanSteps(train_step, use_alpha=use_alpha, use_depth=use_depth,
+                     bucket=bucket)

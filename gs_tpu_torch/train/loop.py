@@ -15,11 +15,27 @@ so the state at each sync is kept and the window since is replayed with
 grown buffers, with the same camera picks and random draws, so no update is
 kept from a truncated render.
 
-The training images (and alpha masks, depth maps and depth masks) move to
-``model_cfg.data_device`` once, in the constructor. The step runs eagerly;
-nothing reads the device back between syncs (every ``sync_every``
-iterations, at test iterations, and at every densify, whose
-``torch.nonzero`` reads the counts).
+The training images (and alpha masks, depth maps, depth masks and depth
+weights) move to ``model_cfg.data_device`` once, in the constructor.
+Nothing reads the device back between syncs (every ``sync_every``
+iterations in step mode, after every block in block mode, at test
+iterations, and at every densify, whose ``torch.nonzero`` reads the
+counts).
+
+Step mode runs the step eagerly, one iteration at a time. Block mode
+(``train(block_scan=True)``, ``run_block``) runs schedule-aligned blocks
+with the JAX trainer's block dispatch (``train/graph.py``):
+``block_dispatch`` "chain" (the default, ``gs_tpu/train/loop.py:158-164``)
+replays a CUDA graph of one step per iteration, "scan" one of a bucket of
+``densification_interval`` steps per bucket; on the CPU the same bodies
+run eagerly. The graph updates its static state in place, so the
+snapshot at a sync is a copy of it, and whatever replaces the state
+between blocks (densify, opacity reset, an overflow replay's snapshot, a
+resumed checkpoint) is copied into the static tensors at the next block.
+A growth of the capacity, or of the binning buffers (which rebuilds the
+step), captures again; ``captures`` records each capture's capacity, time
+and graph-pool peak. Under a ``mesh`` a block runs the eager step, one
+iteration at a time: the graphed multi-GPU step is not ported yet.
 
 Under a ``mesh`` (a group of ``parallel/mesh.py``) the state is this
 process's shards of a capacity padded to a multiple of the group's size
@@ -39,10 +55,10 @@ which unpack, run the tree layout's and pack again. The snapshot, the
 checkpoints (``train/checkpoint.py`` unpacks) and every render of a view
 read ``PackedState.params``/``.alive``.
 
-Not ported, being XLA/TPU machinery of the JAX trainer: the ahead-of-time
-compile of the next capacity tier, the scan/chain block-dispatch
-executables and the jit caches. ``block_scan`` here is a plain loop over
-schedule-aligned blocks with one sync per block.
+Not ported, being XLA machinery of the JAX trainer: the jit caches, and
+the background thread of the next capacity tier's compile (a capture
+takes about one step, so the next tier is captured when it is needed;
+``train/graph.py`` says more).
 """
 from __future__ import annotations
 
@@ -70,6 +86,8 @@ from ..ops.losses import psnr
 from ..parallel.mesh import gather_state, pad_state, shard_state
 from ..render import (MAX_DUP_CAPACITY, RenderOutput, overflow_changes,
                       render_grown)
+from .graph import (TrainingData, make_train_step_chain,
+                    make_train_steps_scan)
 from .step import StepMetrics, make_train_step, mask_sh_rest
 
 
@@ -182,9 +200,13 @@ class Trainer:
             self.depth_masks = upload(
                 [c.depth_mask if c.depth_mask is not None else zero
                  for c in self.train_cams])
-            self.depth_ok = np.array(
+            self.depth_oks = upload(
                 [1.0 if (c.invdepth is not None and c.depth_reliable) else 0.0
-                 for c in self.train_cams], np.float32)
+                 for c in self.train_cams]).to(torch.float32)
+        self._data = TrainingData(
+            self.images, self.alphas,
+            *((self.invdepths, self.depth_masks, self.depth_oks)
+              if self.use_depth else ()))
 
         if start_state is None:
             pts, cols, _ = point_cloud
@@ -203,6 +225,11 @@ class Trainer:
         if self.packed:
             self.state = pack_state(self.state)
 
+        # block dispatch: "chain" replays one captured step per iteration,
+        # "scan" one captured bucket of densification_interval steps
+        self.block_dispatch = "chain"
+        self._runner = None
+        self.captures: list = []      # every capture: capacity, ms, pool peak
         self._build_step()
         self._camera_stack: list[int] = []
         self.ema_loss = 0.0
@@ -229,6 +256,7 @@ class Trainer:
     # ------------------------------------------------------------- plumbing
 
     def _build_step(self):
+        self._runner = None           # captured from the old step
         self.train_step = make_train_step(
             self.opt, self.model_cfg, self.pipe, self.raster, self.cam_batch,
             self.spatial_lr_scale, self.model_cfg.sh_degree, mesh=self.mesh,
@@ -335,7 +363,7 @@ class Trainer:
         alpha = self.alphas[idx] if self.alphas is not None else None
         if self.use_depth:
             invd, dmask = self.invdepths[idx], self.depth_masks[idx]
-            dok = float(self.depth_ok[idx])
+            dok = self.depth_oks[idx]
         else:
             invd, dmask, dok = None, None, 0.0
         self.state, metrics = self.train_step(
@@ -363,10 +391,66 @@ class Trainer:
     def run_block(self, k: int) -> StepMetrics:
         """Run ``k`` iterations with no schedule and no sync. The caller
         keeps densify/reset boundaries out of the block (``train`` aligns
-        blocks to the schedule)."""
-        for _ in range(k):
-            self._dispatch_step()
+        blocks to the schedule).
+
+        On one device the block goes through ``block_dispatch``: buckets of
+        at most ``densification_interval`` steps, each bucket's camera
+        picks, iterations, schedule rows and backgrounds uploaded once;
+        "chain" replays the captured step once per iteration, "scan" the
+        captured bucket once (its tail steps masked). Under a ``mesh`` the
+        eager step runs once per iteration."""
+        if self.mesh is not None:
+            for _ in range(k):
+                self._dispatch_step()
+            return self._last_metrics
+        self._log(("block", k))
+        runner = self._block_runner()
+        done = 0
+        while done < k:
+            b = min(runner.bucket, k - done)
+            cams = [self._next_camera() for _ in range(b)]
+            runner.load(*self._bucket_inputs(cams, runner.bucket))
+            self.state, metrics = runner.run(self.state, self._data, b)
+            self.iteration += b
+            done += b
+            self._last_cam = cams[-1]
+            self._window_metrics = _fold_window(metrics,
+                                                self._window_metrics)
+        self._last_metrics = self._window_metrics
         return self._last_metrics
+
+    def _block_runner(self):
+        """The chain or scan of the current step, built when first needed
+        (and again after ``_build_step`` or a change of mode)."""
+        makers = {"chain": make_train_step_chain,
+                  "scan": make_train_steps_scan}
+        if self.block_dispatch not in makers:
+            raise ValueError(f"block_dispatch {self.block_dispatch!r}: "
+                             f"'chain' or 'scan'")
+        if self._runner is None or self._runner.mode != self.block_dispatch:
+            self._runner = makers[self.block_dispatch](
+                self.train_step, use_alpha=self.alphas is not None,
+                use_depth=self.use_depth,
+                bucket=max(int(self.opt.densification_interval), 1))
+            self._runner.captures = self.captures
+        return self._runner
+
+    def _bucket_inputs(self, cams: list, bucket: int):
+        """One bucket's inputs: [B, 2] camera indices and iterations, [B, 6]
+        schedule rows and backgrounds, [B] valid (the first len(cams)). The
+        tail repeats the last camera, as the JAX trainer's does; all B
+        backgrounds are drawn, in one call, whatever the mode."""
+        b = len(cams)
+        its = self.iteration + 1 + np.arange(bucket)
+        idxs = np.array(cams + cams[-1:] * (bucket - b), np.int64)
+        ints = torch.from_numpy(np.stack([idxs, its], 1))
+        floats = torch.zeros((bucket, 6))
+        floats[:, :3] = torch.from_numpy(self.train_step.schedule(its))
+        floats = floats.to(self.device, non_blocking=True)
+        if self.opt.random_background:
+            floats[:, 3:] = torch.rand((bucket, 3), generator=self.generator,
+                                       device=self.device)
+        return ints, floats, torch.from_numpy(np.arange(bucket) < b)
 
     def _next_boundary(self, i: int, end: int, extra=()) -> int:
         """Next schedule event strictly after iteration i."""
@@ -393,8 +477,12 @@ class Trainer:
         self._last_sync_iter = self.iteration
         self._replay_log = []
         self._window_metrics = None
+        state = self.state
+        if self._runner is not None:
+            # the next block writes into the graph's static tensors
+            state = self._runner.unshared(state)
         self._snapshot = dict(
-            state=self.state, iteration=self.iteration,
+            state=state, iteration=self.iteration,
             generator=self.generator.get_state(),
             camera_stack=list(self._camera_stack),
             rng_state=copy.deepcopy(self.rng.bit_generator.state))
@@ -418,6 +506,8 @@ class Trainer:
             for entry in log:
                 if entry[0] == "step":
                     self._dispatch_step()
+                elif entry[0] == "block":
+                    self.run_block(entry[1])
                 else:  # ("schedule", i)
                     self._apply_schedule(entry[1])
         finally:

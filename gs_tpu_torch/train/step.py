@@ -9,31 +9,39 @@ process, and each updates its own shards. With ``packed`` the state is a
 block through one autograd Function and Adam is one pass over the block
 (``core/packed.py``); the semantics are the tree layout's.
 
-The JAX package compiles this into one function and picks the camera by a
-traced index; here the step runs eagerly, so the iteration and the camera
-index are plain Python ints and the schedules are evaluated on the host.
-The SH degree ramp (+1 per 1000 iterations, ref: train.py:91-93) masks the
-inactive coefficients to zero and evaluates the full basis, as the JAX
-step does, so the masked coefficients get exact zero gradients.
+The step has a device-indexed core, as the JAX package's ``step_core``:
+the camera index and the iteration are 0-d device tensors, the camera is
+picked by ``index_select``, the SH degree (+1 per 1000 iterations, ref:
+train.py:91-93) and the densification gate are computed on the device,
+and the learning rates and the depth-L1 weight come in as a schedule row
+(:func:`schedule_table`, each value ``utils/schedules.py::expon_lr``'s
+float32). So the core reads nothing back and uploads nothing, and a CUDA
+graph can capture it (``train/graph.py``). ``make_train_step`` returns
+the per-step wrapper of that core, which takes the iteration and the
+camera index as Python ints and uploads them with the step's schedule row.
 
-The random background (``opt.random_background``) is drawn from the
-``generator`` the caller passes, or given outright as ``bg``. Nothing in the
-step reads the device back: the metrics are 0-d tensors.
+The SH ramp masks the inactive coefficients to zero and evaluates the full
+basis, as the JAX step does, so the masked coefficients get exact zero
+gradients. The random background (``opt.random_background``) is drawn
+from the ``generator`` the caller passes, or given outright as ``bg``.
+Nothing in the step reads the device back: the metrics are 0-d tensors.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import ModelConfig, OptimizationConfig, PipelineConfig, RasterConfig
 from ..core.camera import CameraBatch
 from ..core.gaussians import GaussianParams
-from ..core.packed import layout as packed_layout, mask_sh_rows
+from ..core.packed import (layout as packed_layout, mask_sh_rows,
+                           sh_band_index)
 from ..core.project import preprocess, preprocess_packed
 from ..models.gaussian_model import (TrainState, adam_update,
-                                     add_densification_stats, exposure_update,
-                                     group_lrs)
+                                     add_densification_stats, exposure_lr,
+                                     exposure_update, group_lrs)
 from ..models.packed_state import adam_update_packed, group_lr_rows
 from ..ops.losses import l1_loss
 from ..ops.ssim import ssim
@@ -58,8 +66,9 @@ class StepMetrics(NamedTuple):
     max_band_duplicates: Optional[torch.Tensor] = None
 
 
-def mask_sh_rest(params: GaussianParams, active_sh_degree: int) -> GaussianParams:
-    """Zero coefficients above the active degree (the SH ramp)."""
+def mask_sh_rest(params: GaussianParams, active_sh_degree) -> GaussianParams:
+    """Zero coefficients above the active degree (the SH ramp); the degree
+    is an int or a 0-d tensor."""
     rest_dim = params.sh_rest.shape[1]
     k = torch.arange(1, rest_dim + 1, device=params.sh_rest.device)
     keep = k < (active_sh_degree + 1) ** 2   # index in the full basis (DC is 0)
@@ -71,6 +80,19 @@ def apply_exposure(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
     """image' = E[:, :3]^T-mixed colors + offset (ref: gaussian_renderer/__init__.py:111-114)."""
     return (torch.einsum('chw,ck->khw', image, exposure[:3, :3])
             + exposure[:3, 3, None, None])
+
+
+def schedule_table(opt: OptimizationConfig, spatial_lr_scale: float,
+                   iterations) -> np.ndarray:
+    """[K, 3] float32, one row per iteration: the xyz learning rate
+    (``group_lrs``), the exposure rate (``exposure_lr``) and the depth-L1
+    weight, each the float32 ``expon_lr`` gives the eager step."""
+    return np.array([(group_lrs(opt, i, spatial_lr_scale).xyz,
+                      exposure_lr(opt, i),
+                      expon_lr(i, opt.depth_l1_weight_init,
+                               opt.depth_l1_weight_final,
+                               max_steps=opt.iterations))
+                     for i in iterations], np.float32).reshape(-1, 3)
 
 
 def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
@@ -86,7 +108,18 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
     with the state sharded over that group (``raster``'s
     ``visible_capacity`` and ``band_assign``; ``bf16_features`` is not
     read there, as in the JAX package's mesh branches). ``packed``: the
-    state is a ``PackedState``."""
+    state is a ``PackedState``.
+
+    ``step.core(state, cam_idx, iteration, sched, gt_image, alpha_mask,
+    invdepth_gt, depth_mask, depth_ok, bg=None, *, valid=None,
+    inplace=False)`` is the device-indexed step: ``cam_idx`` and
+    ``iteration`` 0-d int64 tensors, ``sched`` a [3] row of
+    :func:`schedule_table`, ``depth_ok`` a 0-d float32 tensor (read only
+    with ``invdepth_gt``), ``bg`` None for the static background. ``valid``
+    (0-d bool) gates every update, as the JAX core's; ``inplace`` writes
+    the new state into the given one (``models/gaussian_model.py``).
+    ``step.schedule(iterations)`` is :func:`schedule_table` for this
+    step's configuration."""
     width, height = cams.width, cams.height
     dev = cams.device
     use_sparse = opt.optimizer_type == "sparse_adam"
@@ -101,29 +134,39 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
                    visible_capacity=max(raster.visible_capacity, 0),
                    band_assign=raster.band_assign)
     lay = packed_layout(max_sh_degree)
+    # the constants of every step, on the device once
+    stats_scale = torch.tensor([0.5 * width, 0.5 * height],
+                               dtype=torch.float32, device=dev)
+    lrs_fixed = group_lrs(opt, 0, spatial_lr_scale)
+    if packed:
+        band_index = torch.from_numpy(sh_band_index(lay)).to(dev)
+        lr_fixed = group_lr_rows(lay, opt, 0, spatial_lr_scale, device=dev)
+        xyz_rows = (torch.arange(lay.rows, device=dev) < lay.xyz + 3)[:, None]
 
-    def step(state: TrainState, cam_idx: int, gt_image: torch.Tensor,
+    def core(state, cam_idx: torch.Tensor, iteration: torch.Tensor,
+             sched: torch.Tensor, gt_image: torch.Tensor,
              alpha_mask: Optional[torch.Tensor] = None,
              invdepth_gt: Optional[torch.Tensor] = None,
              depth_mask: Optional[torch.Tensor] = None,
-             depth_ok=0.0, iteration: int = 1, *,
-             bg: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None):
-        cam = cams.select(cam_idx)
-        active_sh_degree = min(iteration // 1000, max_sh_degree)
+             depth_ok: Optional[torch.Tensor] = None,
+             bg: Optional[torch.Tensor] = None, *,
+             valid: Optional[torch.Tensor] = None, inplace: bool = False):
+        index = cam_idx.reshape(1)
+        cam = cams.select_index(index)
+        active_sh_degree = torch.clamp(iteration // 1000, max=max_sh_degree)
         if bg is None:
-            bg = (torch.rand(3, generator=generator, device=dev)
-                  if opt.random_background else bg_static)
+            bg = bg_static
 
         if packed:
             leaves = [state.packed.detach().requires_grad_(True)]
-            masked = mask_sh_rows(leaves[0], lay, active_sh_degree)
+            masked = mask_sh_rows(leaves[0], lay, active_sh_degree,
+                                  band_index)
         else:
             leaves = [t.detach().requires_grad_(True) for t in state.params]
             masked = mask_sh_rest(GaussianParams(*leaves), active_sh_degree)
         tap = torch.zeros((state.capacity, 2), device=dev, requires_grad=True)
-        exposure_row = state.exposure[cam_idx].detach().requires_grad_(
-            use_exposure)
+        exposure_row = state.exposure.index_select(0, index)[0].detach(
+            ).requires_grad_(use_exposure)
 
         if mesh is not None:
             out = render_multichip(
@@ -154,12 +197,10 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
         loss = (1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (1.0 - ssim_v)
 
         # depth regularization (ref: train.py:124-135)
-        dw = expon_lr(iteration, opt.depth_l1_weight_init,
-                      opt.depth_l1_weight_final, max_steps=opt.iterations)
         if invdepth_gt is not None:
             dl1_pure = torch.mean(torch.abs((out.invdepth[0] - invdepth_gt)
                                             * depth_mask))
-            dl1 = dw * dl1_pure * depth_ok
+            dl1 = sched[2] * dl1_pure * depth_ok
             loss = loss + dl1
         else:
             dl1 = torch.zeros((), device=dev)
@@ -174,24 +215,28 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
             # densification statistics, while densification runs
             # (ref: train.py:157-160)
             stats_gate = out.visibility & (iteration < opt.densify_until_iter)
-            state = add_densification_stats(state, tap_grad, stats_gate,
-                                            width, height, out.radii)
+            state = add_densification_stats(
+                state, tap_grad, stats_gate, width, height, out.radii,
+                scale=stats_scale, valid=valid, inplace=inplace)
             visible = out.visibility if use_sparse else None
             # a profiler trace shows the update under this name
             with torch.profiler.record_function("gs_tpu_torch.adam"):
                 if packed:
-                    lr = group_lr_rows(lay, opt, iteration, spatial_lr_scale,
-                                       device=dev)
-                    state = adam_update_packed(state, grads[0], lr, visible)
+                    # the xyz rows take the scheduled rate, by selection
+                    lr = torch.where(xyz_rows, sched[0], lr_fixed)
+                    state = adam_update_packed(state, grads[0], lr, visible,
+                                               valid=valid, inplace=inplace)
                 else:
-                    lrs = group_lrs(opt, iteration, spatial_lr_scale)
                     state = adam_update(
-                        state, GaussianParams(*grads[:len(leaves)]), lrs,
-                        visible)
+                        state, GaussianParams(*grads[:len(leaves)]),
+                        lrs_fixed._replace(xyz=sched[0]), visible,
+                        valid=valid, inplace=inplace)
             if use_exposure:
-                full = torch.zeros_like(state.exposure)
-                full[cam_idx] = grads[-1]
-                state = exposure_update(state, full, opt, iteration)
+                full = torch.zeros_like(state.exposure).index_copy_(
+                    0, index, grads[-1][None])
+                state = exposure_update(state, full, opt, iteration,
+                                        valid=valid, lr=sched[1],
+                                        inplace=inplace)
             banded = out.band_visible is not None
             metrics = StepMetrics(
                 loss=loss.detach(), l1=ll1.detach(), ssim=ssim_v.detach(),
@@ -205,4 +250,33 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
                                      else None))
         return state, metrics
 
+    def upload(value, dtype) -> torch.Tensor:
+        if isinstance(value, torch.Tensor):
+            return value.to(device=dev, dtype=dtype)
+        return torch.tensor(value, dtype=dtype).to(dev, non_blocking=True)
+
+    def step(state: TrainState, cam_idx: int, gt_image: torch.Tensor,
+             alpha_mask: Optional[torch.Tensor] = None,
+             invdepth_gt: Optional[torch.Tensor] = None,
+             depth_mask: Optional[torch.Tensor] = None,
+             depth_ok=0.0, iteration: int = 1, *,
+             bg: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None):
+        if bg is None and opt.random_background:
+            bg = torch.rand(3, generator=generator, device=dev)
+        sched = torch.from_numpy(schedule(iteration)[0]).to(
+            dev, non_blocking=True)
+        return core(state, upload(cam_idx, torch.int64),
+                    upload(iteration, torch.int64), sched, gt_image,
+                    alpha_mask, invdepth_gt, depth_mask,
+                    upload(depth_ok, torch.float32), bg)
+
+    def schedule(iterations) -> np.ndarray:
+        return schedule_table(opt, spatial_lr_scale,
+                              np.atleast_1d(iterations))
+
+    step.core = core
+    step.schedule = schedule
+    step.device = dev
+    step.random_background = opt.random_background
     return step

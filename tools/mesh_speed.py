@@ -12,17 +12,17 @@ one per card, NCCL); with ``--device cpu`` it is k ``--multihost``
 processes over gloo. The dataset is chip_smoke.py's [trainer] dataset: the
 500,000-Gaussian bench scene's points and 8 views at 1920x1080 rendered by
 K1 from the seed (``--points``/``--width``/``--height`` make it smaller).
-Both runs train ``-r 1`` without densification (so both train the same
-Gaussians), print ``[i/N] ... it/s`` every 100 iterations, and save the
-point cloud at iteration HELD and at the last. Prints each run's iterations
-per second over its last 100 iterations and how far the two point clouds
-are apart, per field: the share of values beyond 2e-4 x the field's
-largest magnitude and the largest difference. At HELD at most 1 % may lie
-beyond (Adam's sign flips on gradients that are zero up to rounding, the
-rule of tests/test_torch_trainer.py); later the sums' other order, through
-Adam's normalised steps, carries the runs apart, so the last iteration's
-gap is reported, not held. Exits non-zero if a run fails or the rule does
-not hold.
+Both runs train ``-r 1`` in step mode without densification (so both
+train the same Gaussians), print ``[i/N] ... it/s`` every 100 iterations,
+and save the point cloud at iteration HELD and at the last. Prints each
+run's iterations per second over its last 100 iterations and how far the
+two point clouds are apart, per field: the share of values beyond 2e-4 x
+the field's largest magnitude and the largest difference. At HELD at most
+1 % may lie beyond (Adam's sign flips on gradients that are zero up to
+rounding, the rule of tests/test_torch_trainer.py); later the sums' other
+order, through Adam's normalised steps, carries the runs apart, so the
+last iteration's gap is reported, not held. Exits non-zero if a run fails
+or the rule does not hold.
 """
 from __future__ import annotations
 
@@ -126,7 +126,10 @@ def main() -> int:
               "--densify_from_iter", str(10 * it), "--test_iterations",
               str(10 * it), "--save_iterations", str(HELD), str(it),
               "--dup_capacity", str(dup), "--max_per_tile", "4096",
-              "--disable_viewer", "--data_device", args.device]
+              "--disable_viewer", "--data_device", args.device,
+              # both runs eager, one step at a time: the sharded step has
+              # no graph yet, so block mode would compare graph and eager
+              "--no_block_scan"]
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="4")
     runs = {}
     for name, k in (("one device", 1), (f"{args.ranks} ranks", args.ranks)):
