@@ -121,9 +121,18 @@ Phases (each failure exits non-zero):
     K1 launch of one banded render_view and every K2, K1g, K3 and K4 launch
     of one more training step, each on the inputs (the band's row map
     among them) that the mesh Trainer gave it, against its plain version
-    under the rules of phases 3-6; [mesh CLI] the training CLI over a real
-    NCCL group: --mesh N with N cards, else --multihost with a group of
-    one, saying which ran;
+    under the rules of phases 3-6; [mesh graph trainer]
+    Trainer(mesh=LocalGroup(4)) on the [trainer] dataset for 30 iterations
+    in step mode and in block mode through the chain and the scan (CUDA
+    graphs of the banded step and its collectives), through a
+    visible_capacity overflow, its replay and the capture its growth
+    causes, and a densify: chain and scan bitwise step mode in the losses
+    at the syncs and the final state; host ms, device busy and idle,
+    launches per iteration over one more block, every capture's ms and
+    graph-pool peak; [mesh CLI] the training CLI over a real NCCL group
+    (--mesh N with N cards, else --multihost with a group of one, saying
+    which ran), in step mode and in its default block mode, whose NCCL
+    collectives are captured: the two PLYs byte for byte equal;
 12. [viewer], the viewer's path: the training CLI on the [trainer]
     dataset for 80 iterations with its viewer server on a free local port,
     and a client thread asking for 1920x1080 frames (two sent together
@@ -196,8 +205,9 @@ Phases (each failure exits non-zero):
     phase that trains through the CLI passes --no_block_scan, so it runs
     and measures step mode as before;
 20. a JSON line of the kernels' numbers (with each kernel's launches on
-    every path, the mesh trainer's, the packed step's, the bf16 frames'
-    and the graph phases' among them), then the card's name and power
+    every path, the mesh trainer's, the packed step's, the bf16 frames',
+    the graph phases' and the mesh graph trainer's among them), then the
+    card's name and power
     limit, then the result line {"ok": true, "device": {...}}.
 
 It exits non-zero without a CUDA device, or when run outside the repository.
@@ -2630,8 +2640,9 @@ def mesh_trainer_phase(torch, dev, root, dup, counters):
     visible_capacity growth with replay, against the one-device Trainer at
     the same iteration; then the training CLI over a real NCCL group:
     --mesh N when this machine has N >= 2 cards, else --multihost with a
-    group of one. Returns the mesh run's kernel launches, and each kernel's
-    largest error on the inputs the mesh Trainer gave it."""
+    group of one ([mesh CLI], step and block mode). Returns the mesh run's
+    kernel launches, and each kernel's largest error on the inputs the mesh
+    Trainer gave it."""
     import dataclasses
     import random
     from gs_tpu_torch.apps import train as train_app
@@ -2754,45 +2765,212 @@ def mesh_trainer_phase(torch, dev, root, dup, counters):
                               "mesh trainer kernels")
     del one, mesh, state
 
-    # the CLI over a real NCCL group
-    cards = torch.cuda.device_count()
-    model = os.path.join(os.path.dirname(root), "model_mesh")
-    args = ["-s", root, "-m", model, "-r", "1", "--eval", "--iterations", "10",
-            "--densify_from_iter", "4", "--densification_interval", "5",
-            "--test_iterations", "10", "--save_iterations", "10",
-            "--dup_capacity", str(band_dup), "--disable_viewer", "--quiet",
-            "--data_device", dev.type, "--no_block_scan"]
-    log = io.StringIO()
-    t0 = time.perf_counter()
-    if cards >= 2:
-        how = f"--mesh {cards}: {cards} processes, one per card, NCCL"
-        train_app.main(args + ["--mesh", str(cards)])
-    else:
-        how = "--multihost with a group of one (this machine has one card), NCCL"
-        env = {"GS_TPU_COORD": f"127.0.0.1:{free_port()}",
-               "GS_TPU_NPROCS": "1", "GS_TPU_PROCID": "0"}
-        os.environ.update(env)
-        try:
-            with contextlib.redirect_stdout(log):
-                tr = train_app.main(args + ["--multihost"])
-        finally:
-            for k in env:
-                os.environ.pop(k)
-        want = "nccl" if dev.type == "cuda" else "gloo"
-        check(tr.mesh.backend == want and tr.mesh.size == 1,
-              f"[mesh CLI] group {tr.mesh.backend} of {tr.mesh.size}")
-        check("Sharding gaussians over 1 devices" in log.getvalue(),
-              "[mesh CLI] no sharding line")
-        del tr
-    ply = os.path.join(model, "point_cloud", "iteration_10",
-                       "point_cloud.ply")
-    check(os.path.exists(ply), "[mesh CLI] no PLY")
-    print(f"[mesh CLI] ran {how}: 10 iterations with two densifies, a test "
-          f"evaluation and a gathered PLY in {time.perf_counter() - t0:.2f} "
-          f"s; " + " | ".join(ln for ln in log.getvalue().splitlines()
-                              if "Sharding" in ln or "Evaluating" in ln),
-          flush=True)
+    mesh_cli_phase(torch, dev, root, band_dup)
     return launches, errs
+
+
+def mesh_cli_phase(torch, dev, root, band_dup):
+    """[mesh CLI]: the training CLI over a real NCCL group (--mesh N with N
+    >= 2 cards, else --multihost with a group of one), 10 iterations with
+    two densifies and a test evaluation, in step mode (--no_block_scan)
+    and in the CLI's default block mode on CUDA (its collectives captured
+    in the chain's graphs): the two gathered PLYs byte for byte equal, and
+    the block run's log shows its captures (in this process: --mesh N's
+    ranks print to their own output)."""
+    from gs_tpu_torch.apps import train as train_app
+    cards = torch.cuda.device_count()
+    plys = {}
+    for mode, extra in (("step mode", ["--no_block_scan"]),
+                        ("block mode", [])):
+        model = os.path.join(os.path.dirname(root),
+                             "model_mesh_" + mode.split()[0])
+        args = ["-s", root, "-m", model, "-r", "1", "--eval", "--iterations",
+                "10", "--densify_from_iter", "4",
+                "--densification_interval", "5", "--test_iterations", "10",
+                "--save_iterations", "10", "--dup_capacity", str(band_dup),
+                "--disable_viewer", "--quiet", "--data_device",
+                dev.type] + extra
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        if cards >= 2:
+            how = f"--mesh {cards}: {cards} processes, one per card, NCCL"
+            train_app.main(args + ["--mesh", str(cards)])
+        else:
+            how = ("--multihost with a group of one (this machine has one "
+                   "card), NCCL")
+            env = {"GS_TPU_COORD": f"127.0.0.1:{free_port()}",
+                   "GS_TPU_NPROCS": "1", "GS_TPU_PROCID": "0"}
+            os.environ.update(env)
+            try:
+                with contextlib.redirect_stdout(log):
+                    tr = train_app.main(args + ["--multihost"])
+            finally:
+                for k in env:
+                    os.environ.pop(k)
+            want = "nccl" if dev.type == "cuda" else "gloo"
+            check(tr.mesh.backend == want and tr.mesh.size == 1,
+                  f"[mesh CLI] group {tr.mesh.backend} of {tr.mesh.size}")
+            check("Sharding gaussians over 1 devices" in log.getvalue(),
+                  "[mesh CLI] no sharding line")
+            if mode == "block mode":
+                check(len(tr.captures) >= 1
+                      and "captured the chain step" in log.getvalue(),
+                      f"[mesh CLI] block mode captured {tr.captures}")
+            else:
+                check(not tr.captures, "[mesh CLI] step mode captured")
+            del tr
+        ply = os.path.join(model, "point_cloud", "iteration_10",
+                           "point_cloud.ply")
+        check(os.path.exists(ply), f"[mesh CLI] {mode}: no PLY")
+        with open(ply, "rb") as f:
+            plys[mode] = f.read()
+        print(f"[mesh CLI] {mode}, ran {how}: 10 iterations with two "
+              f"densifies, a test evaluation and a gathered PLY in "
+              f"{time.perf_counter() - t0:.2f} s; " + " | ".join(
+                  ln for ln in log.getvalue().splitlines()
+                  if "Sharding" in ln or "Evaluating" in ln
+                  or "captured" in ln), flush=True)
+    check(plys["block mode"] == plys["step mode"],
+          "[mesh CLI] the block-mode PLY differs from the step-mode PLY")
+    print(f"[mesh CLI] the block-mode PLY ({len(plys['block mode'])} bytes) "
+          f"is byte for byte the step-mode PLY", flush=True)
+
+
+MESH_GRAPH_ITERS = 30     # [mesh graph trainer]: syncs at 10, 20 (densify), 30
+MESH_GRAPH_EXTRA = 10     # the timed block after the run, and the profiled one
+
+
+def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
+    """[mesh graph trainer]: Trainer(mesh=LocalGroup(MESH_K)) on the
+    [trainer] dataset for MESH_GRAPH_ITERS iterations in step mode, then in
+    block mode through the chain and the scan (buckets of 10): the first
+    sync's visible_capacity overflow (MESH_VCAP), its replay and the
+    capture its growth causes, a densify at 20, syncs at 10, 20 and 30 in
+    every mode. Chain and scan must be bitwise the step-mode run: the
+    losses at the syncs and the final state. Then, on the trained state,
+    one more block of MESH_GRAPH_EXTRA iterations timed by host clock
+    (synchronised at both ends) with the launch counters read around it,
+    and one more profiled with device records only: device busy and idle
+    share per iteration, kernels per iteration. Prints each capture's ms
+    and graph-pool peak. Returns the chain run's launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
+                                     PipelineConfig, RasterConfig)
+    from gs_tpu_torch.data.scene import Scene
+    from gs_tpu_torch.parallel.mesh import LocalGroup
+    from gs_tpu_torch.train.graph import state_leaves
+    from gs_tpu_torch.train.loop import Trainer
+
+    scene = Scene(root, "", resolution=1, eval_split=True, device=dev)
+    opt = OptimizationConfig(iterations=300, densify_from_iter=10,
+                             densification_interval=10, densify_until_iter=25,
+                             opacity_reset_interval=1000)
+    band_dup = -(-dup // 2 // 512) * 512
+    n = MESH_GRAPH_EXTRA
+    ref, launches_chain = None, None
+    for mode in ("step", "chain", "scan"):
+        t0 = time.perf_counter()
+        tr = Trainer(scene.get_train_cameras(), scene.point_cloud,
+                     spatial_lr_scale=scene.cameras_extent,
+                     model_cfg=ModelConfig(data_device=str(dev)), opt=opt,
+                     pipe=PipelineConfig(),
+                     raster=RasterConfig(dup_capacity=band_dup,
+                                         visible_capacity=MESH_VCAP),
+                     seed=0, mesh=LocalGroup(MESH_K, dev))
+        tr.sync_every = 10
+        if mode != "step":
+            tr.block_dispatch = mode
+        grows, syncs = [], {}
+        grow = tr._grow_raster
+        tr._grow_raster = lambda changes, will_replay: (
+            grows.append(dict(changes)), grow(changes, will_replay))
+
+        def on_step(i, m, t):
+            if i % tr.sync_every == 0:
+                syncs[i] = float(m.loss)
+
+        for c in counters.values():
+            c.launches = 0
+        tr.train(iterations=MESH_GRAPH_ITERS, block_scan=mode != "step",
+                 log_every=1, on_step=on_step)
+        tr.sync_metrics()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        check(tr.iteration == MESH_GRAPH_ITERS and tr.overflow_exhausted == 0,
+              f"[mesh graph trainer] {mode}: iteration {tr.iteration}, "
+              f"replay exhausted {tr.overflow_exhausted}")
+        check(any("visible_capacity" in g for g in grows),
+              f"[mesh graph trainer] {mode}: visible_capacity never grew "
+              f"({grows})")
+        check(sorted(syncs) == [10, 20, 30]
+              and all(math.isfinite(x) for x in syncs.values()),
+              f"[mesh graph trainer] {mode}: syncs {syncs}")
+        check(all(launches[k] >= MESH_K * MESH_GRAPH_ITERS
+                  for k in ("K2", "K1g", "K3", "K4")),
+              f"[mesh graph trainer] {mode}: launches {launches}")
+        if mode == "step":
+            check(not tr.captures, "[mesh graph trainer] step mode captured")
+        else:
+            check(len(tr.captures) >= 2 and tr._runner.mode == mode,
+                  f"[mesh graph trainer] {mode}: captures {tr.captures}")
+        state = [t.clone() for t in state_leaves(tr.state)]
+        if ref is None:
+            ref = dict(state=state, syncs=syncs, grows=grows)
+            verdict = "the reference"
+        else:
+            bitwise = [torch.equal(a, b) for a, b in zip(state, ref["state"])]
+            check(syncs == ref["syncs"] and all(bitwise),
+                  f"[mesh graph trainer] {mode} against step mode: losses "
+                  f"{syncs} vs {ref['syncs']}, state leaves equal {bitwise}, "
+                  f"spread {[float((a - b).abs().max()) for a, b in zip(state, ref['state']) if a.is_floating_point()]}")
+            verdict = ("losses at the syncs and final state bitwise step "
+                       "mode's")
+        del state
+
+        # one more block on the trained state: host ms, launches
+        def block():
+            if mode == "step":
+                for _ in range(n):
+                    tr._dispatch_step()
+            else:
+                tr.run_block(n)
+
+        c0 = {k: c.launches for k, c in counters.items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        block()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t1) / n
+        per_it = {k: (c.launches - c0[k]) / n for k, c in counters.items()}
+        # and one more, profiled: device records only
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            block()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
+        n_k = sum(e.count for e in kern) / n
+        print(f"[mesh graph trainer] {mode}: {MESH_GRAPH_ITERS} iterations "
+              f"of the [trainer] dataset, {tr.capacity} slots in {MESH_K} "
+              f"shards, in {wall:.2f} s; grown buffers {grows}; syncs "
+              + ", ".join(f"{i}: {x:.7f}" for i, x in sorted(syncs.items()))
+              + f" ({verdict}); launches {launches}; captures "
+              + (", ".join(f"capacity {c['capacity']} {c['ms']:.1f} ms pool "
+                           f"peak {c['pool_peak_bytes']}"
+                           for c in tr.captures) or "none")
+              + f"; one more block of {n}: {ms:.3f} ms per iteration (host "
+              f"clock, synchronised), kernel wrappers' launches per "
+              f"iteration {per_it}; device busy {busy:.4f} ms per iteration "
+              f"over one more profiled block ({n_k:.1f} kernels each)"
+              + (f", idle {1 - busy / ms:.1%}" if busy > 0 else
+                 ", the profiler saw no kernel (busy not measured)"),
+              flush=True)
+        if mode == "chain":
+            launches_chain = launches
+        del tr
+        torch.cuda.empty_cache()
+    return launches_chain
 
 
 PACKED_ITERS = 60              # [packed trainer]: a densify at 50
@@ -4119,6 +4297,11 @@ def main() -> int:
         mesh_errs[k] = max(mesh_errs.get(k, 0.0), v)
     print(f"[mesh] the mesh phases in {time.perf_counter() - t_mesh:.1f} s",
           flush=True)
+    t_mesh = time.perf_counter()
+    mesh_graph_launches = mesh_graph_trainer_phase(torch, dev, root, dup,
+                                                   counters)
+    print(f"[mesh graph trainer] in {time.perf_counter() - t_mesh:.1f} s",
+          flush=True)
     frames, live_cams = live_frames(torch, dev, p0, alive0, pts)
     del p0, alive0, mid
     viewer_launches, viewer_errs = viewer_phase(torch, dev, root, dup,
@@ -4170,6 +4353,7 @@ def main() -> int:
         k["bf16_launches"] = bf16_launches[k["id"]]
         k["graph_step_launches"] = graph_step_launches[k["id"]]
         k["graph_trainer_launches"] = graph_trainer_launches[k["id"]]
+        k["mesh_graph_launches"] = mesh_graph_launches[k["id"]]
         k["max_abs_err"] = max(k["max_abs_err"], viewer_errs[k["id"]],
                                live_errs[k["id"]], rain_errs[k["id"]],
                                mesh_errs.get(k["id"], 0.0),

@@ -15,7 +15,8 @@ Training runs on ``--data_device`` (``cuda`` by default), where the training
 images live. On a CUDA device the default is block mode, as the JAX CLI's
 on its accelerator (``gs_tpu/apps/train.py:340-341``): schedule-aligned
 blocks with one sync each, dispatched as CUDA graphs of the step
-(``train/graph.py``); --no_block_scan keeps step mode. Elsewhere step mode
+(``train/graph.py``), under --mesh and --multihost too (the graphs then
+hold the NCCL collectives); --no_block_scan keeps step mode. Elsewhere step mode
 is the default and --block_scan asks for blocks. Unless --disable_viewer
 is given, a SIBR-protocol viewer server listens on --ip:--port
 (``viewer/server.py``) and is polled after every iteration (after every
@@ -211,8 +212,7 @@ def main(argv=None, *, group=None):
         return _train(args, model_cfg, opt, pipe, raster, group)
     finally:
         if own_group and group is not None:
-            import torch.distributed as dist
-            dist.destroy_process_group()
+            group.close()
 
 
 def _train(args, model_cfg, opt, pipe, raster, group):

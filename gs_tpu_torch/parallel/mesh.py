@@ -20,6 +20,21 @@ set of shards and the collectives between them. Each process holds its
 ``parallel/render_mc.py`` is written once against both: its phases loop
 over the local shards and meet at the collectives below.
 
+Every collective of the training step enqueues on the current stream and
+reads nothing back to the host, so a CUDA graph can capture it
+(``train/graph.py``): on NCCL the gathers are ``all_gather_into_tensor``
+into one preallocated tensor and the packet gather's backward is
+``reduce_scatter_tensor``. A group's captures use its
+``capture_error_mode``: a "global" capture forbids unsafe CUDA calls in
+every thread of the process, NCCL's watchdog thread among them, which
+queries the events of earlier collectives; "thread_local" forbids them in
+the capturing thread only. Captured and eager collectives (densify's
+gathers, ``num_alive``, the banded evaluation) share one communicator,
+which NCCL allows (``NCCL_GRAPH_MIXING_SUPPORT``, on by default); every
+eager collective between blocks follows the last replay on the same
+stream. NCCL destroys a communicator only after every graph that captured
+its collectives is gone, so a ``ProcessGroup`` ends with :meth:`close`.
+
 A ``models/packed_state.py::PackedState`` shards the same way: its [R, C]
 blocks (parameters and Adam moments) split on their column axis, every
 [C] tensor on its only axis (``gs_tpu/parallel/mesh.py:40-63``), so a
@@ -28,6 +43,7 @@ process's shards sit side by side in its blocks' columns.
 from __future__ import annotations
 
 import os
+import weakref
 
 import torch
 
@@ -43,6 +59,8 @@ PACKED_BLOCKS = ("packed", "m", "v")
 
 class LocalGroup:
     """k shards in one process on ``device``."""
+
+    capture_error_mode = "global"
 
     def __init__(self, k: int, device="cuda"):
         if k < 1:
@@ -76,32 +94,42 @@ class LocalGroup:
         outside autograd."""
         return torch.stack([x.detach() for x in xs]).sum(0)
 
+    def every(self, flag: bool) -> bool:
+        """Whether ``flag`` holds in every process of the group."""
+        return bool(flag)
+
+
+def _all_gather(x, group):
+    """The group's ``x`` concatenated on dim 0, in rank order, into one
+    new tensor (one ``all_gather_into_tensor``: capturable on NCCL)."""
+    import torch.distributed as dist
+    x = x.contiguous()
+    out = x.new_empty((group.size * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x)
+    return out
+
 
 class _GatherSum(torch.autograd.Function):
     """all_gather on dim 0. Its backward hands each rank the sum over ranks
     of the gradient of its own rows: each rank's band read every packet,
     and the owner of a packet gets the sum of their contributions
-    (reduce-scatter on NCCL; all-reduce and slice on gloo, which has no
-    reduce-scatter)."""
+    (reduce-scatter on NCCL; all-reduce and slice on gloo)."""
 
     @staticmethod
     def forward(ctx, x, group):
-        import torch.distributed as dist
         ctx.group = group
-        parts = [torch.empty_like(x) for _ in range(group.size)]
-        dist.all_gather(parts, x.contiguous())
-        return torch.cat(parts)
+        return _all_gather(x, group)
 
     @staticmethod
     def backward(ctx, g):
         import torch.distributed as dist
         group = ctx.group
-        parts = list(g.contiguous().chunk(group.size))
-        if dist.get_backend() == "nccl":
-            out = torch.empty_like(parts[0])
-            dist.reduce_scatter(out, parts)
+        g = g.contiguous()
+        if group.backend == "nccl":
+            out = g.new_empty((g.shape[0] // group.size,) + tuple(g.shape[1:]))
+            dist.reduce_scatter_tensor(out, g)
         else:
-            total = g.contiguous().clone()
+            total = g.clone()
             dist.all_reduce(total)
             out = total.chunk(group.size)[group.rank].contiguous()
         return out, None
@@ -116,11 +144,8 @@ class _GatherOwn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        import torch.distributed as dist
         ctx.group = group
-        parts = [torch.empty_like(x) for _ in range(group.size)]
-        dist.all_gather(parts, x.contiguous())
-        return torch.stack(parts)
+        return _all_gather(x.unsqueeze(0), group)
 
     @staticmethod
     def backward(ctx, g):
@@ -129,7 +154,9 @@ class _GatherOwn(torch.autograd.Function):
 
 class ProcessGroup:
     """One shard per process of the initialised ``torch.distributed`` group
-    (its world size and rank), on ``device``."""
+    (its world size and rank), on ``device``. End it with :meth:`close`."""
+
+    capture_error_mode = "thread_local"
 
     def __init__(self, device):
         import torch.distributed as dist
@@ -141,6 +168,9 @@ class ProcessGroup:
         self.local = [self.rank]
         self.device = torch.device(device)
         self.backend = dist.get_backend()
+        # the step graphs (train/graph.py) that captured this group's
+        # collectives, released by ``close``
+        self.graphs = weakref.WeakSet()
 
     @property
     def is_main(self) -> bool:
@@ -155,12 +185,8 @@ class ProcessGroup:
         return _GatherOwn.apply(x, self)
 
     def gather_values(self, xs):
-        import torch.distributed as dist
         (x,) = xs
-        x = x.detach().contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x)
-        return torch.stack(parts)
+        return _all_gather(x.detach().unsqueeze(0), self)
 
     def sum(self, xs):
         import torch.distributed as dist
@@ -169,9 +195,30 @@ class ProcessGroup:
         dist.all_reduce(total)
         return total
 
+    def every(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on every rank (an eager collective: every
+        rank calls it)."""
+        import torch.distributed as dist
+        t = torch.tensor([0 if flag else 1], dtype=torch.int32,
+                         device=self.device)
+        dist.all_reduce(t)
+        return int(t) == 0
+
     def barrier(self):
         import torch.distributed as dist
         dist.barrier()
+
+    def close(self):
+        """Destroy the ``torch.distributed`` group. NCCL destroys a
+        communicator only once every CUDA graph that captured one of its
+        collectives is gone, and waits for that (forever, if a graph is
+        kept alive): the graphs in ``graphs`` are released first."""
+        import torch.distributed as dist
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for g in list(self.graphs):
+            g.release()
+        dist.destroy_process_group()
 
 
 def init_from_env(device_type: str) -> ProcessGroup:

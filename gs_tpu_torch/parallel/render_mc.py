@@ -142,7 +142,9 @@ def _assign_bands_split(cost, heavy, colcosts, k: int, B: int, H: int,
 def _cumown(row_map, gy_glob: int):
     """The exclusive prefix count of a band's owned rows, [gy_glob + 1]."""
     own = torch.zeros(gy_glob, dtype=torch.int32, device=row_map.device)
-    own[row_map.to(torch.int64)] = 1
+    # a fill by index: a scalar assigned through ``own[idx] = 1`` is copied
+    # from the host, which a CUDA graph's capture refuses
+    own.index_fill_(0, row_map.to(torch.int64), 1)
     return torch.cat([torch.zeros(1, dtype=torch.int32, device=own.device),
                       torch.cumsum(own, 0, dtype=torch.int32)])
 
@@ -213,7 +215,10 @@ def band_assignment(projs, group, width: int, height: int,
     and pixel column; None where whole rows suffice, with the row index
     [gy_pad] second). ``projs``: the local shards' projections; the costs
     are summed over the group, so every process derives the same
-    assignment."""
+    assignment. Without ``split_rows`` nothing here reads the device back,
+    so a CUDA graph can capture it (the training step's path); the split
+    path's boolean-mask scatter synchronises with the host and is eager
+    only."""
     k = group.size
     gx, gy, gy_pad, band_rows, split = band_layout(width, height, k,
                                                    band_assign, split_rows)
@@ -290,6 +295,10 @@ def render_multichip(params: GaussianParams, camera: Camera,
     (0: the whole shard); a shard with more visible Gaussians sets
     ``overflow``, as a binning capacity does. ``band_assign`` "cost" or
     "stride" and ``split_rows`` as ``gs_tpu/parallel/render_mc.py``.
+    Without ``split_rows`` (the trainer passes none) the render reads
+    nothing back to the host and a CUDA graph can capture it with its
+    collectives (``train/graph.py``); with it, the band assignment is
+    eager only (``band_assignment``).
 
     ``packed_sh_degree``: ``params`` is then the channel-major [R, C]
     block of that SH degree (``core/packed.py``), the local shards side by

@@ -40,6 +40,25 @@ the next tier is captured when it is needed and nothing runs in the
 background. A failed capture or replay raises: nothing retries through
 the eager loop.
 
+Under a mesh (``train_step.mesh``, a group of ``parallel/mesh.py``) the
+step is the banded multi-GPU step, and the graph holds its collectives
+too: a ``LocalGroup``'s concatenations and sums, a ``ProcessGroup``'s NCCL
+all-gathers, reduce-scatters and all-reduces (on gloo, CPU tensors, the
+bodies run eagerly). Every rank of a ``ProcessGroup`` captures at the same
+points, because what decides a capture is what all ranks share: the
+shapes, and the gathered overflow statistics behind a growth. Each rank's
+warm-up runs the step's collectives before the capture, so NCCL's
+communicator exists; after the capture the ranks agree, eagerly, on
+whether every capture succeeded, and a capture that failed on any rank
+raises on every rank (a rank that went on alone would hang in its next
+collective). NCCL destroys a communicator only after every graph that
+captured its collectives is gone, so ``ProcessGroup.close`` releases the
+graphs of its group before it destroys the group. The bucket's metrics
+then also carry the largest shard's visible count and the largest band's
+duplicates over the bucket's valid steps, from which the trainer grows
+``visible_capacity`` and the per-band ``dup_capacity``; ``captures``
+records the whole state's capacity.
+
 The random background of a bucket is drawn before it, all B draws at
 once, in both modes, as the JAX trainer splits one key into B per bucket:
 chain and scan see the same backgrounds and no generator runs inside a
@@ -55,6 +74,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.gaussians import GaussianParams
+from ..parallel.mesh import ProcessGroup
 from .step import StepMetrics
 
 
@@ -65,6 +85,13 @@ class TrainingData(NamedTuple):
     invdepths: Optional[torch.Tensor] = None  # [V, H, W]
     depth_masks: Optional[torch.Tensor] = None
     depth_oks: Optional[torch.Tensor] = None  # [V] float32
+
+
+# the bucket's metrics folded over its valid steps: the worst overflow and
+# the largest counts (the last two under a mesh only), as
+# ``gs_tpu/train/step.py:291-299`` and ``train/loop.py::_fold_window``
+FOLDED = ("overflow", "num_duplicates", "max_tile_len", "max_band_visible",
+          "max_band_duplicates")
 
 
 def state_leaves(state) -> list:
@@ -106,6 +133,7 @@ class _Graphed:
     def __init__(self, train_step, *, use_alpha: bool, use_depth: bool,
                  bucket: int):
         self.core = train_step.core
+        self.mesh = train_step.mesh
         self.device = torch.device(train_step.device)
         self.random_background = train_step.random_background
         self.use_alpha, self.use_depth = use_alpha, use_depth
@@ -200,8 +228,15 @@ class _Graphed:
 
     # -------------------------------------------------- capture and replay
 
+    def capacity(self) -> int:
+        """The whole state's capacity (under a mesh, over every shard)."""
+        n = self.state.alive.shape[0]
+        if self.mesh is None:
+            return n
+        return n // len(self.mesh.local) * self.mesh.size
+
     def _capture(self):
-        dev = self.device
+        dev, mesh = self.device, self.mesh
         t0 = time.perf_counter()
         warm = clone_state(self.state)
         side = torch.cuda.Stream(dev)
@@ -215,23 +250,43 @@ class _Graphed:
         before = [f.launches for f in counters]
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.graph_body()
-        torch.cuda.synchronize(dev)
-        peak = torch.cuda.max_memory_allocated(dev) - base
+        graph, failure = torch.cuda.CUDAGraph(), None
+        mode = "global" if mesh is None else mesh.capture_error_mode
+        try:
+            with torch.cuda.graph(graph, capture_error_mode=mode):
+                self.graph_body()
+            torch.cuda.synchronize(dev)
+        except Exception as e:   # raised below, on every rank
+            failure = e
         # the capture ran no kernel: its launches count at each replay
         self.counts = {f: f.launches - n for f, n in zip(counters, before)}
         for f, n in self.counts.items():
             f.launches -= n
+        ok = failure is None
+        if mesh is not None:
+            ok = mesh.every(ok)      # a collective: every rank learns it
+        if not ok:
+            where = "" if failure is not None else " on another rank"
+            raise RuntimeError(f"capturing the {self.mode} step failed"
+                               f"{where}") from failure
+        peak = torch.cuda.max_memory_allocated(dev) - base
         self.graph = graph
+        if isinstance(mesh, ProcessGroup):
+            mesh.graphs.add(self)     # released before the group is closed
         ms = 1e3 * (time.perf_counter() - t0)
-        capacity = self.state.alive.shape[0]
+        capacity = self.capacity()
         self.captures.append(dict(capacity=capacity, ms=ms,
                                   pool_peak_bytes=peak))
+        shards = "" if mesh is None else f" in {mesh.size} shards"
         print(f"[gs_tpu_torch] captured the {self.mode} step at capacity "
-              f"{capacity} in {ms:.1f} ms (graph pool peak {peak} bytes)",
-              flush=True)
+              f"{capacity}{shards} in {ms:.1f} ms (graph pool peak {peak} "
+              f"bytes)", flush=True)
+
+    def release(self):
+        """Destroy the captured graph; a later call raises (``dispatch``)."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
 
     def replay(self):
         self.graph.replay()
@@ -267,8 +322,8 @@ class ChainStep(_Graphed):
         self.row_ints = torch.zeros((2,), dtype=torch.int64, device=dev)
         self.row_floats = torch.zeros((6,), dtype=torch.float32, device=dev)
         self.out: Optional[StepMetrics] = None
-        # the bucket's overflow, num_duplicates and max_tile_len
-        self.fold = None
+        # the bucket's FOLDED metrics, by name
+        self.fold: Optional[dict] = None
 
     def warm_up(self, state):
         _, m = self.step_body(state, self.row_ints, self.row_floats)
@@ -277,8 +332,8 @@ class ChainStep(_Graphed):
     def _make_fold(self, m: StepMetrics):
         # outside any capture: a zero fill made inside one would replay
         if self.fold is None:
-            self.fold = [torch.zeros_like(x) for x in (
-                m.overflow, m.num_duplicates, m.max_tile_len)]
+            self.fold = {k: torch.zeros_like(getattr(m, k)) for k in FOLDED
+                         if getattr(m, k) is not None}
 
     def graph_body(self):
         self.state, self.out = self.step_body(self.state, self.row_ints,
@@ -288,10 +343,9 @@ class ChainStep(_Graphed):
 
     def _fold_in(self, m: StepMetrics):
         """The bucket's worst overflow and largest counts, in place."""
-        ov, nd, ml = self.fold
-        torch.logical_or(ov, m.overflow, out=ov)
-        torch.maximum(nd, m.num_duplicates, out=nd)
-        torch.maximum(ml, m.max_tile_len, out=ml)
+        for k, acc in self.fold.items():
+            op = torch.logical_or if k == "overflow" else torch.maximum
+            op(acc, getattr(m, k), out=acc)
 
     def __call__(self, state, data: TrainingData, j: int):
         """Step ``j`` of the loaded bucket on ``state`` (copied into the
@@ -309,16 +363,14 @@ class ChainStep(_Graphed):
         bucket's worst overflow and largest counts (copies)."""
         self.bind(state, data)
         if self.fold is not None:
-            for x in self.fold:
+            for x in self.fold.values():
                 x.zero_()
         for j in range(b):
             self(self.state, data, j)
-        ov, nd, ml = self.fold
         m = StepMetrics(*[x.clone() if isinstance(x, torch.Tensor) else x
                           for x in self.out])
-        return self.state, m._replace(overflow=ov.clone(),
-                                      num_duplicates=nd.clone(),
-                                      max_tile_len=ml.clone())
+        return self.state, m._replace(**{k: x.clone()
+                                         for k, x in self.fold.items()})
 
 
 class ScanSteps(_Graphed):
@@ -356,11 +408,10 @@ class ScanSteps(_Graphed):
 
         self.out = StepMetrics(
             loss=pick("loss"), l1=pick("l1"), ssim=pick("ssim"),
-            depth_l1=pick("depth_l1"),
-            num_duplicates=largest("num_duplicates"),
-            max_tile_len=largest("max_tile_len"),
+            depth_l1=pick("depth_l1"), n_visible=pick("n_visible"),
             overflow=(column("overflow") & v).any(),
-            n_visible=pick("n_visible"))
+            **{k: largest(k) for k in FOLDED[1:]
+               if getattr(ms[0], k) is not None})
 
     def __call__(self, state, data: TrainingData):
         """The loaded bucket on ``state``, one replay: its valid steps
@@ -386,7 +437,11 @@ def make_train_step_chain(train_step, *, use_alpha: bool, use_depth: bool,
     static state and the step inputs, and each call copies its row of the
     loaded bucket into those inputs and replays. ``bucket``: the rows
     :meth:`ChainStep.load` takes. ``train_step``: a
-    ``train/step.py::make_train_step`` result (one device, no mesh)."""
+    ``train/step.py::make_train_step`` result, on one device or under a
+    mesh (its collectives captured with the step; see the module's
+    docstring). :meth:`ChainStep.run` folds the bucket's metrics over its
+    steps as the JAX trainer's chain does (``gs_tpu/train/loop.py:
+    194-202``)."""
     return ChainStep(train_step, use_alpha=use_alpha, use_depth=use_depth,
                      bucket=bucket)
 
@@ -397,7 +452,9 @@ def make_train_steps_scan(train_step, *, use_alpha: bool, use_depth: bool,
     bucket's ``valid`` mask (False: the state is left exactly as it was),
     so blocks of any length share one capture. The bucket's metrics are
     the last valid step's, with the worst overflow and the largest
-    ``num_duplicates`` and ``max_tile_len`` over its valid steps
-    (``gs_tpu/train/step.py:291-299``)."""
+    ``num_duplicates`` and ``max_tile_len`` (under a mesh also
+    ``max_band_visible`` and ``max_band_duplicates``) over its valid steps
+    (``gs_tpu/train/step.py:291-299``). ``train_step`` as for
+    :func:`make_train_step_chain`."""
     return ScanSteps(train_step, use_alpha=use_alpha, use_depth=use_depth,
                      bucket=bucket)

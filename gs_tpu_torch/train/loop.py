@@ -34,8 +34,10 @@ between blocks (densify, opacity reset, an overflow replay's snapshot, a
 resumed checkpoint) is copied into the static tensors at the next block.
 A growth of the capacity, or of the binning buffers (which rebuilds the
 step), captures again; ``captures`` records each capture's capacity, time
-and graph-pool peak. Under a ``mesh`` a block runs the eager step, one
-iteration at a time: the graphed multi-GPU step is not ported yet.
+and graph-pool peak. Under a ``mesh`` the block goes through the same
+chain or scan, whose graph then holds the banded step and its
+collectives, as the JAX trainer dispatches its block under a mesh
+(``gs_tpu/train/loop.py:327-375``); on gloo the bodies run eagerly.
 
 Under a ``mesh`` (a group of ``parallel/mesh.py``) the state is this
 process's shards of a capacity padded to a multiple of the group's size
@@ -393,16 +395,12 @@ class Trainer:
         keeps densify/reset boundaries out of the block (``train`` aligns
         blocks to the schedule).
 
-        On one device the block goes through ``block_dispatch``: buckets of
-        at most ``densification_interval`` steps, each bucket's camera
-        picks, iterations, schedule rows and backgrounds uploaded once;
-        "chain" replays the captured step once per iteration, "scan" the
-        captured bucket once (its tail steps masked). Under a ``mesh`` the
-        eager step runs once per iteration."""
-        if self.mesh is not None:
-            for _ in range(k):
-                self._dispatch_step()
-            return self._last_metrics
+        The block goes through ``block_dispatch``, on one device or under a
+        ``mesh``: buckets of at most ``densification_interval`` steps, each
+        bucket's camera picks, iterations, schedule rows and backgrounds
+        uploaded once; "chain" replays the captured step once per
+        iteration, "scan" the captured bucket once (its tail steps
+        masked)."""
         self._log(("block", k))
         runner = self._block_runner()
         done = 0

@@ -16,7 +16,9 @@ train.py:91-93) and the densification gate are computed on the device,
 and the learning rates and the depth-L1 weight come in as a schedule row
 (:func:`schedule_table`, each value ``utils/schedules.py::expon_lr``'s
 float32). So the core reads nothing back and uploads nothing, and a CUDA
-graph can capture it (``train/graph.py``). ``make_train_step`` returns
+graph can capture it (``train/graph.py``), under a mesh too: the banded
+render's collectives enqueue on the stream and read nothing back
+(``parallel/mesh.py``). ``make_train_step`` returns
 the per-step wrapper of that core, which takes the iteration and the
 camera index as Python ints and uploads them with the step's schedule row.
 
@@ -119,7 +121,7 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
     (0-d bool) gates every update, as the JAX core's; ``inplace`` writes
     the new state into the given one (``models/gaussian_model.py``).
     ``step.schedule(iterations)`` is :func:`schedule_table` for this
-    step's configuration."""
+    step's configuration; ``step.mesh`` is ``mesh``."""
     width, height = cams.width, cams.height
     dev = cams.device
     use_sparse = opt.optimizer_type == "sparse_adam"
@@ -279,4 +281,5 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
     step.schedule = schedule
     step.device = dev
     step.random_background = opt.random_background
+    step.mesh = mesh
     return step

@@ -5,15 +5,18 @@ Gaussians.
 
 Usage, from the repository root:
 
-    python3 tools/mesh_speed.py [--ranks 4] [--iterations 200]
+    python3 tools/mesh_speed.py [--ranks 4] [--iterations 200] [--block]
 
 On a machine with k CUDA cards the sharded run is ``--mesh k`` (k ranks,
 one per card, NCCL); with ``--device cpu`` it is k ``--multihost``
 processes over gloo. The dataset is chip_smoke.py's [trainer] dataset: the
 500,000-Gaussian bench scene's points and 8 views at 1920x1080 rendered by
 K1 from the seed (``--points``/``--width``/``--height`` make it smaller).
-Both runs train ``-r 1`` in step mode without densification (so both
-train the same Gaussians), print ``[i/N] ... it/s`` every 100 iterations,
+Both runs train ``-r 1`` without densification (so both train the same
+Gaussians), in step mode, or with ``--block`` in block mode (the CLI's
+default on CUDA: each step a CUDA-graph replay, under ``--mesh k`` with
+its NCCL collectives captured), print ``[i/N] ... it/s`` every 100
+iterations,
 and save the point cloud at iteration HELD and at the last. Prints each
 run's iterations per second over its last 100 iterations and how far the
 two point clouds are apart, per field: the share of values beyond 2e-4 x
@@ -76,6 +79,8 @@ def main() -> int:
     ap.add_argument("--points", type=int, default=500_000)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--block", action="store_true",
+                    help="train both runs in block mode (else step mode)")
     args = ap.parse_args()
 
     import torch
@@ -127,9 +132,7 @@ def main() -> int:
               str(10 * it), "--save_iterations", str(HELD), str(it),
               "--dup_capacity", str(dup), "--max_per_tile", "4096",
               "--disable_viewer", "--data_device", args.device,
-              # both runs eager, one step at a time: the sharded step has
-              # no graph yet, so block mode would compare graph and eager
-              "--no_block_scan"]
+              "--block_scan" if args.block else "--no_block_scan"]
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="4")
     runs = {}
     for name, k in (("one device", 1), (f"{args.ranks} ranks", args.ranks)):
@@ -183,7 +186,8 @@ def main() -> int:
               flush=True)
     one, many = (runs[k]["its"] for k in runs)
     print(f"[mesh speed] {args.ranks} ranks at {many / one:.3f}x one "
-          f"device's iterations per second", flush=True)
+          f"device's iterations per second, both in "
+          f"{'block' if args.block else 'step'} mode", flush=True)
     tmp.cleanup()
     return 0 if ok else 1
 
