@@ -203,12 +203,34 @@ Phases (each failure exits non-zero):
     views of unequal size: finite losses, the training views' L1 falling,
     one more step through the graph bitwise the eager step. Every earlier
     phase that trains through the CLI passes --no_block_scan, so it runs
-    and measures step mode as before;
+    and measures step mode, which on CUDA replays one captured graph of
+    the step per iteration (train/graph.py::ChainStep.step);
+    [view graph], after [graph step]: the bench frame through the view's
+    CUDA graph (render.py::ViewGraph, which Trainer.render_view, evaluate
+    and the render CLI use on one device) bitwise every output of the
+    eager render(), timed both ways, then a change of pose,
+    scaling_modifier, SH degree, resolution, a densify's state and an
+    overflowing view, each bitwise the eager view, each changing the image
+    (but the overflow's), with the captures each should cause; [step
+    graph], after [graph options]: the [trainer] dataset through the CLI's
+    step mode, graphed against eager (the Trainer's private
+    _eager_dispatch), 60 iterations through an opacity reset, a densify and
+    an overflow replay with its recapture, and a --random_background pair:
+    losses at every sync and the final state bitwise, ms, busy, idle,
+    launches per iteration, captures, and a step's metrics unchanged after
+    the next. The step-mode runs of [graph trainer] and [mesh graph
+    trainer] are the eager step mode (the reference), the others replay;
+    [live eager] and [live rain eager] run the trained live Trainer's step
+    mode eager and graphed in turns, with the stat line's read-back; [viewer kernels], [live kernels] and
+    [mesh trainer kernels] hold the kernels of an eager view and step, and
+    the graphed view equal to that eager view bitwise; [render CLI default]
+    also holds the CLI's PNG to an eager render_grown's and times the view
+    graphed and eager;
 20. a JSON line of the kernels' numbers (with each kernel's launches on
     every path, the mesh trainer's, the packed step's, the bf16 frames',
-    the graph phases' and the mesh graph trainer's among them), then the
-    card's name and power
-    limit, then the result line {"ok": true, "device": {...}}.
+    the graph phases', the mesh graph trainer's, the step graph's and the
+    view graph's among them), then the card's name and power limit, then
+    the result line {"ok": true, "device": {...}}.
 
 It exits non-zero without a CUDA device, or when run outside the repository.
 """
@@ -260,6 +282,43 @@ def images_match(x, y, boundary_frac=2e-3, boundary_atol=2e-2, atol=1e-5):
     mx = float(diff.max()) if diff.numel() else 0.0
     frac = float((diff > atol).double().mean()) if diff.numel() else 0.0
     return mx < boundary_atol and frac < boundary_frac, mx, frac
+
+
+def busy_per_call(torch, fn, n: int = 1) -> tuple:
+    """Device busy ms and kernels per call of ``fn``, over ``n`` calls
+    under torch.profiler with device records only (the host records of a
+    trainer's steps run to ~10^6 events): the sum of every kernel's and
+    memset's time, and their count, over ``n``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kern) / 1e3 / n,
+            sum(e.count for e in kern) / n)
+
+
+def idle_text(busy: float, ms: float) -> str:
+    return (f"idle {1 - busy / ms:.1%}" if busy > 0 else
+            "the profiler saw no kernel (busy not measured)")
+
+
+def host_ms_in_turns(torch, ways: dict, rounds: int) -> dict:
+    """Host ms of each call of ``ways`` (name -> fn(i), i the call's count
+    for that way), synchronised at both ends, in turns: each round calls
+    the ways in order and then in reverse. Returns name -> [ms, ...]."""
+    times = {k: [] for k in ways}
+    order = list(ways) + list(ways)[::-1]
+    for _ in range(rounds):
+        for k in order:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ways[k](len(times[k]))
+            torch.cuda.synchronize()
+            times[k].append(1e3 * (time.perf_counter() - t))
+    return times
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -879,7 +938,9 @@ def probe_trainer(torch, counters, steady=STEADY, capture_at=None):
     ms, the capacity after each, each replayed window, the loss and entry
     count at each sync and the test PSNR at each evaluation; with
     ``capture_at``, the inputs and outputs of every kernel launched in the
-    step that reaches that iteration (``kernel_calls``)."""
+    step that reaches that iteration (``kernel_calls``; that step runs
+    eagerly, through the Trainer's private ``_eager_dispatch``, since a
+    graph's replay calls no kernel wrapper)."""
     from gs_tpu_torch.train import loop
     T = loop.Trainer
     names = ("step", "_densify", "_maybe_grow", "_replay_window",
@@ -896,8 +957,12 @@ def probe_trainer(torch, counters, steady=STEADY, capture_at=None):
             torch.cuda.synchronize()
             rec["steady"].update(t0=time.perf_counter(), c0=counts())
         if capture_at is not None and self.iteration == capture_at - 1:
-            with kernel_calls() as calls:
-                out = orig["step"](self, sync)
+            eager, self._eager_dispatch = self._eager_dispatch, True
+            try:
+                with kernel_calls() as calls:
+                    out = orig["step"](self, sync)
+            finally:
+                self._eager_dispatch = eager
             rec["calls"] = dict(calls)
         else:
             out = orig["step"](self, sync)
@@ -1083,6 +1148,55 @@ def trainer_dataset(torch, dev, pts, cols, p0, alive0):
     return tmp, root, model
 
 
+def render_cli_eager(torch, dev, root, model, cli_png):
+    """[render CLI default], continued: the CLI's test view rendered
+    eagerly by ``render_grown`` at the CLI's default buffers (no graph)
+    writes the CLI's PNG byte for byte; then the view at the grown buffers
+    through a ViewGraph and eagerly, in turns: host ms (median of 10,
+    synchronised) and device busy (torch.profiler, one view each)."""
+    from gs_tpu_torch.apps.render import params_from_ply, save_png
+    from gs_tpu_torch.config import RasterConfig
+    from gs_tpu_torch.data.scene import Scene
+    from gs_tpu_torch.render import ViewGraph, render_grown
+
+    scene = Scene(root, "", resolution=1, eval_split=True, shuffle=False,
+                  device=dev)
+    scene.model_path = model
+    d, _ = scene.load_ply(-1)
+    params, alive = params_from_ply(d, device=dev)
+    cam = scene.get_test_cameras()[0].camera
+    bg = torch.zeros(3, device=dev)
+    kw = dict(active_sh_degree=d["sh_degree"], alive=alive)
+    with torch.no_grad(), contextlib.redirect_stdout(io.StringIO()):
+        out, grown = render_grown(cam, params, bg, RasterConfig(), **kw)
+    path = os.path.join(os.path.dirname(model), "eager_view.png")
+    save_png(path, out.image.cpu().numpy())
+    with open(path, "rb") as f:
+        check(f.read() == cli_png, "[render CLI default] the CLI's PNG != "
+              "an eager render_grown's")
+    graph = ViewGraph()
+    ways = {"eager": lambda i=0: render_grown(cam, params, bg, grown,
+                                              **kw)[0],
+            "graph": lambda i=0: render_grown(cam, params, bg, grown,
+                                              graph=graph, **kw)[0]}
+    with torch.no_grad(), contextlib.redirect_stdout(io.StringIO()):
+        check(torch.equal(ways["graph"]().image, ways["eager"]().image),
+              "[render CLI default] the graphed view != the eager one")
+        times = host_ms_in_turns(torch, ways, 5)
+        busy = {k: busy_per_call(torch, fn) for k, fn in ways.items()}
+    host = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"[render CLI default] an eager render_grown of the test view "
+          f"writes the CLI's PNG byte for byte; the view at the grown "
+          f"buffers ({grown.dup_capacity}), graphed and eager in turns: host "
+          f"ms (median of 10, synchronised) graph {host['graph']:.3f}, eager "
+          f"{host['eager']:.3f}; device busy graph {busy['graph'][0]:.4f} ms "
+          f"({busy['graph'][1]:.0f} kernels), eager {busy['eager'][0]:.4f} "
+          f"ms ({busy['eager'][1]:.0f} kernels); graph "
+          f"{idle_text(busy['graph'][0], host['graph'])}, eager "
+          f"{idle_text(busy['eager'][0], host['eager'])}", flush=True)
+    del graph, params, alive
+
+
 def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
     """Phase 10: the training driver through its CLIs. Returns the kernel
     launch counts of the training CLI's run, the temporary directory that
@@ -1263,10 +1377,10 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
             c.launches = 0
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
-            render_app.main(["-m", model, "--skip_train"] + extra)
+            graph = render_app.main(["-m", model, "--skip_train"] + extra)
         with open(png, "rb") as f:
             runs[name] = dict(launches=counts(), png=f.read(),
-                              log=log.getvalue())
+                              log=log.getvalue(), captures=graph.captures)
     outs = {k: sorted(os.listdir(os.path.join(out_dir, k)))
             for k in ("renders", "gt")}
     check(outs["renders"] == outs["gt"] == ["00000.png"],
@@ -1277,18 +1391,25 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
           f"launches {runs['default']['launches']}; at --dup_capacity "
           f"{MAX_DUP_CAPACITY}: launches {runs['ample']['launches']}; the PNGs "
           f"{'are' if runs['default']['png'] == runs['ample']['png'] else 'are NOT'}"
-          f" byte for byte equal ({len(runs['ample']['png'])} bytes)",
-          flush=True)
+          f" byte for byte equal ({len(runs['ample']['png'])} bytes); view "
+          f"captures " + ", ".join(
+              f"{name}: " + ", ".join(
+                  f"dup_capacity {c['dup_capacity']} {c['ms']:.1f} ms pool "
+                  f"peak {c['pool_peak_bytes']}" for c in r["captures"])
+              for name, r in runs.items()), flush=True)
     check(len(regrow) == 1 and "WARNING" not in runs["default"]["log"],
           "[render CLI default] the test view did not regrow once")
-    check(runs["default"]["launches"]["K2"] ==
-          runs["default"]["launches"]["K1"] == 2,
-          f"[render CLI default] launches {runs['default']['launches']}")
-    check(runs["ample"]["launches"]["K2"] ==
-          runs["ample"]["launches"]["K1"] == 1,
-          f"[render CLI default] ample launches {runs['ample']['launches']}")
+    # one replay of each view graph, and each capture's warm-up: the
+    # default run captures the overflowing view and the grown one
+    for name, views in (("default", 2), ("ample", 1)):
+        r = runs[name]
+        check(len(r["captures"]) == views and r["launches"]["K2"]
+              == r["launches"]["K1"] == 2 * views,
+              f"[render CLI default] {name}: launches {r['launches']}, "
+              f"captures {r['captures']}")
     check(runs["default"]["png"] == runs["ample"]["png"],
           "[render CLI default] PNG differs from the ample render's")
+    render_cli_eager(torch, dev, root, model, runs["default"]["png"])
     with contextlib.redirect_stdout(io.StringIO()):
         metrics_app.main(["-m", model, "--no_lpips", "--data_device",
                           dev.type])
@@ -1509,14 +1630,26 @@ def path_kernels_match(torch, trainer, cam, tag="viewer kernels"):
     K2 and K1 as they ran in ``Trainer.render_view`` of ``cam``, K2, K1g, K3
     and K4 as they ran in one more training step, each on the inputs it was
     given there (``step_kernels_match``'s rules); under a mesh, every
-    band's launch on its own row map. Returns each kernel's largest
-    absolute error."""
+    band's launch on its own row map. The view and the step run eagerly
+    (the Trainer's private ``_eager_dispatch``: a graph's replay calls no
+    kernel wrapper), and on one device the graphed view must equal that
+    eager view bitwise. Returns each kernel's largest absolute error."""
     from gs_tpu_torch.ops.rasterize import raster_tiles_fwd_plain
     bands = 0 if trainer.mesh is None else trainer.mesh.size
+    eager = trainer._eager_dispatch
     with torch.no_grad():
-        with kernel_calls() as calls:
-            out = trainer.render_view(cam)
+        trainer._eager_dispatch = True
+        try:
+            with kernel_calls() as calls:
+                out = trainer.render_view(cam)
+        finally:
+            trainer._eager_dispatch = eager
         check(not bool(out.overflow), f"[{tag}] the view overflowed")
+        if bands == 0:
+            graphed = trainer.render_view(cam)
+            check(all(torch.equal(getattr(graphed, f), getattr(out, f))
+                      for f in ("image", "invdepth", "final_T")),
+                  f"[{tag}] the graphed view != the eager view, bitwise")
         rows_as_given(calls, ("K1",), bands, tag)
         shape = k2_matches(torch, calls, tag, "a view", bands)
         k1_err = frac = 0.0
@@ -1531,12 +1664,17 @@ def path_kernels_match(torch, trainer, cam, tag="viewer kernels"):
               f"{f' in {bands} shards' if bands else ''}): K2 "
               f"{shape}, bitwise equal; K1 x{len(tiles)} over {tiles} tiles, "
               f"windows of up to {chunks} chunks: max |kernel - plain| "
-              f"{k1_err:.3e}, at most {frac:.4%} of values beyond 1e-5",
-              flush=True)
+              f"{k1_err:.3e}, at most {frac:.4%} of values beyond 1e-5"
+              + ("; the graphed view bitwise this eager view" if bands == 0
+                 else ""), flush=True)
         del calls, out
 
-    with kernel_calls() as calls:
-        m = trainer.step(sync=True)
+    trainer._eager_dispatch = True
+    try:
+        with kernel_calls() as calls:
+            m = trainer.step(sync=True)
+    finally:
+        trainer._eager_dispatch = eager
     check(not bool(m.overflow), f"[{tag}] the training step overflowed")
     errs = step_kernels_match(torch, calls, tag,
                               f"training step {trainer.iteration} on the "
@@ -1681,11 +1819,16 @@ def viewer_phase(torch, dev, root, dup, steady_ms, counters):
           f"{served[-1]['iteration']}")
     n_views = rec["views"]
     evals = n_views - len(served)
-    # each served frame and each evaluated view: one K2 and one K1 beyond
-    # the trainer's one K2, K1g, K3 and K4 per iteration (no regrow, no
-    # replay at this dup_capacity)
-    want = {"K1": n_views, "K2": VIEWER_ITERS + n_views, "K1g": VIEWER_ITERS,
-            "K3": VIEWER_ITERS, "K4": VIEWER_ITERS}
+    # each served frame and each evaluated view: one K2 and one K1 (a
+    # replay of the view's graph) beyond the trainer's one K2, K1g, K3 and
+    # K4 per iteration (a replay of the step's), and each capture's
+    # warm-up once more (no regrow, no replay at this dup_capacity)
+    steps, views = len(trainer.captures), len(trainer.views.captures)
+    check(steps >= 1 and views >= 1, f"[viewer] captures: step "
+          f"{trainer.captures}, view {trainer.views.captures}")
+    want = {"K1": n_views + views, "K2": VIEWER_ITERS + steps + n_views
+            + views, "K1g": VIEWER_ITERS + steps,
+            "K3": VIEWER_ITERS + steps, "K4": VIEWER_ITERS + steps}
     check(launches == want, f"[viewer] launches {launches}, want {want}")
     ms = client["ms"]
     idle = rec["idle"]
@@ -1694,8 +1837,13 @@ def viewer_phase(torch, dev, root, dup, steady_ms, counters):
           f"gs_tpu_torch.apps.train.main with the viewer on port {port} in "
           f"{run_s:.2f} s; {len(served)} frames {W}x{H} served at iterations "
           f"{[s['iteration'] for s in served]}; {evals} evaluated views; "
-          f"launches {launches} (K2 and K1 once per frame and view)",
-          flush=True)
+          f"launches {launches} (K2 and K1 once per frame and view, each "
+          f"capture's warm-up once); captures: the step "
+          + ", ".join(f"{c['ms']:.1f} ms pool peak {c['pool_peak_bytes']}"
+                      for c in trainer.captures) + "; the view "
+          + ", ".join(f"{c['width']}x{c['height']} {c['ms']:.1f} ms pool "
+                      f"peak {c['pool_peak_bytes']}"
+                      for c in trainer.views.captures), flush=True)
     print(f"[viewer] ms per frame on the client's clock, request to last "
           f"byte: median {float(np.median(ms)):.3f}, largest {max(ms):.3f} "
           f"(" + ", ".join(f"{x:.2f}" for x in ms) + f"); the two paused "
@@ -1942,6 +2090,40 @@ def run_live(torch, dev, tmpdir, name, frames, extra, counters,
     return trainer, rec
 
 
+EAGER_PASS = 16                # iterations in each turn of eager_pass
+
+
+def eager_pass(torch, trainer, tag):
+    """The trained live Trainer's step mode graphed and eager (its private
+    ``_eager_dispatch``) in turns (eager, graph, graph, eager), EAGER_PASS
+    iterations each, each iteration ``Trainer.step`` and the stat line's
+    read-back of the loss and the alive count: ms per iteration (host
+    clock, synchronised at both ends of each turn); then the eager step's
+    device busy and idle share (profile_iterations)."""
+    times = {True: [], False: []}
+    try:
+        for eager in (True, False, False, True):
+            trainer._eager_dispatch = eager
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(EAGER_PASS):
+                m = trainer.step()
+                float(m.loss), int(trainer.state.num_alive)
+            torch.cuda.synchronize()
+            times[eager].append(1e3 * (time.perf_counter() - t0) / EAGER_PASS)
+        trainer._eager_dispatch = True
+        eager_ms = float(np.mean(times[True]))
+        print(f"[{tag}] {EAGER_PASS} more iterations a turn with the stat "
+              f"line's read-back, in turns: eager "
+              + ", ".join(f"{x:.3f}" for x in times[True]) + ", graphed "
+              + ", ".join(f"{x:.3f}" for x in times[False])
+              + " ms per iteration (host clock, synchronised)", flush=True)
+        profile_iterations(torch, trainer, eager_ms, f"{tag} profile",
+                           table=False)
+    finally:
+        trainer._eager_dispatch = False
+
+
 def live_phase(torch, dev, tmpdir, frames, cams, dup, steady_ms, counters):
     """[live], the live-capture path: train_live on the streamed frames
     with their local maps, then the same with --quiet for the per-iteration
@@ -1988,6 +2170,15 @@ def live_phase(torch, dev, tmpdir, frames, cams, dup, steady_ms, counters):
           f"{steady_ms:.3f}", flush=True)
     profile_iterations(torch, trainer, live_ms, "live profile")
     errs = path_kernels_match(torch, trainer, cams[1], "live kernels")
+    print(f"[live] captures: the step " + ", ".join(
+        f"capacity {c['capacity']} {c['ms']:.1f} ms pool peak "
+        f"{c['pool_peak_bytes']}" for c in trainer.captures)
+        + "; the view " + ", ".join(
+            f"{c['width']}x{c['height']} {c['ms']:.1f} ms pool peak "
+            f"{c['pool_peak_bytes']}" for c in trainer.views.captures),
+        flush=True)
+    check(trainer.captures, "[live] step mode did not capture its step")
+    eager_pass(torch, trainer, "live eager")
     del trainer
 
     # the stat line's cost: the same run with --quiet, then without it
@@ -2115,6 +2306,7 @@ def live_rain_phase(torch, dev, tmpdir, frames, dup, bench, counters):
     check(k4_dev_ms <= lib_dev_ms,
           f"[live rain] K4 (device {k4_dev_ms:.4f} ms) slower than "
           f"index_add_ (device {lib_dev_ms:.4f} ms)")
+    eager_pass(torch, trainer, "live rain eager")
     del trainer, calls, rec
     return errs, {"live_rain_ms": k4_ms, "live_rain_device_ms": k4_dev_ms,
                   "live_rain_plain_ms": k4_plain_ms,
@@ -2772,11 +2964,12 @@ def mesh_trainer_phase(torch, dev, root, dup, counters):
 def mesh_cli_phase(torch, dev, root, band_dup):
     """[mesh CLI]: the training CLI over a real NCCL group (--mesh N with N
     >= 2 cards, else --multihost with a group of one), 10 iterations with
-    two densifies and a test evaluation, in step mode (--no_block_scan)
-    and in the CLI's default block mode on CUDA (its collectives captured
-    in the chain's graphs): the two gathered PLYs byte for byte equal, and
-    the block run's log shows its captures (in this process: --mesh N's
-    ranks print to their own output)."""
+    two densifies and a test evaluation, in step mode (--no_block_scan:
+    its collectives captured in the step-mode graph) and in the CLI's
+    default block mode on CUDA (captured in the chain's graphs): the two
+    gathered PLYs byte for byte equal, and each run's log shows its
+    captures (in this process: --mesh N's ranks print to their own
+    output)."""
     from gs_tpu_torch.apps import train as train_app
     cards = torch.cuda.device_count()
     plys = {}
@@ -2812,12 +3005,10 @@ def mesh_cli_phase(torch, dev, root, band_dup):
                   f"[mesh CLI] group {tr.mesh.backend} of {tr.mesh.size}")
             check("Sharding gaussians over 1 devices" in log.getvalue(),
                   "[mesh CLI] no sharding line")
-            if mode == "block mode":
-                check(len(tr.captures) >= 1
-                      and "captured the chain step" in log.getvalue(),
-                      f"[mesh CLI] block mode captured {tr.captures}")
-            else:
-                check(not tr.captures, "[mesh CLI] step mode captured")
+            # step mode replays the chain's graph too (ChainStep.step)
+            check(len(tr.captures) >= 1
+                  and "captured the chain step" in log.getvalue(),
+                  f"[mesh CLI] {mode} captured {tr.captures}")
             del tr
         ply = os.path.join(model, "point_cloud", "iteration_10",
                            "point_cloud.ply")
@@ -2842,18 +3033,19 @@ MESH_GRAPH_EXTRA = 10     # the timed block after the run, and the profiled one
 
 def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
     """[mesh graph trainer]: Trainer(mesh=LocalGroup(MESH_K)) on the
-    [trainer] dataset for MESH_GRAPH_ITERS iterations in step mode, then in
-    block mode through the chain and the scan (buckets of 10): the first
-    sync's visible_capacity overflow (MESH_VCAP), its replay and the
-    capture its growth causes, a densify at 20, syncs at 10, 20 and 30 in
-    every mode. Chain and scan must be bitwise the step-mode run: the
-    losses at the syncs and the final state. Then, on the trained state,
+    [trainer] dataset for MESH_GRAPH_ITERS iterations in eager step mode
+    (the Trainer's private ``_eager_dispatch``, the reference), in step
+    mode through its graph (one replay an iteration), then in block mode
+    through the chain and the scan (buckets of 10): the first sync's
+    visible_capacity overflow (MESH_VCAP), its replay and the capture its
+    growth causes, a densify at 20, syncs at 10, 20 and 30 in every mode.
+    The graphed step mode, chain and scan must be bitwise the eager
+    step-mode run: the losses at the syncs and the final state. Then, on the trained state,
     one more block of MESH_GRAPH_EXTRA iterations timed by host clock
     (synchronised at both ends) with the launch counters read around it,
     and one more profiled with device records only: device busy and idle
     share per iteration, kernels per iteration. Prints each capture's ms
     and graph-pool peak. Returns the chain run's launches."""
-    from torch.profiler import ProfilerActivity, profile
     from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
                                      PipelineConfig, RasterConfig)
     from gs_tpu_torch.data.scene import Scene
@@ -2868,7 +3060,7 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
     band_dup = -(-dup // 2 // 512) * 512
     n = MESH_GRAPH_EXTRA
     ref, launches_chain = None, None
-    for mode in ("step", "chain", "scan"):
+    for mode in ("step", "step graph", "chain", "scan"):
         t0 = time.perf_counter()
         tr = Trainer(scene.get_train_cameras(), scene.point_cloud,
                      spatial_lr_scale=scene.cameras_extent,
@@ -2878,8 +3070,10 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
                                          visible_capacity=MESH_VCAP),
                      seed=0, mesh=LocalGroup(MESH_K, dev))
         tr.sync_every = 10
-        if mode != "step":
+        blocks = mode in ("chain", "scan")
+        if blocks:
             tr.block_dispatch = mode
+        tr._eager_dispatch = mode == "step"
         grows, syncs = [], {}
         grow = tr._grow_raster
         tr._grow_raster = lambda changes, will_replay: (
@@ -2891,7 +3085,7 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
 
         for c in counters.values():
             c.launches = 0
-        tr.train(iterations=MESH_GRAPH_ITERS, block_scan=mode != "step",
+        tr.train(iterations=MESH_GRAPH_ITERS, block_scan=blocks,
                  log_every=1, on_step=on_step)
         tr.sync_metrics()
         torch.cuda.synchronize()
@@ -2910,9 +3104,11 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
                   for k in ("K2", "K1g", "K3", "K4")),
               f"[mesh graph trainer] {mode}: launches {launches}")
         if mode == "step":
-            check(not tr.captures, "[mesh graph trainer] step mode captured")
+            check(not tr.captures, "[mesh graph trainer] the eager step "
+                  "mode captured")
         else:
-            check(len(tr.captures) >= 2 and tr._runner.mode == mode,
+            check(len(tr.captures) >= 2 and tr._runner.mode
+                  == ("chain" if mode == "step graph" else mode),
                   f"[mesh graph trainer] {mode}: captures {tr.captures}")
         state = [t.clone() for t in state_leaves(tr.state)]
         if ref is None:
@@ -2930,7 +3126,7 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
 
         # one more block on the trained state: host ms, launches
         def block():
-            if mode == "step":
+            if not blocks:
                 for _ in range(n):
                     tr._dispatch_step()
             else:
@@ -2943,14 +3139,8 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t1) / n
         per_it = {k: (c.launches - c0[k]) / n for k, c in counters.items()}
-        # and one more, profiled: device records only
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            block()
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
-        n_k = sum(e.count for e in kern) / n
+        # and one more, profiled
+        busy, n_k = (x / n for x in busy_per_call(torch, block))
         print(f"[mesh graph trainer] {mode}: {MESH_GRAPH_ITERS} iterations "
               f"of the [trainer] dataset, {tr.capacity} slots in {MESH_K} "
               f"shards, in {wall:.2f} s; grown buffers {grows}; syncs "
@@ -2962,10 +3152,8 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
               + f"; one more block of {n}: {ms:.3f} ms per iteration (host "
               f"clock, synchronised), kernel wrappers' launches per "
               f"iteration {per_it}; device busy {busy:.4f} ms per iteration "
-              f"over one more profiled block ({n_k:.1f} kernels each)"
-              + (f", idle {1 - busy / ms:.1%}" if busy > 0 else
-                 ", the profiler saw no kernel (busy not measured)"),
-              flush=True)
+              f"over one more profiled block ({n_k:.1f} kernels each), "
+              + idle_text(busy, ms), flush=True)
         if mode == "chain":
             launches_chain = launches
         del tr
@@ -3594,10 +3782,13 @@ def graph_step_phase(torch, dev, p0, alive0, bench_camera, counters):
     return launches
 
 
-def run_train_cli(torch, args, counters, dispatch=None, steady=None):
+def run_train_cli(torch, args, counters, dispatch=None, steady=None,
+                  eager=False):
     """The training CLI on ``args``: with ``dispatch`` the Trainer's
-    block_dispatch is set to it (the CLI has no flag for it, as the JAX
-    CLI has none). Records the syncs and replays (probe_trainer), the host
+    block_dispatch is set to it, with ``eager`` its private
+    ``_eager_dispatch`` (step mode's eager step and view, the reference of
+    the graphs; the CLI has a flag for neither, as the JAX CLI has none).
+    Records the syncs and replays (probe_trainer), the host
     ms of the block that starts at ``steady[0]`` (block mode) or of the
     iterations steady[0]+1..steady[1] (step mode), and the launch counts.
     Returns the Trainer, the record, that window's ms per iteration, the
@@ -3612,6 +3803,7 @@ def run_train_cli(torch, args, counters, dispatch=None, steady=None):
         init(self, *a, **kw)
         if dispatch is not None:
             self.block_dispatch = dispatch
+        self._eager_dispatch = eager
 
     def timed_block(self, k):
         if steady is None or self.iteration != steady[0] or self._replaying:
@@ -3646,9 +3838,12 @@ def graph_trainer_phase(torch, dev, root, counters):
     --no_block_scan (step mode): GRAPH_ITERS iterations from
     GRAPH_CAPACITY slots, the first sync's overflow replay (TRAINER_DUP),
     a densify and opacity reset at 100 whose growth to 4x the capacity
-    captures again, a densify at 150. The losses at every sync and the
+    captures again, a densify at 150; the step-mode run is the eager one
+    (``_eager_dispatch``), the reference. The losses at every sync and the
     final states of the three runs: bitwise, or, if not, within a second
-    step-mode run's spread. ms per iteration over GRAPH_STEADY (the block
+    step-mode run's spread. The chain run's last evaluation renders its
+    test view through the view graph at 2,097,152 slots: its capture's ms
+    and pool peak beside the chain's. ms per iteration over GRAPH_STEADY (the block
     151..200 in block mode), device busy per iteration over one more
     bucket at the same capacity, idle share, every capture's ms and pool
     peak, and each run's
@@ -3674,7 +3869,8 @@ def graph_trainer_phase(torch, dev, root, counters):
         tr, rec, ms, launches, out = run_train_cli(
             torch, args + extra, counters, dispatch,
             steady=(GRAPH_STEADY if name == "step"
-                    else (GRAPH_STEADY[0], GRAPH_STEADY[1] + 1)))
+                    else (GRAPH_STEADY[0], GRAPH_STEADY[1] + 1)),
+            eager=name == "step")
         wall = time.perf_counter() - t0
         check(tr.iteration == GRAPH_ITERS, f"[graph trainer] {name}: "
               f"stopped at {tr.iteration}")
@@ -3685,31 +3881,28 @@ def graph_trainer_phase(torch, dev, root, counters):
         check(all(math.isfinite(x) for _, x, _ in rec["syncs"]),
               f"[graph trainer] {name}: non-finite loss")
         if name == "step":
-            check(not tr.captures, "[graph trainer] step mode captured")
+            check(not tr.captures, "[graph trainer] the eager step mode "
+                  "captured")
         else:
             check(len(tr.captures) >= 2 and "captured the" in out,
                   f"[graph trainer] {name}: captures {tr.captures}")
         check(all(v > 0 for v in launches.values()),
               f"[graph trainer] {name}: launches {launches}")
         # one bucket more of the trained state, profiled, no schedule and no
-        # sync in it: the device's busy time per iteration (device records
-        # only: 50 steps of host records are ~10^6 events)
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # sync in it: the device's busy time per iteration
+        def bucket():
             if name == "step":
                 for _ in range(GRAPH_BUCKET):
                     tr._dispatch_step()
             else:
                 tr.run_block(GRAPH_BUCKET)
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kern) / 1e3 / GRAPH_BUCKET
-        n_k = sum(e.count for e in kern) / GRAPH_BUCKET
+
+        busy, n_k = (x / GRAPH_BUCKET for x in busy_per_call(torch, bucket))
         runs[name] = dict(rec=rec, ms=ms, launches=launches,
                           wall=wall, busy=busy, kernels=n_k,
                           state=[t.clone() for t in state_leaves(tr.state)],
-                          captures=list(tr.captures))
+                          captures=list(tr.captures),
+                          views=list(tr.views.captures))
         first, last = GRAPH_STEADY[0] + 1, GRAPH_STEADY[1]
         print(f"[graph trainer] {name}: {GRAPH_ITERS} iterations through "
               f"gs_tpu_torch.apps.train.main in {wall:.2f} s; ms per "
@@ -3718,14 +3911,18 @@ def graph_trainer_phase(torch, dev, root, counters):
                  else f"the block {first}..{last + 1}")
               + f"); device busy {busy:.4f} ms per iteration over one "
               f"profiled bucket of {GRAPH_BUCKET} ({n_k:.1f} kernels each)"
-              + (f", idle {1 - busy / ms:.1%}" if busy > 0 else
-                 ", the profiler saw no kernel (busy not measured)")
+              + ", " + idle_text(busy, ms)
               + f"; launches {launches}; replays "
               + ", ".join(f"{r['window']} {r['ms']:.1f} ms"
                           for r in rec["replay"])
               + f"; captures " + ", ".join(
                   f"capacity {c['capacity']} {c['ms']:.1f} ms pool peak "
-                  f"{c['pool_peak_bytes']}" for c in tr.captures), flush=True)
+                  f"{c['pool_peak_bytes']}" for c in tr.captures)
+              + "; view captures " + (", ".join(
+                  f"{c['width']}x{c['height']} at capacity {c['capacity']} "
+                  f"{c['ms']:.1f} ms pool peak {c['pool_peak_bytes']}"
+                  for c in tr.views.captures) or "none (eager views)"),
+              flush=True)
         del tr
     step = runs["step"]
     for name in ("chain", "scan"):
@@ -3737,7 +3934,7 @@ def graph_trainer_phase(torch, dev, root, counters):
         if not bitwise:
             # the eager run's own spread decides
             tr2, rec2, _, _, _ = run_train_cli(torch, args + [
-                "--no_block_scan"], counters)
+                "--no_block_scan"], counters, eager=True)
             spread = [float((a - b).abs().max()) if a.is_floating_point()
                       else (0.0 if torch.equal(a, b) else math.inf)
                       for a, b in zip(state_leaves(tr2.state), step["state"])]
@@ -3753,11 +3950,13 @@ def graph_trainer_phase(torch, dev, root, counters):
                                      for i, x, _ in r["rec"]["syncs"])
               + (" and the final state bitwise equal" if bitwise else
                  " within the step mode's run-to-run spread"), flush=True)
-    # a chain run launches the step-mode run's kernels plus one warm-up
-    # step per capture; K1 only in the evaluations
+    # a chain run launches the eager step-mode run's kernels plus one
+    # warm-up step per capture, and K2 once more per capture of the view
+    # graph (its evaluation's view); K1 only in the evaluations
     n_cap = len(runs["chain"]["captures"])
+    n_views = len(runs["chain"]["views"])
     for k in ("K2", "K1g", "K3", "K4"):
-        want = step["launches"][k] + n_cap
+        want = step["launches"][k] + n_cap + (n_views if k == "K2" else 0)
         check(runs["chain"]["launches"][k] == want,
               f"[graph trainer] chain {k} launches "
               f"{runs['chain']['launches'][k]} != {want}")
@@ -3916,6 +4115,352 @@ def graph_options_phase(torch, dev, root, p0, alive0, counters):
               f"(camera {cams[0]}); launches {launches}", flush=True)
         del tr, runner, ref_state, st
     return results
+
+
+STEP_GRAPH_ITERS = 60          # [step graph]: reset 30, densify 40, sync 50
+STEP_GRAPH_EXTRA = 20          # the timed steps after each run
+STEP_GRAPH_RANDOM_ITERS = 30   # its --random_background pair: sync at 30
+
+
+def step_graph_phase(torch, dev, root, counters):
+    """[step graph]: step mode through its CUDA graph
+    (``train/graph.py::ChainStep.step``) against the eager step
+    mode (the Trainer's private ``_eager_dispatch``), on the [trainer]
+    dataset at 1,048,576 slots through the training CLI with
+    --no_block_scan: STEP_GRAPH_ITERS iterations with an opacity reset at
+    30, a densify at 40 and the first sync's (at 50) --dup_capacity
+    overflow, whose window replays at grown buffers (the graph captured
+    again); then a pair with --random_background (STEP_GRAPH_RANDOM_ITERS
+    iterations, a reset at 15, a densify at 20, the overflow at the sync at
+    30). Each pair: the losses at every sync and the final state bitwise.
+    After each run, STEP_GRAPH_EXTRA more steps timed by host clock
+    (synchronised at both ends, the launch counters read around them) and
+    10 more profiled with device records only: ms, busy, idle and kernels
+    per iteration, graphed against eager; each capture's ms and pool peak;
+    the metrics one step returns keep their values after the next step.
+    Returns the graphed runs' launches (the counts set to 0 just before
+    each and read just after)."""
+    from gs_tpu_torch.train.graph import state_leaves
+
+    def args_for(name, iters, reset, densify, extra):
+        model = os.path.join(os.path.dirname(root), "step_graph_" + name)
+        return ["-s", root, "-m", model, "-r", "1", "--eval",
+                "--iterations", str(iters), "--densify_from_iter",
+                str(densify // 2), "--densification_interval", str(densify),
+                "--densify_until_iter", str(densify + 5),
+                "--opacity_reset_interval", str(reset),
+                "--test_iterations", str(iters), "--save_iterations",
+                str(iters), "--dup_capacity", str(TRAINER_DUP),
+                "--disable_viewer", "--quiet", "--data_device", dev.type,
+                "--no_block_scan"] + extra
+
+    pairs = (("static", args_for("static", STEP_GRAPH_ITERS, 30, 40, [])),
+             ("random", args_for("random", STEP_GRAPH_RANDOM_ITERS, 15, 20,
+                                 ["--random_background"])))
+    graph_launches = {k: 0 for k in counters}
+    for pair, args in pairs:
+        runs = {}
+        for how in ("graph", "eager"):
+            t0 = time.perf_counter()
+            tr, rec, _, launches, out = run_train_cli(
+                torch, args, counters, eager=how == "eager")
+            wall = time.perf_counter() - t0
+            iters = tr.iteration
+            check(rec["replay"] and tr.overflow_exhausted == 0,
+                  f"[step graph] {pair} {how}: no overflow replay")
+            check(any(d["iteration"] > 0 for d in rec["densify"]),
+                  f"[step graph] {pair} {how}: no densify")
+            check(all(math.isfinite(x) for _, x, _ in rec["syncs"]),
+                  f"[step graph] {pair} {how}: non-finite loss")
+            if how == "graph":
+                check(tr._runner.mode == "chain" and len(tr.captures) >= 2
+                      and "captured the chain step" in out,
+                      f"[step graph] {pair}: captures {tr.captures}")
+                check(all(launches[k] > iters for k in ("K2", "K1g", "K3",
+                                                         "K4")),
+                      f"[step graph] {pair}: launches {launches}")
+                for k, v in launches.items():
+                    graph_launches[k] += v
+            else:
+                check(not tr.captures, f"[step graph] {pair}: the eager "
+                      f"step mode captured")
+            state = [t.clone() for t in state_leaves(tr.state)]
+            # the metrics of a step keep their values after the next one
+            first = tr.step()
+            kept = [x.clone() for x in first if x is not None]
+            tr.step()
+            torch.cuda.synchronize()
+            survive = all(torch.equal(x, y) for x, y in zip(
+                [x for x in first if x is not None], kept))
+            check(survive, f"[step graph] {pair} {how}: a step's metrics "
+                  f"changed at the next step")
+            c0 = {k: c.launches for k, c in counters.items()}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(STEP_GRAPH_EXTRA):
+                tr._dispatch_step()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t1) / STEP_GRAPH_EXTRA
+            per_it = {k: (c.launches - c0[k]) / STEP_GRAPH_EXTRA
+                      for k, c in counters.items()}
+            check(all(per_it[k] == 1 for k in ("K2", "K1g", "K3", "K4"))
+                  and per_it["K1"] == 0,
+                  f"[step graph] {pair} {how}: launches per iteration "
+                  f"{per_it}")
+            busy, n_k = busy_per_call(torch, tr._dispatch_step, 10)
+            runs[how] = dict(syncs=[x for _, x, _ in rec["syncs"]],
+                             state=state, ms=ms, busy=busy)
+            print(f"[step graph] {pair} {how}: {iters} iterations through "
+                  f"gs_tpu_torch.apps.train.main --no_block_scan in "
+                  f"{wall:.2f} s; syncs " + ", ".join(
+                      f"{i}: {x:.7f}" for i, x, _ in rec["syncs"])
+                  + f"; replays " + ", ".join(
+                      f"{r['window']} {r['ms']:.1f} ms" for r in rec["replay"])
+                  + f"; launches {launches}; {STEP_GRAPH_EXTRA} more steps "
+                  f"{ms:.3f} ms per iteration (host clock, synchronised), "
+                  f"launches per iteration {per_it}; device busy "
+                  f"{busy:.4f} ms per iteration over 10 more profiled "
+                  f"({n_k:.1f} kernels each)"
+                  + ", " + idle_text(busy, ms)
+                  + f"; a step's metrics kept after the next; captures "
+                  + (", ".join(f"capacity {c['capacity']} {c['ms']:.1f} ms "
+                               f"pool peak {c['pool_peak_bytes']}"
+                               for c in tr.captures) or "none"), flush=True)
+            del tr
+            torch.cuda.empty_cache()
+        g, e = runs["graph"], runs["eager"]
+        bitwise = [torch.equal(a, b) for a, b in zip(g["state"], e["state"])]
+        check(g["syncs"] == e["syncs"] and all(bitwise),
+              f"[step graph] {pair}: graphed against eager: losses "
+              f"{g['syncs']} vs {e['syncs']}, state leaves equal {bitwise}")
+        print(f"[step graph] {pair}: the graphed step mode bitwise the eager "
+              f"one (the losses at every sync and the final state); ms per "
+              f"iteration graph {g['ms']:.3f}, eager {e['ms']:.3f}; busy "
+              f"{g['busy']:.4f} against {e['busy']:.4f} ms", flush=True)
+        del runs
+    return graph_launches
+
+
+VIEW_FRAMES = 8                # [view graph]: bench frames timed each way
+FLAT_SIZES = 6                 # [view graph]: resolutions, > MAX_VIEWS
+
+
+def view_graph_phase(torch, dev, p0, alive0, bench_camera, counters):
+    """[view graph]: the no-grad view as a CUDA graph
+    (``render.py::ViewGraph``) against the eager ``render()``: the bench
+    frame through the graph, bitwise every output of the eager render;
+    VIEW_FRAMES frames each way in turns (host ms, synchronised), one
+    profiled each way (busy, idle share, kernels), the launch counts
+    around the graphed frames, the capture's ms and pool peak. Then, on the bench scene with seeded SH coefficients of degrees
+    1-3 (so that the SH degree shows) and seeded opacities in [0.02, 0.2]
+    (so that a densify's prune shows), at 2^23 entries (its first
+    capture), each bitwise the eager view and each changing the image: a
+    change of pose, of scaling_modifier and of SH degree (no capture), of
+    resolution (a capture), a state replaced by a densify (a capture), and
+    a view that overflows its buffers (render_grown: a capture at its
+    buffers, then one at the grown ones). Last, FLAT_SIZES resolutions
+    twice round through a ViewGraph of MAX_VIEWS views (each key captured
+    again in the second round, its view bitwise the eager one): the memory
+    the card reserves after the second round is within one capture's peak
+    allocation of the first's (the graphs share a pool, and a released
+    graph's memory serves the next capture); each capture's ms, peak
+    allocation and growth of the reserved memory. Returns the launches of
+    the graphed frames."""
+    from gs_tpu_torch.config import RasterConfig
+    from gs_tpu_torch.core.camera import make_camera
+    from gs_tpu_torch.models.gaussian_model import (densify_and_prune,
+                                                    init_state)
+    from gs_tpu_torch.render import MAX_VIEWS, ViewGraph, render, render_grown
+    from gs_tpu_torch.train.step import mask_sh_rest
+    import dataclasses
+    from gs_tpu_torch.core.gaussians import inverse_sigmoid
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    # the changes' scene: SH coefficients above degree 0 and opacities in
+    # [0.02, 0.2] (the bench scene's are 0.1), at ample buffers
+    varied = p0._replace(
+        sh_rest=0.1 * torch.randn(p0.sh_rest.shape, generator=gen,
+                                  device=dev),
+        logit_opacity=inverse_sigmoid(0.02 + 0.18 * torch.rand(
+            p0.logit_opacity.shape, generator=gen, device=dev)))
+    bg = torch.zeros(3, device=dev)
+    raster = RasterConfig(dup_capacity=1 << 23, max_per_tile=MAX_PER_TILE,
+                          exact_cull=True)
+    kw = dict(active_sh_degree=3, dup_capacity=DUP_CAPACITY,
+              max_per_tile=MAX_PER_TILE, exact_cull=True)
+    params = p0
+    graph = ViewGraph()
+    fields = ("image", "invdepth", "final_T", "radii", "visibility",
+              "num_duplicates", "max_tile_len", "overflow", "num_valid")
+
+    def same(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+
+    with torch.no_grad(), contextlib.redirect_stdout(io.StringIO()) as log:
+        # the bench frame, graphed and eager
+        launches = {k: 0 for k in counters}
+
+        def graphed(cam):
+            c0 = {k: c.launches for k, c in counters.items()}
+            out = graph(cam, params, bg, alive=alive0, **kw)
+            for k, c in counters.items():
+                launches[k] += c.launches - c0[k]
+            return out
+
+        def eager(cam):
+            return render(cam, params, bg, alive=alive0, **kw)
+
+        check(same(graphed(bench_camera(0)), eager(bench_camera(0))),
+              "[view graph] the bench frame != the eager render()")
+
+        def frame(fn):
+            def call(i):
+                check(not bool(fn(bench_camera(i)).overflow),
+                      f"[view graph] frame {i} overflowed")
+            return call
+
+        # VIEW_FRAMES a way, each its own pose
+        times = host_ms_in_turns(torch, {"eager": frame(eager),
+                                         "graph": frame(graphed)},
+                                 VIEW_FRAMES // 2)
+        busy = {k: busy_per_call(torch, lambda fn=fn: fn(bench_camera(0)))
+                for k, fn in (("graph", graphed), ("eager", eager))}
+    check(len(graph.captures) == 1, f"[view graph] captures "
+          f"{graph.captures}")
+    # the capture's warm-up, then 2 + VIEW_FRAMES replays (the profiled
+    # one among them)
+    want = 3 + VIEW_FRAMES
+    check(launches["K2"] == launches["K1"] == want and launches["K1g"]
+          == launches["K3"] == launches["K4"] == 0,
+          f"[view graph] launches {launches}, want K2 = K1 = {want}")
+    host = {k: float(np.median(v)) for k, v in times.items()}
+    cap = graph.captures[0]
+    print(f"[view graph] the bench frame {W}x{H} through the view graph: "
+          f"every output bitwise the eager render(); ms per frame (host "
+          f"clock, synchronised, median of {VIEW_FRAMES}, in turns): graph "
+          f"{host['graph']:.3f} (" + ", ".join(
+              f"{x:.2f}" for x in times["graph"]) + f"), eager "
+          f"{host['eager']:.3f} (" + ", ".join(
+              f"{x:.2f}" for x in times["eager"]) + f"); device busy per "
+          f"frame (one profiled): graph {busy['graph'][0]:.4f} ms in "
+          f"{busy['graph'][1]:.0f} kernels, eager {busy['eager'][0]:.4f} ms "
+          f"in {busy['eager'][1]:.0f}; graph "
+          f"{idle_text(busy['graph'][0], host['graph'])}, eager "
+          f"{idle_text(busy['eager'][0], host['eager'])}; the graph's launches "
+          f"{launches} (its capture's warm-up and {want - 1} replays); "
+          f"capture {cap['ms']:.1f} ms, "
+          f"graph pool peak {cap['pool_peak_bytes']} bytes", flush=True)
+
+    # each input changed: bitwise the eager view, and not the base image
+    def view(cam, sm=1.0, deg=3, p=varied, alive=alive0, r=raster):
+        got, _ = render_grown(cam, p, bg, r, graph=graph, sh_degree=deg,
+                              scaling_modifier=sm, alive=alive,
+                              active_sh_degree=3)
+        ref, _ = render_grown(cam, mask_sh_rest(p, deg), bg, r,
+                              scaling_modifier=sm, alive=alive,
+                              active_sh_degree=3)
+        return got, ref
+
+    base_cam = bench_camera(0)
+    small = make_camera(np.eye(3), np.zeros(3), math.radians(70.0),
+                        2 * math.atan(math.tan(math.radians(35.0)) * 720
+                                      / 1280), 1280, 720, device=dev)
+    st = init_state(p0, alive0, num_images=1)
+    st = st._replace(params=varied,
+                     grad_accum=torch.ones_like(st.grad_accum),
+                     denom=torch.ones_like(st.denom))
+    dense, info = densify_and_prune(
+        st, torch.zeros((st.capacity, 3), device=dev), grad_threshold=2.0,
+        min_opacity=0.05, extent=1.0, percent_dense=0.01,
+        use_size_threshold=False)
+    tight = dataclasses.replace(raster, dup_capacity=1 << 20)
+    with torch.no_grad(), contextlib.redirect_stdout(io.StringIO()):
+        base, ref = view(base_cam)
+        check(same(base, ref) and not bool(base.overflow),
+              "[view graph] the base view != eager, or it overflowed")
+        changes = (("pose", dict(cam=bench_camera(40)), 0),
+                   ("scaling_modifier", dict(sm=0.8), 0),
+                   ("SH degree", dict(deg=1), 0),
+                   ("resolution 1280x720", dict(cam=small), 1),
+                   ("a densify's state", dict(p=dense.params,
+                                              alive=dense.alive), 1),
+                   ("an overflowing view", dict(r=tight), 2))
+        seen = []
+        for name, change, new in changes:
+            before = len(graph.captures)
+            got, ref = view(**dict(dict(cam=base_cam), **change))
+            captured = len(graph.captures) - before
+            moved = (got.image.shape != base.image.shape
+                     or not torch.equal(got.image, base.image))
+            check(same(got, ref), f"[view graph] {name}: the graphed view "
+                  f"!= the eager view")
+            # the overflowing view, rendered again at grown buffers, is the
+            # base view itself; every other change changes the image
+            check(moved != ("overflowing" in name),
+                  f"[view graph] {name}: the image "
+                  + ("differs from the base view's" if moved
+                     else "did not change"))
+            check(captured == new, f"[view graph] {name}: {captured} "
+                  f"captures, want {new}")
+            check(not bool(got.overflow), f"[view graph] {name}: overflow")
+            seen.append(f"{name} ({captured} capture"
+                        f"{'' if captured == 1 else 's'})")
+    check(info.n_pruned > 0, f"[view graph] the densify pruned nothing "
+          f"({info})")
+    print(f"[view graph] bitwise the eager view, each but the last changing "
+          f"the image (the last is the base view again): " + ", ".join(seen) + f"; the densify pruned {int(info.n_pruned)}; "
+          f"the overflowing view (dup_capacity {tight.dup_capacity}) "
+          f"captured at its buffers and again at grown ones; captures "
+          + ", ".join(
+              f"{c['width']}x{c['height']} at {c['capacity']} slots, "
+              f"dup_capacity {c['dup_capacity']}: {c['ms']:.1f} ms, pool "
+              f"peak {c['pool_peak_bytes']}, reserved growth "
+              f"{c['pool_growth_bytes']}" for c in graph.captures),
+          flush=True)
+    graph.release()
+    del graph, dense, st
+    torch.cuda.empty_cache()
+
+    # more resolutions than a ViewGraph keeps, twice round
+    flat = ViewGraph()
+    sizes = [(W * k // 6, H * k // 6) for k in range(6, 6 - FLAT_SIZES, -1)]
+    cams = [make_camera(np.eye(3), np.zeros(3), math.radians(70.0),
+                        2 * math.atan(math.tan(math.radians(35.0)) * h / w),
+                        w, h, device=dev) for w, h in sizes]
+    reserved = []
+    with torch.no_grad(), contextlib.redirect_stdout(io.StringIO()):
+        for _ in range(2):
+            for cam in cams:
+                check(same(flat(cam, varied, bg, alive=alive0, **kw),
+                           render(cam, varied, bg, alive=alive0, **kw)),
+                      f"[view graph] {cam.width}x{cam.height}: the graphed "
+                      f"view != the eager render()")
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved(dev))
+    peak = max(c["pool_peak_bytes"] for c in flat.captures)
+    check(len(flat.captures) == 2 * FLAT_SIZES
+          and len(flat.views) == MAX_VIEWS
+          and reserved[1] - reserved[0] < peak,
+          f"[view graph] {FLAT_SIZES} resolutions twice: captures "
+          f"{len(flat.captures)}, views kept {len(flat.views)}, reserved "
+          f"bytes after each round {reserved} (a capture's peak allocation "
+          f"at most {peak})")
+    print(f"[view graph] {FLAT_SIZES} resolutions ("
+          + ", ".join(f"{w}x{h}" for w, h in sizes) + f") twice round "
+          f"through a ViewGraph of {MAX_VIEWS} views: {len(flat.captures)} "
+          f"captures, each view bitwise the eager render(); memory reserved "
+          f"on the card after each round {reserved[0]}, {reserved[1]} bytes "
+          f"(the largest peak allocation of one capture {peak}); captures "
+          "(ms, peak allocation, reserved growth) " + ", ".join(
+              f"{c['width']}x{c['height']} {c['ms']:.1f}, "
+              f"{c['pool_peak_bytes']}, {c['pool_growth_bytes']}"
+              for c in flat.captures),
+          flush=True)
+    flat.release()
+    del flat, params, varied
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -4268,6 +4813,11 @@ def main() -> int:
                                            bench_camera, counters)
     print(f"[graph step] in {time.perf_counter() - t_graph:.1f} s",
           flush=True)
+    t_graph = time.perf_counter()
+    view_graph_launches = view_graph_phase(torch, dev, p0, alive0,
+                                           bench_camera, counters)
+    print(f"[view graph] in {time.perf_counter() - t_graph:.1f} s",
+          flush=True)
     for k, v in packed_mesh_phase(torch, dev, p0, alive0,
                                   bench_camera).items():
         packed_errs[k] = max(packed_errs[k], v)
@@ -4286,6 +4836,10 @@ def main() -> int:
     t_graph = time.perf_counter()
     graph_options_phase(torch, dev, root, p0, alive0, counters)
     print(f"[graph options] in {time.perf_counter() - t_graph:.1f} s",
+          flush=True)
+    t_graph = time.perf_counter()
+    step_graph_launches = step_graph_phase(torch, dev, root, counters)
+    print(f"[step graph] in {time.perf_counter() - t_graph:.1f} s",
           flush=True)
     t_mesh = time.perf_counter()
     mesh_errs, _ = mesh_kernels_phase(torch, dev, p0, alive0, bench_camera,
@@ -4354,6 +4908,8 @@ def main() -> int:
         k["graph_step_launches"] = graph_step_launches[k["id"]]
         k["graph_trainer_launches"] = graph_trainer_launches[k["id"]]
         k["mesh_graph_launches"] = mesh_graph_launches[k["id"]]
+        k["step_graph_launches"] = step_graph_launches[k["id"]]
+        k["view_graph_launches"] = view_graph_launches[k["id"]]
         k["max_abs_err"] = max(k["max_abs_err"], viewer_errs[k["id"]],
                                live_errs[k["id"]], rain_errs[k["id"]],
                                mesh_errs.get(k["id"], 0.0),

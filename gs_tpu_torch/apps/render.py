@@ -7,6 +7,9 @@ Loads the trained model at iteration N (default: latest) and renders the
 train/test splits of its dataset to
 ``<model>/{train,test}/ours_<N>/{renders,gt}/*.png`` without gradients
 (K2 + K1), keeping the right half of each image when ``train_test_exp``.
+On CUDA each view replays one captured CUDA graph of the render
+(``render.py::ViewGraph``), as the JAX CLI jits its ``render_view`` once
+and calls it per camera; on the CPU the same body runs eagerly.
 A view that overflows ``--dup_capacity`` / ``--max_per_tile`` is rendered
 again at grown buffers, and said so; one that overflows even at the
 binning's limit is reported.
@@ -24,7 +27,7 @@ import torch
 from ..config import ModelConfig, PipelineConfig, RasterConfig
 from ..core.gaussians import GaussianParams
 from ..data.scene import Scene
-from ..render import render_grown
+from ..render import ViewGraph, render_grown
 from .args import (extract_dataclass, get_combined_args, make_parser,
                    resolve_data_device)
 
@@ -71,19 +74,24 @@ def load_exposures(model_path: str):
 @torch.no_grad()
 def render_set(model_path: str, name: str, iteration: int, cams, params,
                alive, sh_degree: int, bg, pipe: PipelineConfig,
-               raster: RasterConfig, train_test_exp: bool):
-    """ref: render.py:30-46 (render_set). A view that overflows ``raster``'s
-    buffers renders again at grown ones (``render_grown``), which the
-    following views keep. Returns the RasterConfig of the last view."""
+               raster: RasterConfig, train_test_exp: bool,
+               graph: ViewGraph | None = None):
+    """ref: render.py:30-46 (render_set). Each view through ``graph`` (a
+    new ViewGraph if None; pass one to reuse its captures). A view that
+    overflows ``raster``'s buffers renders again at grown ones
+    (``render_grown``), which the following views keep. Returns the
+    RasterConfig of the last view."""
     render_dir = os.path.join(model_path, name, f"ours_{iteration}", "renders")
     gt_dir = os.path.join(model_path, name, f"ours_{iteration}", "gt")
     os.makedirs(render_dir, exist_ok=True)
     os.makedirs(gt_dir, exist_ok=True)
     exposures = load_exposures(model_path) if train_test_exp else None
+    graph = ViewGraph() if graph is None else graph
 
     for idx, cam in enumerate(cams):
         out, raster = render_grown(
             cam.camera, params, bg, raster, label=f"{name} view {idx}",
+            graph=graph,
             active_sh_degree=sh_degree, antialiasing=pipe.antialiasing,
             convert_SHs_python=pipe.convert_SHs_python,
             compute_cov3D_python=pipe.compute_cov3D_python, alive=alive)
@@ -130,16 +138,18 @@ def main(argv=None):
     params, alive = params_from_ply(d, device=device)
     bg = torch.full((3,), 1.0 if model_cfg.white_background else 0.0,
                     device=device)
+    graph = ViewGraph()       # both splits replay its captures
 
     if not args.skip_train:
         raster = render_set(model_cfg.model_path, "train", iteration,
                             scene.get_train_cameras(), params, alive,
                             d["sh_degree"], bg, pipe, raster,
-                            model_cfg.train_test_exp)
+                            model_cfg.train_test_exp, graph)
     if not args.skip_test and scene.get_test_cameras():
         render_set(model_cfg.model_path, "test", iteration,
                    scene.get_test_cameras(), params, alive, d["sh_degree"],
-                   bg, pipe, raster, model_cfg.train_test_exp)
+                   bg, pipe, raster, model_cfg.train_test_exp, graph)
+    return graph
 
 
 if __name__ == "__main__":

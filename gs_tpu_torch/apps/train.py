@@ -16,8 +16,13 @@ images live. On a CUDA device the default is block mode, as the JAX CLI's
 on its accelerator (``gs_tpu/apps/train.py:340-341``): schedule-aligned
 blocks with one sync each, dispatched as CUDA graphs of the step
 (``train/graph.py``), under --mesh and --multihost too (the graphs then
-hold the NCCL collectives); --no_block_scan keeps step mode. Elsewhere step mode
-is the default and --block_scan asks for blocks. Unless --disable_viewer
+hold the NCCL collectives); --no_block_scan keeps step mode, which on CUDA
+replays one captured CUDA graph of the step per iteration
+(``train/graph.py::ChainStep.step``), as the JAX CLI dispatches its
+jitted step once per iteration. Elsewhere step mode is the default (the
+step's body run eagerly) and --block_scan asks for blocks. Test views and
+the viewer's frames replay a captured graph of the view on one CUDA device
+(``render.py::ViewGraph``). Unless --disable_viewer
 is given, a SIBR-protocol viewer server listens on --ip:--port
 (``viewer/server.py``) and is polled after every iteration (after every
 block in block mode, whose length is then capped to about a second of

@@ -7,11 +7,15 @@ Mirrors the reference live loop (ref: train_sdu6.py:38-214): block collecting
 up to ``--max_frames`` posed frames from the stream (the ROS
 ``/Visual_Merged`` replacement, ``io_live/stream.py``), bootstrap the scene
 from streamed poses and a RAIN-GS random point-cloud init (or the frames'
-local maps with ``--use_local_maps``), then run the standard optimizer on
-``--data_device`` (``cuda`` unless the caller asks for the CPU) with a stat
-line every iteration, which reads the loss and the alive count back from the
-device each time (``--quiet`` drops it). Pose estimation itself is external
-(ORB-SLAM3 / GPS+IMU fusion), exactly as in the reference.
+local maps with ``--use_local_maps``), then run the standard optimizer in
+step mode on ``--data_device`` (``cuda`` unless the caller asks for the
+CPU) with a stat line every iteration, which reads the loss and the alive
+count back from the device each time (``--quiet`` drops it). On CUDA each
+iteration replays one captured CUDA graph of the step
+(``train/graph.py::ChainStep.step``), as the JAX CLI dispatches its
+jitted step; on the CPU the step's body runs eagerly. Pose estimation
+itself is external (ORB-SLAM3 / GPS+IMU fusion), exactly as in the
+reference.
 """
 from __future__ import annotations
 

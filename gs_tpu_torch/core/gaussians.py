@@ -36,6 +36,16 @@ class GaussianParams(NamedTuple):
         return int(round((self.sh_rest.shape[1] + 1) ** 0.5)) - 1
 
 
+def mask_sh_rest(params: GaussianParams, active_sh_degree) -> GaussianParams:
+    """Zero coefficients above the active degree (the SH ramp); the degree
+    is an int or a 0-d tensor."""
+    rest_dim = params.sh_rest.shape[1]
+    k = torch.arange(1, rest_dim + 1, device=params.sh_rest.device)
+    keep = k < (active_sh_degree + 1) ** 2   # index in the full basis (DC is 0)
+    mask = keep.to(params.sh_rest.dtype)[None, :, None]
+    return params._replace(sh_rest=params.sh_rest * mask)
+
+
 def inverse_sigmoid(x):
     # ref: utils/general_utils.py:17-18
     return torch.log(x / (1.0 - x))

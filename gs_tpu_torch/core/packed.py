@@ -59,6 +59,15 @@ def layout(sh_degree: int) -> PackedLayout:
                         quat, logit_opacity, n, rows)
 
 
+def degree_from_rows(rows: int) -> int:
+    """The SH degree of a padded row count (unique for degrees 0..3; the
+    first match above)."""
+    for d in range(5):
+        if layout(d).rows == rows:
+            return d
+    raise ValueError(f"no SH degree maps to {rows} packed rows")
+
+
 def pack_params(p: GaussianParams) -> torch.Tensor:
     """GaussianParams -> [R, C] packed block (a transpose; cold path)."""
     lay = layout(p.sh_degree)
@@ -166,7 +175,7 @@ def sh_band_index(lay: PackedLayout) -> np.ndarray:
 def mask_sh_rows(packed: torch.Tensor, lay: PackedLayout, active_sh_degree,
                  band_index: torch.Tensor = None) -> torch.Tensor:
     """Zero the sh_rest rows above the active degree (the SH ramp):
-    the packed form of ``train/step.py::mask_sh_rest``. ``active_sh_degree``
+    the packed form of ``core/gaussians.py::mask_sh_rest``. ``active_sh_degree``
     may be a 0-d tensor; ``band_index``: :func:`sh_band_index` on the
     block's device, made once by the caller (None makes it here)."""
     if band_index is None:

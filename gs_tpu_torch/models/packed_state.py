@@ -20,20 +20,11 @@ import torch
 
 from ..config import OptimizationConfig
 from ..core.gaussians import GaussianParams, inverse_sigmoid
-from ..core.packed import (PackedLayout, layout, lr_rows, pack_params,
-                           unpack_params)
+from ..core.packed import (PackedLayout, degree_from_rows, layout, lr_rows,
+                           pack_params, unpack_params)
 from .gaussian_model import (ADAM_B1, ADAM_B2, ADAM_EPS, TrainState, _count,
                              _gate, _put, compact, densify_and_prune,
                              grow_capacity, group_lrs)
-
-
-def degree_from_rows(rows: int) -> int:
-    """The SH degree of a padded row count (unique for degrees 0..3; the
-    first match above)."""
-    for d in range(5):
-        if layout(d).rows == rows:
-            return d
-    raise ValueError(f"no SH degree maps to {rows} packed rows")
 
 
 class PackedState(NamedTuple):

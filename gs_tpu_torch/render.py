@@ -18,22 +18,31 @@ and ``depthwise`` through plain autograd, as the JAX package's oracles.
 ``render_grown`` is the no-grad entry point of every caller that must not
 return a truncated image (the render CLI, ``Trainer.evaluate`` and
 ``render_view``, the viewer): one host read of ``overflow`` per view, and a
-second render at grown buffers when it is set.
+second render at grown buffers when it is set. Given a :class:`ViewGraph`
+it renders through it: on CUDA one captured CUDA graph replayed per view,
+as the JAX package jits its per-view render (``gs_tpu/train/loop.py:
+661-701``, ``gs_tpu/apps/render.py:70-85``); on the CPU the same body,
+eagerly. ``render()`` itself stays eager, as the JAX package's is.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
+import weakref
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
 
 from .core.camera import Camera
-from .core.gaussians import GaussianParams
+from .core.gaussians import GaussianParams, mask_sh_rest
+from .core.packed import degree_from_rows, unpack_params
 from .core.project import Projected, preprocess
 from .ops.binning import F32_EXACT, bin_gaussians
 from .ops.rasterize import rasterize
 from .ops.rasterize_plain import rasterize_binned, rasterize_depthwise
+from .utils.cuda_graphs import capture, replay
 
 TILE_X = 16
 TILE_Y = 16
@@ -105,7 +114,8 @@ def overflow_changes(dup_capacity: int, max_per_tile: int,
 
 
 def render_grown(camera: Camera, params: GaussianParams, bg: torch.Tensor,
-                 raster, *, label: str = "view", mesh=None, **kwargs):
+                 raster, *, label: str = "view", mesh=None,
+                 graph: Optional["ViewGraph"] = None, **kwargs):
     """``render`` with ``raster``'s backend and buffers, read back once: a
     view that overflowed them renders again with buffers sized from its
     ``num_duplicates`` and ``max_tile_len`` (``overflow_changes``), and a
@@ -115,13 +125,17 @@ def render_grown(camera: Camera, params: GaussianParams, bg: torch.Tensor,
     ``mesh`` (a group of ``parallel/mesh.py``) the view is
     ``render_multichip``'s, banded by ``raster.band_assign`` and compacted
     to ``raster.visible_capacity``, and the largest band and shard size
-    the grown buffers."""
+    the grown buffers. With ``graph`` (one device) every render is that
+    :class:`ViewGraph`'s, and ``kwargs`` are its call's (``params`` may
+    then be a packed block and ``sh_degree`` masks the SH ramp)."""
     attempts = 0
     while True:
         common = dict(backend=raster.backend, dup_capacity=raster.dup_capacity,
                       max_per_tile=raster.max_per_tile, chunk=raster.chunk,
                       **raster_lever_kwargs(raster), **kwargs)
-        if mesh is None:
+        if graph is not None:
+            out = graph(camera, params, bg, **common)
+        elif mesh is None:
             out = render(camera, params, bg, **common)
         else:
             # the multi-GPU render streams f32 features, as the JAX
@@ -251,3 +265,162 @@ def render_projected(proj: Projected, width: int, height: int,
                         radii=proj.radius, visibility=proj.visible,
                         num_duplicates=nd, max_tile_len=ml, overflow=ov,
                         num_valid=nv)
+
+
+# the camera's tensors, a view graph's static inputs
+CAMERA_TENSORS = ("world_view", "full_proj", "camera_center", "tan_fovx",
+                  "tan_fovy")
+
+
+class _View:
+    """One captured view: its static inputs, graph and outputs."""
+
+    def __init__(self, camera: Camera, bg: torch.Tensor, masked: bool):
+        dev = camera.device
+        self.camera = dataclasses.replace(camera, **{
+            k: getattr(camera, k).clone() for k in CAMERA_TENSORS})
+        self.bg = bg.clone()
+        self.sh_degree = (torch.zeros((), dtype=torch.int64, device=dev)
+                          if masked else None)
+        self.scaling_modifier = torch.ones((), dtype=torch.float32,
+                                           device=dev)
+        self.graph = None
+        self.counts: dict = {}
+        self.out: Optional[RenderOutput] = None
+
+    def load(self, camera: Camera, bg: torch.Tensor, sh_degree,
+             scaling_modifier):
+        for k in CAMERA_TENSORS:
+            getattr(self.camera, k).copy_(getattr(camera, k))
+        self.bg.copy_(bg)
+        if self.sh_degree is not None:
+            self.sh_degree.fill_(int(sh_degree))
+        self.scaling_modifier.fill_(float(scaling_modifier))
+
+
+# the views a ViewGraph keeps captured: the least recently used goes first
+MAX_VIEWS = 4
+
+
+class ViewGraph:
+    """The no-grad view as a CUDA graph: the port of the JAX package's
+    jitted per-view render (the trainer's ``_eval_render``, the render
+    CLI's ``render_view``).
+
+    A call renders ``params`` (a ``GaussianParams``, or a packed [R, C]
+    block, unpacked inside the view) with ``render()``'s arguments. On
+    CUDA it replays the graph captured for the call's key and returns a
+    copy of its outputs; on the CPU it runs the same body eagerly. The
+    graph's static inputs are the camera's tensors, the background, the SH
+    degree ``sh_degree`` (coefficients above it masked to zero, as the
+    train step's ramp; None: no mask) and ``scaling_modifier``, each
+    copied in before the replay, so none is frozen into a capture. Its key
+    is everything else that shapes the work: the resolution, the state's
+    shapes (the capacity), the buffers (``dup_capacity``,
+    ``max_per_tile``, ``chunk``), the backend, the pipeline switches and
+    the raster levers (the JAX trainer's ``_eval_render`` keys its cache on
+    the background, the capacity and the buffers, ``gs_tpu/train/
+    loop.py:668-669``). The graphs read the state's tensors themselves: a
+    call with other tensors (a state replaced by a densify outside the
+    training graph, a capacity growth, another model) releases every graph
+    and captures again; the graphs hold only weak references to them, so
+    they keep no state alive.
+
+    At most ``max_views`` views stay captured: a new key beyond them
+    releases the least recently used (a viewer whose window is resized, a
+    dataset of many image sizes, would otherwise keep a graph for each).
+    Every graph allocates from one memory pool, so the view's buffers are
+    held once, not once per key: that is safe because the graphs never run
+    at once and each call copies its outputs out before the next replay
+    (another key's replay may write over them). ``captures`` records each
+    capture's resolution, capacity, ``dup_capacity``, ms, peak allocation
+    (``pool_peak_bytes``) and what it added to the memory the card
+    reserves (``pool_growth_bytes``: none where the shared pool had room)."""
+
+    def __init__(self, max_views: int = MAX_VIEWS):
+        self.max_views = max(int(max_views), 1)
+        self.views: OrderedDict = OrderedDict()   # key -> _View, oldest first
+        self.reads: tuple = ()       # weak references to the state's tensors
+        self.pool = None             # the graphs' shared memory pool
+        self.captures: list = []     # {width, height, capacity, ms, pool}
+
+    def release(self):
+        """Destroy every captured view (and so free their pool)."""
+        for v in self.views.values():
+            if v.graph is not None:
+                v.graph.reset()
+        self.views = OrderedDict()
+        # a pool that no graph uses is freed: the next capture makes one
+        self.pool = None
+
+    def _reads_from(self, leaves) -> bool:
+        return len(leaves) == len(self.reads) and all(
+            r() is t for r, t in zip(self.reads, leaves))
+
+    def __call__(self, camera: Camera, params, bg: torch.Tensor, *,
+                 alive: torch.Tensor, sh_degree=None,
+                 scaling_modifier: float = 1.0, **kwargs) -> RenderOutput:
+        leaves = ([params] if isinstance(params, torch.Tensor)
+                  else list(params)) + [alive]
+        if not self._reads_from(leaves):
+            self.release()
+            self.reads = tuple(weakref.ref(t) for t in leaves)
+        key = (camera.width, camera.height, sh_degree is None,
+               tuple((tuple(t.shape), t.dtype) for t in leaves),
+               tuple(sorted(kwargs.items())))
+        v = self.views.get(key)
+        if v is None:
+            v = _View(camera, bg, sh_degree is not None)
+            v.load(camera, bg, sh_degree, scaling_modifier)
+            if camera.device.type == "cuda":
+                self._capture(v, params, alive, kwargs)
+            self.views[key] = v
+            while len(self.views) > self.max_views:
+                # after the capture: the pool keeps a graph that uses it
+                _, old = self.views.popitem(last=False)
+                if old.graph is not None:
+                    old.graph.reset()
+        else:
+            self.views.move_to_end(key)
+            v.load(camera, bg, sh_degree, scaling_modifier)
+        if v.graph is not None:
+            replay(v.graph, v.counts)
+        else:
+            v.out = self._body(v, params, alive, kwargs)
+        return RenderOutput(*[x.clone() if isinstance(x, torch.Tensor) else x
+                              for x in v.out])
+
+    @staticmethod
+    def _body(v: _View, params, alive, kwargs) -> RenderOutput:
+        if isinstance(params, torch.Tensor):
+            params = unpack_params(params, degree_from_rows(params.shape[0]))
+        if v.sh_degree is not None:
+            params = mask_sh_rest(params, v.sh_degree)
+        with torch.no_grad():
+            return render(v.camera, params, v.bg, alive=alive,
+                          scaling_modifier=v.scaling_modifier, **kwargs)
+
+    def _capture(self, v: _View, params, alive, kwargs):
+        dev = v.camera.device
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+
+        def body():
+            v.out = self._body(v, params, alive, kwargs)
+
+        cap = capture(dev, lambda: self._body(v, params, alive, kwargs), body,
+                      pool=self.pool)
+        if cap.error is not None:
+            raise RuntimeError("capturing the view failed") from cap.error
+        v.graph, v.counts = cap.graph, cap.counts
+        ms = 1e3 * (time.perf_counter() - cap.start)
+        capacity = alive.shape[0]
+        self.captures.append(dict(
+            width=v.camera.width, height=v.camera.height, capacity=capacity,
+            dup_capacity=kwargs.get("dup_capacity"), ms=ms,
+            pool_peak_bytes=cap.pool_peak_bytes,
+            pool_growth_bytes=cap.reserved_growth_bytes))
+        print(f"[gs_tpu_torch] captured the {v.camera.width}x"
+              f"{v.camera.height} view at capacity {capacity}, dup_capacity "
+              f"{kwargs.get('dup_capacity')} in {ms:.1f} ms (graph pool peak "
+              f"{cap.pool_peak_bytes} bytes)", flush=True)

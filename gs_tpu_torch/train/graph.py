@@ -1,17 +1,21 @@
-"""Block dispatch of the training step — port of
-``gs_tpu/train/step.py::{make_train_step_chain, make_train_steps_scan}``.
+"""Graphed dispatch of the training step — port of
+``gs_tpu/train/step.py::{make_train_step_chain, make_train_steps_scan}``
+and of the jitted step itself (``make_train_step``'s ``jax.jit``).
 
 The JAX package trains a block of steps on its accelerator with the
 training data on the device and the camera picked by a traced index, one
 compiled executable dispatched per step ("chain", the default) or per
 bucket of ``densification_interval`` steps ("scan", a ``lax.scan`` whose
-tail steps a ``valid`` mask turns into exact no-ops). PyTorch's
-counterpart of a compiled executable replayed per call is a CUDA graph:
-on a CUDA device, :func:`make_train_step_chain` captures one step and
-replays it once per step, and :func:`make_train_steps_scan` captures a
-whole bucket and replays it once per bucket. On the CPU the same bodies
-run eagerly, in the same order on the same buffers: that is the path the
-CPU tests hold against the JAX package, as the kernels' plain versions are.
+tail steps a ``valid`` mask turns into exact no-ops); in step mode it
+dispatches its jitted step once per iteration. PyTorch's counterpart of a
+compiled executable replayed per call is a CUDA graph: on a CUDA device,
+:func:`make_train_step_chain` captures one step and replays it once per
+step (and, in step mode, once per call with that call's inputs:
+:meth:`ChainStep.step`), and :func:`make_train_steps_scan` captures a
+whole bucket and replays it once per bucket. On the CPU
+the same bodies run eagerly, in the same order on the same buffers: that
+is the path the CPU tests hold against the JAX package, as the kernels'
+plain versions are.
 
 The graphs read and write static tensors. A bucket's inputs (camera
 indices, iterations, schedule rows, backgrounds and the ``valid`` mask)
@@ -29,16 +33,14 @@ static tensors and a new capture. A caller that keeps a state past the
 next replay (the trainer's snapshot) keeps a copy of every static tensor
 in it (``unshared``): those change at every replay.
 
-A capture first runs one step on a copy of the state on a side stream,
-as ``torch.cuda.graphs`` requires, so that every first call (the kernels'
-C entries, cuBLAS, the autograd engine's threads) happens before the
-capture. Its time and the private pool's peak are printed and kept in
-``captures``. The JAX trainer compiles the next capacity tier ahead of
-time in a thread (``_spawn_aot``), because an XLA compile takes minutes;
-a capture takes about one eager step plus the graph's instantiation, so
-the next tier is captured when it is needed and nothing runs in the
-background. A failed capture or replay raises: nothing retries through
-the eager loop.
+A capture first runs one step on a copy of the state on a side stream
+(``utils/cuda_graphs.py``). Its time and the private pool's peak are
+printed and kept in ``captures``. The JAX trainer compiles the next
+capacity tier ahead of time in a thread (``_spawn_aot``), because an XLA
+compile takes minutes; a capture takes about one eager step plus the
+graph's instantiation, so the next tier is captured when it is needed and
+nothing runs in the background. A failed capture or replay raises:
+nothing retries through the eager loop.
 
 Under a mesh (``train_step.mesh``, a group of ``parallel/mesh.py``) the
 step is the banded multi-GPU step, and the graph holds its collectives
@@ -62,9 +64,10 @@ records the whole state's capacity.
 The random background of a bucket is drawn before it, all B draws at
 once, in both modes, as the JAX trainer splits one key into B per bucket:
 chain and scan see the same backgrounds and no generator runs inside a
-graph. The kernel wrappers' launch counters count Python calls, which a
-replay does not make: each graph keeps the launches its capture made and
-adds them to the counters at every replay.
+graph. Step mode draws its background before each call, the eager step's
+own ``torch.rand(3)`` in the eager order (the densify's noise comes from
+the same generator). Each graph adds the launches its capture made to the
+kernel wrappers' counters at every replay.
 """
 from __future__ import annotations
 
@@ -75,6 +78,7 @@ import torch
 
 from ..core.gaussians import GaussianParams
 from ..parallel.mesh import ProcessGroup
+from ..utils.cuda_graphs import capture, launch_counters, replay  # noqa: F401
 from .step import StepMetrics
 
 
@@ -114,21 +118,12 @@ def clone_state(state):
     return state_from_leaves(state, [t.clone() for t in state_leaves(state)])
 
 
-def launch_counters() -> tuple:
-    """The kernel wrappers whose ``launches`` count their launches."""
-    from ..ops.expand import expand_rows
-    from ..ops.fold import fold_rows
-    from ..ops.rasterize import (raster_tiles_bwd, raster_tiles_fwd,
-                                 raster_tiles_fwd_save)
-    return (expand_rows, raster_tiles_fwd, raster_tiles_fwd_save,
-            raster_tiles_bwd, fold_rows)
-
-
 class _Graphed:
     """What the chain and the scan share: the static state, the bucket's
     input buffers, the capture and the replay."""
 
     mode = ""
+    label = ""        # what the capture's messages call it
 
     def __init__(self, train_step, *, use_alpha: bool, use_depth: bool,
                  bucket: int):
@@ -237,50 +232,29 @@ class _Graphed:
 
     def _capture(self):
         dev, mesh = self.device, self.mesh
-        t0 = time.perf_counter()
-        warm = clone_state(self.state)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.warm_up(warm)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        del warm
-        counters = launch_counters()
-        before = [f.launches for f in counters]
-        torch.cuda.reset_peak_memory_stats(dev)
-        base = torch.cuda.memory_allocated(dev)
-        graph, failure = torch.cuda.CUDAGraph(), None
+        warm = [clone_state(self.state)]
         mode = "global" if mesh is None else mesh.capture_error_mode
-        try:
-            with torch.cuda.graph(graph, capture_error_mode=mode):
-                self.graph_body()
-            torch.cuda.synchronize(dev)
-        except Exception as e:   # raised below, on every rank
-            failure = e
-        # the capture ran no kernel: its launches count at each replay
-        self.counts = {f: f.launches - n for f, n in zip(counters, before)}
-        for f, n in self.counts.items():
-            f.launches -= n
-        ok = failure is None
+        cap = capture(dev, lambda: self.warm_up(warm.pop()),
+                      self.graph_body, mode)
+        self.counts = cap.counts
+        ok = cap.error is None
         if mesh is not None:
             ok = mesh.every(ok)      # a collective: every rank learns it
         if not ok:
-            where = "" if failure is not None else " on another rank"
-            raise RuntimeError(f"capturing the {self.mode} step failed"
-                               f"{where}") from failure
-        peak = torch.cuda.max_memory_allocated(dev) - base
-        self.graph = graph
+            where = "" if cap.error is not None else " on another rank"
+            raise RuntimeError(f"capturing the {self.label} failed"
+                               f"{where}") from cap.error
+        self.graph = cap.graph
         if isinstance(mesh, ProcessGroup):
             mesh.graphs.add(self)     # released before the group is closed
-        ms = 1e3 * (time.perf_counter() - t0)
+        ms = 1e3 * (time.perf_counter() - cap.start)
         capacity = self.capacity()
         self.captures.append(dict(capacity=capacity, ms=ms,
-                                  pool_peak_bytes=peak))
+                                  pool_peak_bytes=cap.pool_peak_bytes))
         shards = "" if mesh is None else f" in {mesh.size} shards"
-        print(f"[gs_tpu_torch] captured the {self.mode} step at capacity "
-              f"{capacity}{shards} in {ms:.1f} ms (graph pool peak {peak} "
-              f"bytes)", flush=True)
+        print(f"[gs_tpu_torch] captured the {self.label} at capacity "
+              f"{capacity}{shards} in {ms:.1f} ms (graph pool peak "
+              f"{cap.pool_peak_bytes} bytes)", flush=True)
 
     def release(self):
         """Destroy the captured graph; a later call raises (``dispatch``)."""
@@ -288,18 +262,13 @@ class _Graphed:
             self.graph.reset()
             self.graph = None
 
-    def replay(self):
-        self.graph.replay()
-        for f, n in self.counts.items():
-            f.launches += n
-
     def dispatch(self):
         """The graph's replay on CUDA, the body itself on the CPU; on CUDA
         without a graph (its capture raised) it raises again."""
         if self.graph is not None:
-            self.replay()
+            replay(self.graph, self.counts)
         elif self.graphed:
-            raise RuntimeError(f"the {self.mode} step was not captured")
+            raise RuntimeError(f"the {self.label} was not captured")
         else:
             self.graph_body()
 
@@ -315,6 +284,7 @@ class ChainStep(_Graphed):
     :func:`make_train_step_chain`)."""
 
     mode = "chain"
+    label = "chain step"
 
     def __init__(self, train_step, **kw):
         super().__init__(train_step, **kw)
@@ -357,6 +327,29 @@ class ChainStep(_Graphed):
         self.dispatch()
         return self.state, self.out
 
+    def step(self, state, data: TrainingData, cam: int, iteration: int,
+             sched: torch.Tensor, bg: Optional[torch.Tensor] = None):
+        """Step mode's entry, the port of the JAX trainer's jitted
+        ``train_step`` (``gs_tpu/train/step.py:247``, dispatched once per
+        iteration by ``gs_tpu/train/loop.py:261-280``): one step on
+        ``state`` with its inputs given, not taken from a loaded bucket:
+        camera ``cam`` at ``iteration``, ``sched`` its [3] row of the
+        schedule table (on the host), ``bg`` the background (random
+        backgrounds only; the caller draws it). They go into the row
+        buffers a bucket's row is copied into, and the same graph replays.
+        Returns the static state and a copy of the step's metrics; the
+        bucket's fold, which the graph also updates, is not read (``run``
+        zeroes it before a bucket)."""
+        self.bind(state, data)
+        self.row_ints.copy_(torch.tensor([cam, iteration]), non_blocking=True)
+        self.row_floats[:3].copy_(sched, non_blocking=True)
+        if bg is not None:
+            self.row_floats[3:].copy_(bg)
+        self.dispatch()
+        return self.state, StepMetrics(*[
+            x.clone() if isinstance(x, torch.Tensor) else x
+            for x in self.out])
+
     def run(self, state, data: TrainingData, b: int):
         """The first ``b`` steps of the loaded bucket, one replay each.
         Returns the static state and the last step's metrics with the
@@ -377,6 +370,7 @@ class ScanSteps(_Graphed):
     """One bucket per call (see :func:`make_train_steps_scan`)."""
 
     mode = "scan"
+    label = "scan step"
 
     def __init__(self, train_step, **kw):
         super().__init__(train_step, **kw)
@@ -441,7 +435,8 @@ def make_train_step_chain(train_step, *, use_alpha: bool, use_depth: bool,
     mesh (its collectives captured with the step; see the module's
     docstring). :meth:`ChainStep.run` folds the bucket's metrics over its
     steps as the JAX trainer's chain does (``gs_tpu/train/loop.py:
-    194-202``)."""
+    194-202``); :meth:`ChainStep.step` is step mode's entry to the same
+    graph."""
     return ChainStep(train_step, use_alpha=use_alpha, use_depth=use_depth,
                      bucket=bucket)
 

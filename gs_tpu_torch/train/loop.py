@@ -22,19 +22,24 @@ iterations in step mode, after every block in block mode, at test
 iterations, and at every densify, whose ``torch.nonzero`` reads the
 counts).
 
-Step mode runs the step eagerly, one iteration at a time. Block mode
-(``train(block_scan=True)``, ``run_block``) runs schedule-aligned blocks
-with the JAX trainer's block dispatch (``train/graph.py``):
-``block_dispatch`` "chain" (the default, ``gs_tpu/train/loop.py:158-164``)
-replays a CUDA graph of one step per iteration, "scan" one of a bucket of
-``densification_interval`` steps per bucket; on the CPU the same bodies
-run eagerly. The graph updates its static state in place, so the
-snapshot at a sync is a copy of it, and whatever replaces the state
-between blocks (densify, opacity reset, an overflow replay's snapshot, a
-resumed checkpoint) is copied into the static tensors at the next block.
-A growth of the capacity, or of the binning buffers (which rebuilds the
-step), captures again; ``captures`` records each capture's capacity, time
-and graph-pool peak. Under a ``mesh`` the block goes through the same
+Step mode runs one iteration at a time, as the JAX trainer dispatches
+its jitted step once per iteration (``gs_tpu/train/loop.py:261-280``): on
+CUDA each iteration replays one captured CUDA graph of the step
+(``train/graph.py::ChainStep.step``), its camera, iteration,
+schedule row and background loaded into the graph's inputs; on the CPU the
+same body runs eagerly. Block mode (``train(block_scan=True)``,
+``run_block``) runs schedule-aligned blocks with the JAX trainer's block
+dispatch (``train/graph.py``): ``block_dispatch`` "chain" (the default,
+``gs_tpu/train/loop.py:158-164``) replays a CUDA graph of one step per
+iteration, "scan" one of a bucket of ``densification_interval`` steps per
+bucket; on the CPU the same bodies run eagerly. The graph updates its
+static state in place, so the snapshot at a sync is a copy of it, and the
+metrics the trainer keeps are copies of the graph's; whatever replaces
+the state between steps or blocks (densify, opacity reset, an overflow
+replay's snapshot, a resumed checkpoint) is copied into the static
+tensors at the next one. A growth of the capacity, or of the binning
+buffers (which rebuilds the step), captures again; ``captures`` records
+each capture's capacity, time and graph-pool peak. Under a ``mesh`` the block goes through the same
 chain or scan, whose graph then holds the banded step and its
 collectives, as the JAX trainer dispatches its block under a mesh
 (``gs_tpu/train/loop.py:327-375``); on gloo the bodies run eagerly.
@@ -57,10 +62,16 @@ which unpack, run the tree layout's and pack again. The snapshot, the
 checkpoints (``train/checkpoint.py`` unpacks) and every render of a view
 read ``PackedState.params``/``.alive``.
 
-Not ported, being XLA machinery of the JAX trainer: the jit caches, and
-the background thread of the next capacity tier's compile (a capture
-takes about one step, so the next tier is captured when it is needed;
-``train/graph.py`` says more).
+The one-device views of ``render_view`` and ``evaluate`` (and so the
+viewer's frames) replay a captured CUDA graph of the view
+(``render.py::ViewGraph``), as the JAX trainer jits ``_eval_render``
+(``gs_tpu/train/loop.py:661-701``); a new state, resolution or buffer size
+captures again. Under a mesh the view renders eagerly.
+
+Not ported, being XLA machinery of the JAX trainer: the background thread
+of the next capacity tier's compile (a capture takes about one step, so
+the next tier is captured when it is needed; ``train/graph.py`` says
+more).
 """
 from __future__ import annotations
 
@@ -86,8 +97,8 @@ from ..models.packed_state import (PackedState, densify_and_prune_packed,
                                    reset_opacity_packed, unpack_state)
 from ..ops.losses import psnr
 from ..parallel.mesh import gather_state, pad_state, shard_state
-from ..render import (MAX_DUP_CAPACITY, RenderOutput, overflow_changes,
-                      render_grown)
+from ..render import (MAX_DUP_CAPACITY, RenderOutput, ViewGraph,
+                      overflow_changes, render_grown)
 from .graph import (TrainingData, make_train_step_chain,
                     make_train_steps_scan)
 from .step import StepMetrics, make_train_step, mask_sh_rest
@@ -232,6 +243,12 @@ class Trainer:
         self.block_dispatch = "chain"
         self._runner = None
         self.captures: list = []      # every capture: capacity, ms, pool peak
+        # the one-device view's graphs (render_view, evaluate, the viewer)
+        self.views = ViewGraph()
+        # True: step mode's step and the one-device view run eagerly, not
+        # as graph replays (the reference the card's checks hold them to;
+        # as the JAX CLI has no switch for its jit, no flag sets it)
+        self._eager_dispatch = False
         self._build_step()
         self._camera_stack: list[int] = []
         self.ema_loss = 0.0
@@ -347,7 +364,7 @@ class Trainer:
 
         The device is read back (loss, overflow) only every ``sync_every``
         iterations or when ``sync`` is set; the returned metrics are 0-d
-        device tensors.
+        device tensors, copies that later steps leave as they are.
         """
         self._dispatch_step()
         i = self.iteration
@@ -357,7 +374,9 @@ class Trainer:
         return self._last_metrics
 
     def _dispatch_step(self):
-        """One train step (no schedule, no sync) — the replayable unit."""
+        """One train step (no schedule, no sync) — the replayable unit: a
+        replay of step mode's graph (on the CPU its body), or the eager
+        step under ``_eager_dispatch``."""
         self._log(("step",))
         self.iteration += 1
         i = self.iteration
@@ -368,9 +387,17 @@ class Trainer:
             dok = self.depth_oks[idx]
         else:
             invd, dmask, dok = None, None, 0.0
-        self.state, metrics = self.train_step(
-            self.state, idx, self.images[idx], alpha, invd, dmask, dok, i,
-            generator=self.generator)
+        if self._eager_dispatch:
+            self.state, metrics = self.train_step(
+                self.state, idx, self.images[idx], alpha, invd, dmask, dok,
+                i, generator=self.generator)
+        else:
+            # the eager step's own draw, in its order (train/step.py)
+            bg = (torch.rand(3, generator=self.generator, device=self.device)
+                  if self.opt.random_background else None)
+            sched = torch.from_numpy(self.train_step.schedule(i)[0])
+            self.state, metrics = self._graph_runner("chain").step(
+                self.state, self._data, idx, i, sched, bg)
         self._window_metrics = _fold_window(metrics, self._window_metrics)
         self._last_metrics = self._window_metrics
         self._last_cam = idx
@@ -402,7 +429,10 @@ class Trainer:
         iteration, "scan" the captured bucket once (its tail steps
         masked)."""
         self._log(("block", k))
-        runner = self._block_runner()
+        if self.block_dispatch not in ("chain", "scan"):
+            raise ValueError(f"block_dispatch {self.block_dispatch!r}: "
+                             f"'chain' or 'scan'")
+        runner = self._graph_runner(self.block_dispatch)
         done = 0
         while done < k:
             b = min(runner.bucket, k - done)
@@ -417,16 +447,14 @@ class Trainer:
         self._last_metrics = self._window_metrics
         return self._last_metrics
 
-    def _block_runner(self):
-        """The chain or scan of the current step, built when first needed
-        (and again after ``_build_step`` or a change of mode)."""
-        makers = {"chain": make_train_step_chain,
-                  "scan": make_train_steps_scan}
-        if self.block_dispatch not in makers:
-            raise ValueError(f"block_dispatch {self.block_dispatch!r}: "
-                             f"'chain' or 'scan'")
-        if self._runner is None or self._runner.mode != self.block_dispatch:
-            self._runner = makers[self.block_dispatch](
+    def _graph_runner(self, mode: str):
+        """Block mode's chain or scan of the current step, built when first
+        needed (and again after ``_build_step`` or a change of mode); step
+        mode replays the chain's graph through its ``step`` entry."""
+        if self._runner is None or self._runner.mode != mode:
+            maker = (make_train_step_chain if mode == "chain"
+                     else make_train_steps_scan)
+            self._runner = maker(
                 self.train_step, use_alpha=self.alphas is not None,
                 use_depth=self.use_depth,
                 bucket=max(int(self.opt.densification_interval), 1))
@@ -625,24 +653,38 @@ class Trainer:
         basis evaluated), the trainer's pipeline and raster settings, and a
         second render at grown buffers if the view overflows them
         (``render_grown``; the trainer's own ``raster`` stays as it is).
-        Under a mesh every process renders the same view, banded (K2 and
-        K1 per band)."""
+        On one device the view replays a captured graph (``views``, a
+        ``render.py::ViewGraph``; on the CPU its body runs eagerly) and the
+        output is a copy. Under a mesh every process renders the same
+        view, banded (K2 and K1 per band), eagerly."""
         bg = torch.full((3,), 1.0 if self.model_cfg.white_background else 0.0,
                         device=self.device)
         sh_deg = min(self.iteration // 1000, self.model_cfg.sh_degree)
-        params = mask_sh_rest(self.state.params, sh_deg)
         kw = dict(active_sh_degree=self.model_cfg.sh_degree,
                   antialiasing=self.pipe.antialiasing, alive=self.state.alive)
-        if self.mesh is None:
-            kw.update(scaling_modifier=scaling_modifier,
-                      convert_SHs_python=self.pipe.convert_SHs_python,
-                      compute_cov3D_python=self.pipe.compute_cov3D_python)
-        elif scaling_modifier != 1.0:
-            # under a mesh every process renders the same view, banded; the
-            # reference's debug switches change no value and are not applied
-            raise ValueError("scaling_modifier is not supported under a mesh")
-        out, _ = render_grown(cam, params, bg, self.raster, mesh=self.mesh,
-                              **kw)
+        if self.mesh is not None:
+            if scaling_modifier != 1.0:
+                # every process renders the same view, banded; the
+                # reference's debug switches change no value and are not
+                # applied
+                raise ValueError("scaling_modifier is not supported under "
+                                 "a mesh")
+            out, _ = render_grown(cam, mask_sh_rest(self.state.params, sh_deg),
+                                  bg, self.raster, mesh=self.mesh, **kw)
+            return out
+        kw.update(scaling_modifier=scaling_modifier,
+                  convert_SHs_python=self.pipe.convert_SHs_python,
+                  compute_cov3D_python=self.pipe.compute_cov3D_python)
+        if self._eager_dispatch:
+            out, _ = render_grown(cam, mask_sh_rest(self.state.params, sh_deg),
+                                  bg, self.raster, **kw)
+            return out
+        # the packed block itself (its ``params`` unpack anew at each
+        # access): the graph unpacks it, and masks, inside the view
+        src = (self.state.packed if isinstance(self.state, PackedState)
+               else self.state.params)
+        out, _ = render_grown(cam, src, bg, self.raster, graph=self.views,
+                              sh_degree=sh_deg, **kw)
         return out
 
     @torch.no_grad()

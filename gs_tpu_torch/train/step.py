@@ -37,7 +37,7 @@ import torch
 
 from ..config import ModelConfig, OptimizationConfig, PipelineConfig, RasterConfig
 from ..core.camera import CameraBatch
-from ..core.gaussians import GaussianParams
+from ..core.gaussians import GaussianParams, mask_sh_rest
 from ..core.packed import (layout as packed_layout, mask_sh_rows,
                            sh_band_index)
 from ..core.project import preprocess, preprocess_packed
@@ -66,16 +66,6 @@ class StepMetrics(NamedTuple):
     # (what the per-band dup_capacity must hold)
     max_band_visible: Optional[torch.Tensor] = None
     max_band_duplicates: Optional[torch.Tensor] = None
-
-
-def mask_sh_rest(params: GaussianParams, active_sh_degree) -> GaussianParams:
-    """Zero coefficients above the active degree (the SH ramp); the degree
-    is an int or a 0-d tensor."""
-    rest_dim = params.sh_rest.shape[1]
-    k = torch.arange(1, rest_dim + 1, device=params.sh_rest.device)
-    keep = k < (active_sh_degree + 1) ** 2   # index in the full basis (DC is 0)
-    mask = keep.to(params.sh_rest.dtype)[None, :, None]
-    return params._replace(sh_rest=params.sh_rest * mask)
 
 
 def apply_exposure(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:

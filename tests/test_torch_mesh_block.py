@@ -205,7 +205,7 @@ def test_band_fold_through_a_replay():
         runs[mode] = (tr, losses, grows)
     step, chain, scan = (runs[m][0] for m in ("step", "chain", "scan"))
     assert chain._runner.mode == "chain" and scan._runner.mode == "scan"
-    assert step._runner is None
+    assert step._runner.mode == "chain"     # step mode's entry to the chain
     assert step.raster.visible_capacity == chain.raster.visible_capacity \
         == scan.raster.visible_capacity > VCAP
     assert runs["chain"][2] == runs["scan"][2]

@@ -545,23 +545,18 @@ def test_packed_trainer_matches_jax(jax_packed_run, capsys):
     # each iteration's camera and loss, the replayed ones overwriting
     # those of the truncated window
     cams, losses = {}, {}
-    pick, step = tr._next_camera, tr.train_step
+    pick, dispatch = tr._next_camera, tr._dispatch_step
 
     def next_camera():
         cams[tr.iteration] = pick()
         return cams[tr.iteration]
 
-    def train_step(*a, **kw):
-        st, m = tr._step_now(*a, **kw)
-        losses[tr.iteration] = float(m.loss)
-        return st, m
+    def dispatch_step():
+        dispatch()
+        losses[tr.iteration] = float(tr._last_metrics.loss)
 
     tr._next_camera = next_camera
-    tr._step_now = step
-    tr._build_step = lambda b=tr._build_step: (
-        b(), setattr(tr, "_step_now", tr.train_step),
-        setattr(tr, "train_step", train_step))
-    tr.train_step = train_step
+    tr._dispatch_step = dispatch_step
     tr.train(iterations=ITERS)
     assert tr.raster.dup_capacity > 64, "no overflow"
     assert tr.overflow_exhausted == 0

@@ -14,10 +14,10 @@ processes over gloo. The dataset is chip_smoke.py's [trainer] dataset: the
 K1 from the seed (``--points``/``--width``/``--height`` make it smaller).
 Both runs train ``-r 1`` without densification (so both train the same
 Gaussians), in step mode, or with ``--block`` in block mode (the CLI's
-default on CUDA: each step a CUDA-graph replay, under ``--mesh k`` with
-its NCCL collectives captured), print ``[i/N] ... it/s`` every 100
-iterations,
-and save the point cloud at iteration HELD and at the last. Prints each
+default on CUDA); on CUDA both modes replay the chain's CUDA graph of the
+step, one replay an iteration, under ``--mesh k`` with its NCCL
+collectives captured. Each run prints ``[i/N] ... it/s`` every 100
+iterations and saves the point cloud at iteration HELD and at the last. Prints each
 run's iterations per second over its last 100 iterations and how far the
 two point clouds are apart, per field: the share of values beyond 2e-4 x
 the field's largest magnitude and the largest difference. At HELD at most
