@@ -132,7 +132,15 @@ Phases (each failure exits non-zero):
     graph-pool peak; [mesh CLI] the training CLI over a real NCCL group
     (--mesh N with N cards, else --multihost with a group of one, saying
     which ran), in step mode and in its default block mode, whose NCCL
-    collectives are captured: the two PLYs byte for byte equal;
+    collectives are captured: the two PLYs byte for byte equal, and (group
+    of one) the densifies and test views through their graphs, which the
+    group's close released before the run returned; [mesh view graph] the
+    bench frame through Trainer.render_view under LocalGroup(4) (the
+    banded view's CUDA graph, render.py::ViewGraph(mesh=...)) bitwise the
+    eager view for the base view, a pose, an SH degree, a densify's state
+    (then a second densify) and a visible_capacity and a dup_capacity
+    overflow, each with the captures it should cause; host ms each way in
+    turns, busy, idle, K2 and K1 per view (one per band), each capture;
 12. [viewer], the viewer's path: the training CLI on the [trainer]
     dataset for 80 iterations with its viewer server on a free local port,
     and a client thread asking for 1920x1080 frames (two sent together
@@ -151,7 +159,11 @@ Phases (each failure exits non-zero):
     against the same module on the CPU for a 256x192 pair (rel 1e-4, abs
     1e-6; an identical pair 0 within 1e-8), one 1080p pair timed against
     its FP32 bound, and the metrics CLI on the [trainer] model with a
-    finite LPIPS;
+    finite LPIPS; [metrics graph]: the metrics CLI's SSIM and LPIPS as
+    CUDA graphs (utils/cuda_graphs.py::GraphedFunction) on 8 1080p views of
+    the [trainer] model: results.json and per_view.json byte for byte the
+    eager CLI's; ms per view each way in turns, busy, kernels, each
+    function's CUDA-event ms, each capture's pool;
 14. [full_eval]: gs_tpu_torch.apps.full_eval -tat over two scene folders
     that link to the [trainer] dataset, 30 iterations each at 1920x1080:
     each scene's cfg_args, PLY, test renders and results.json (SSIM, PSNR,
@@ -225,12 +237,21 @@ Phases (each failure exits non-zero):
     [mesh trainer kernels] hold the kernels of an eager view and step, and
     the graphed view equal to that eager view bitwise; [render CLI default]
     also holds the CLI's PNG to an eager render_grown's and times the view
-    graphed and eager;
+    graphed and eager; [density graph], after [step graph]: density
+    control as CUDA graphs (train/graph.py::DensityGraph) on [trainer]'s
+    checkpoint at 1,048,576 slots, packed and tree, one device and
+    LocalGroup(4): densify and reset bitwise the eager functions for both
+    use_size_threshold values, each timed both ways in turns, busy,
+    kernels, captures; then the CLI in block mode for 60 iterations with a
+    view after each densify and after the next block, density control
+    eager (the parent's) against graphed: bitwise, and the view captures
+    per densify of each;
 20. a JSON line of the kernels' numbers (with each kernel's launches on
     every path, the mesh trainer's, the packed step's, the bf16 frames',
-    the graph phases', the mesh graph trainer's, the step graph's and the
-    view graph's among them), then the card's name and power limit, then
-    the result line {"ok": true, "device": {...}}.
+    the graph phases', the mesh graph trainer's, the step graph's, the
+    view graph's and the mesh view graph's timed frames' among them), then
+    the card's name and power limit, then the result line {"ok": true,
+    "device": {...}}.
 
 It exits non-zero without a CUDA device, or when run outside the repository.
 """
@@ -3005,10 +3026,20 @@ def mesh_cli_phase(torch, dev, root, band_dup):
                   f"[mesh CLI] group {tr.mesh.backend} of {tr.mesh.size}")
             check("Sharding gaussians over 1 devices" in log.getvalue(),
                   "[mesh CLI] no sharding line")
-            # step mode replays the chain's graph too (ChainStep.step)
+            # step mode replays the chain's graph too (ChainStep.step);
+            # the densifies and the test views replay theirs, which the
+            # group's close released before NCCL's destroy (else the run
+            # would not have returned)
             check(len(tr.captures) >= 1
                   and "captured the chain step" in log.getvalue(),
                   f"[mesh CLI] {mode} captured {tr.captures}")
+            held = tr._runner.density if tr._runner else None
+            check(len(tr.views.captures) >= 1
+                  and {c["what"] for c in tr.density_captures}
+                  == {"densify"} and not tr.views.views and held is None,
+                  f"[mesh CLI] {mode}: view captures {tr.views.captures}, "
+                  f"density captures {tr.density_captures}, still held "
+                  f"{list(tr.views.views)} {held}")
             del tr
         ply = os.path.join(model, "point_cloud", "iteration_10",
                            "point_cloud.ply")
@@ -3016,8 +3047,9 @@ def mesh_cli_phase(torch, dev, root, band_dup):
         with open(ply, "rb") as f:
             plys[mode] = f.read()
         print(f"[mesh CLI] {mode}, ran {how}: 10 iterations with two "
-              f"densifies, a test evaluation and a gathered PLY in "
-              f"{time.perf_counter() - t0:.2f} s; " + " | ".join(
+              f"densifies (graphed), a test evaluation (its views graphed) "
+              f"and a gathered PLY in {time.perf_counter() - t0:.2f} s, and "
+              f"the run returned after the group's close; " + " | ".join(
                   ln for ln in log.getvalue().splitlines()
                   if "Sharding" in ln or "Evaluating" in ln
                   or "captured" in ln), flush=True)
@@ -4463,6 +4495,525 @@ def view_graph_phase(torch, dev, p0, alive0, bench_camera, counters):
     return launches
 
 
+DENSITY_ROUNDS = 2             # [density graph]: eager/graph turns each way
+DENSITY_ITERS = 60             # its trainer pair: densifies at 25 and 50
+
+
+def density_graph_phase(torch, dev, root, model, dup, counters):
+    """[density graph]: density control as CUDA graphs
+    (``train/graph.py::DensityGraph``) against the eager functions, on
+    [trainer]'s checkpoint at iteration 300 (1,048,576 slots, its
+    densification statistics as trained), packed and tree, on one device
+    and in a ``LocalGroup(4)``: the graphed densify bitwise
+    ``densify_and_prune(_packed)`` (the state and ``DensifyInfo``) for both
+    ``use_size_threshold`` values, and the graphed reset bitwise
+    ``reset_opacity(_packed)``; each way timed in turns by host clock
+    (synchronised at both ends, the state restored between calls, outside
+    the clock), one call each profiled (busy, kernels), each capture's ms,
+    peak allocation and growth of the reserved memory. Then the trainer
+    pair: the CLI in its block mode on the [trainer] dataset for
+    DENSITY_ITERS iterations (densifies at 25 and 50, an opacity reset at
+    50), with a view of a test camera asked for right after each densify
+    and again after the next block (as a viewer's frames can fall), once
+    with density control eager (the parent's: new tensors each time) and
+    once graphed: the losses at every sync and the final states bitwise
+    equal, and the view captures per densify of each."""
+    from gs_tpu_torch.models import gaussian_model as gm
+    from gs_tpu_torch.models import packed_state as ps_mod
+    from gs_tpu_torch.parallel.mesh import LocalGroup
+    from gs_tpu_torch.train import loop
+    from gs_tpu_torch.train.checkpoint import load_checkpoint
+    from gs_tpu_torch.train.graph import (DensityGraph, clone_state,
+                                          state_leaves)
+
+    base, _, extent = load_checkpoint(
+        os.path.join(model, f"chkpnt{TRAINER_ITERS}.pth"), device=dev)
+    # the threshold at the trained gradients' 90th percentile, so that a
+    # tenth of the alive Gaussians clone or split
+    grads = torch.nan_to_num(base.grad_accum / base.denom)[base.alive]
+    kw = dict(grad_threshold=float(torch.quantile(grads, 0.9)),
+              min_opacity=0.005, extent=extent, percent_dense=0.01)
+    del grads
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    noise = torch.randn((base.capacity, 3), generator=gen, device=dev)
+    results = []
+    for layout in ("packed", "tree"):
+        state0 = ps_mod.pack_state(base) if layout == "packed" else base
+        dens = (ps_mod.densify_and_prune_packed if layout == "packed"
+                else gm.densify_and_prune)
+        reset = (ps_mod.reset_opacity_packed if layout == "packed"
+                 else gm.reset_opacity)
+        for where, mesh in (("one device", None),
+                            (f"LocalGroup({MESH_K})", LocalGroup(MESH_K, dev))):
+            work = clone_state(state0)
+            graph = DensityGraph(work, mesh)
+            infos = []
+            with contextlib.redirect_stdout(io.StringIO()):
+                for gate in (False, True):
+                    for a, b in zip(state_leaves(work), state_leaves(state0)):
+                        a.copy_(b)
+                    ref, rinfo = dens(state0, noise, use_size_threshold=gate,
+                                      **kw)
+                    info = graph.densify(noise, gate, **kw)
+                    torch.cuda.synchronize()
+                    check(state_equal(torch, work, ref) and all(
+                        torch.equal(x, y) for x, y in zip(info, rinfo)),
+                        f"[density graph] {layout}, {where}, "
+                        f"use_size_threshold {gate}: the graphed densify != "
+                        f"the eager one")
+                    infos.append({k: int(v) for k, v in
+                                  rinfo._asdict().items()})
+                    ref = reset(work)
+                    graph.reset_opacity()
+                    check(state_equal(torch, work, ref),
+                          f"[density graph] {layout}, {where}: the graphed "
+                          f"reset != the eager one")
+                    del ref
+            check(infos[0]["n_cloned"] + infos[0]["n_split"] > 0,
+                  f"[density graph] {layout}: nothing cloned or split: "
+                  f"{infos}")
+
+            def restore():
+                for a, b in zip(state_leaves(work), state_leaves(state0)):
+                    a.copy_(b)
+                torch.cuda.synchronize()
+
+            ways = {"eager densify": lambda: dens(
+                        state0, noise, use_size_threshold=True, **kw),
+                    "graph densify": lambda: graph.densify(
+                        noise, True, **kw),
+                    "eager reset": lambda: reset(state0),
+                    "graph reset": graph.reset_opacity}
+            times = {k: [] for k in ways}
+            order = list(ways) + list(ways)[::-1]
+            for _ in range(DENSITY_ROUNDS):
+                for k in order:
+                    restore()
+                    t = time.perf_counter()
+                    ways[k]()
+                    torch.cuda.synchronize()
+                    times[k].append(1e3 * (time.perf_counter() - t))
+            busy = {}
+            for k, fn in ways.items():
+                restore()
+                # the resets over 3 calls (a reset of a reset is the same
+                # work): the profiler saw no kernel of one eager reset
+                busy[k] = busy_per_call(torch, fn, 3 if "reset" in k else 1)
+            host = {k: float(np.median(v)) for k, v in times.items()}
+            results.append((layout, where, host, busy, graph.captures))
+            print(f"[density graph] {layout}, {where}, {base.capacity} "
+                  f"slots: the graphed densify and reset bitwise the eager "
+                  f"functions (state and DensifyInfo) for "
+                  f"use_size_threshold False and True ({infos}); ms (host "
+                  f"clock, synchronised, median of {2 * DENSITY_ROUNDS}, in "
+                  f"turns): " + ", ".join(
+                      f"{k} {host[k]:.3f} (busy {busy[k][0]:.4f} in "
+                      f"{busy[k][1]:.0f} kernels, "
+                      f"{idle_text(busy[k][0], host[k])})" for k in ways)
+                  + "; captures " + ", ".join(
+                      f"{c['what']} {c['ms']:.1f} ms, pool peak "
+                      f"{c['pool_peak_bytes']}, reserved growth "
+                      f"{c['pool_growth_bytes']}" for c in graph.captures),
+                  flush=True)
+            check(len(graph.captures) == 2, f"[density graph] {layout}, "
+                  f"{where}: captures {graph.captures}")
+            graph.release()
+            del graph, work
+            torch.cuda.empty_cache()
+        del state0
+    del base, noise
+    torch.cuda.empty_cache()
+
+    # the trainer pair: a view right after each densify and after the next
+    # block, density control eager (the parent's) and graphed
+    T = loop.Trainer
+    apply_schedule, densify = T._apply_schedule, T._densify
+    runs = {}
+    for how in ("eager density", "graphed density"):
+        seen = dict(densifies=0, pending=False, captures=[])
+
+        def schedule(self, i, _how=how, _seen=seen):
+            cam = self.test_cams[0].camera
+            if self._replaying:
+                return apply_schedule(self, i)
+            if _seen["pending"]:           # the block after a densify
+                self.render_view(cam)
+                _seen["pending"] = False
+            n = _seen["densifies"]
+            if _how == "eager density":
+                eager, self._eager_dispatch = self._eager_dispatch, True
+                try:
+                    apply_schedule(self, i)
+                finally:
+                    self._eager_dispatch = eager
+            else:
+                apply_schedule(self, i)
+            if _seen["densifies"] > n:     # right after the densify
+                before = len(self.views.captures)
+                self.render_view(cam)
+                _seen["captures"].append(len(self.views.captures) - before)
+                _seen["pending"] = True
+
+        def count_densify(self, state, use_size_threshold, _seen=seen):
+            _seen["densifies"] += not self._replaying
+            return densify(self, state, use_size_threshold)
+
+        model_dir = os.path.join(os.path.dirname(root), "density_" +
+                                 how.split()[0])
+        args = ["-s", root, "-m", model_dir, "-r", "1", "--eval",
+                "--iterations", str(DENSITY_ITERS), "--densify_from_iter",
+                "5", "--densification_interval", "25",
+                "--densify_until_iter", "55", "--opacity_reset_interval",
+                "50", "--test_iterations", "1", "--save_iterations",
+                str(DENSITY_ITERS), "--dup_capacity", str(dup),
+                "--disable_viewer", "--quiet", "--data_device", dev.type]
+        T._apply_schedule, T._densify = schedule, count_densify
+        try:
+            tr, rec, _, launches, out = run_train_cli(torch, args, counters)
+        finally:
+            T._apply_schedule, T._densify = apply_schedule, densify
+        check(seen["densifies"] == 2 and len(seen["captures"]) == 2,
+              f"[density graph] {how}: densifies {seen}")
+        check(tr._runner is not None and tr._runner.mode == "chain",
+              f"[density graph] {how}: not the block mode")
+        view_caps = len(tr.views.captures)
+        # the view right after the densify, then the one after the next
+        # block: the captures since the first view, per densify
+        per_densify = (view_caps - 1) / seen["densifies"]
+        runs[how] = dict(
+            syncs=[x for _, x, _ in rec["syncs"]],
+            state=[t.clone() for t in state_leaves(tr.state)],
+            per_densify=per_densify, densify=rec["densify"],
+            density_captures=list(tr.density_captures))
+        print(f"[density graph] trainer, {how}: {tr.iteration} iterations "
+              f"through gs_tpu_torch.apps.train.main (block mode) with a "
+              f"{tr.test_cams[0].camera.width}x"
+              f"{tr.test_cams[0].camera.height} view after each densify and "
+              f"after the next block; densifies " + ", ".join(
+                  f"{d['iteration']}: {d['ms']:.1f} ms (cloned {d['n_cloned']},"
+                  f" split {d['n_split']}, pruned {d['n_pruned']})"
+                  for d in rec["densify"])
+              + f"; view captures {view_caps} in all, "
+              f"{per_densify:.1f} per densify (right after each densify: "
+              f"{seen['captures']}); density captures " + (", ".join(
+                  f"{c['what']} {c['ms']:.1f} ms pool peak "
+                  f"{c['pool_peak_bytes']}" for c in tr.density_captures)
+                  or "none (eager)"), flush=True)
+        del tr
+        torch.cuda.empty_cache()
+    e, g = runs["eager density"], runs["graphed density"]
+    bitwise = [torch.equal(a, b) for a, b in zip(e["state"], g["state"])]
+    check(e["syncs"] == g["syncs"] and all(bitwise),
+          f"[density graph] trainer: graphed against eager density control: "
+          f"losses {g['syncs']} vs {e['syncs']}, state leaves equal "
+          f"{bitwise}")
+    check(g["per_densify"] == 0 and len(g["density_captures"]) >= 2,
+          f"[density graph] trainer: {g['per_densify']} view captures per "
+          f"graphed densify, density captures {g['density_captures']}")
+    print(f"[density graph] trainer: graphed density control bitwise the "
+          f"eager one (the losses at every sync and the final state); view "
+          f"captures per densify {e['per_densify']:.1f} eager (the parent's "
+          f"new tensors) against {g['per_densify']:.1f} graphed (written "
+          f"into the step graph's state)", flush=True)
+    return results
+
+
+MESH_VIEW_FRAMES = 8           # [mesh view graph]: bench frames each way
+
+
+def mesh_view_graph_phase(torch, dev, p0, alive0, bench_camera, counters):
+    """[mesh view graph]: the bench frame (500,000 Gaussians, 1920x1080)
+    through ``Trainer.render_view`` under ``LocalGroup(MESH_K)``, whose
+    view replays ``render.py::ViewGraph(mesh=...)``'s graph of the banded
+    render and its collectives, against the Trainer's eager view (its
+    private ``_eager_dispatch``): bitwise every output for the base view, a
+    change of pose, of SH degree, a densify's state (the first, written into
+    the step graph's static state, which replaces the start state; a second
+    in place), a ``visible_capacity`` overflow and a ``dup_capacity``
+    overflow, each with the captures it should cause; MESH_VIEW_FRAMES
+    frames each way in turns (host ms), one profiled each way (busy, idle,
+    kernels), K2 and K1 per view (one per band), each capture's ms, peak
+    allocation and growth of the reserved memory. Returns the launches of
+    the MESH_VIEW_FRAMES timed graphed views (the counts set to 0
+    just before them, read just after)."""
+    from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
+                                     PipelineConfig, RasterConfig)
+    from gs_tpu_torch.data.camera_utils import LoadedCamera
+    from gs_tpu_torch.data.dataset_readers import CameraInfo
+    from gs_tpu_torch.models.gaussian_model import init_state
+    from gs_tpu_torch.parallel.mesh import LocalGroup
+    from gs_tpu_torch.train.loop import Trainer
+    import dataclasses
+
+    cam0 = bench_camera(0)
+    view = LoadedCamera(
+        camera=cam0, info=CameraInfo(
+            uid=0, R=np.eye(3), T=np.zeros(3), fovx=1.0, fovy=1.0,
+            image_path="", image_name="bench", width=W, height=H),
+        image=np.zeros((3, H, W), np.float32),
+        alpha_mask=np.ones((1, H, W), np.float32), invdepth=None,
+        depth_mask=None, depth_reliable=False)
+    raster = RasterConfig(dup_capacity=DUP_CAPACITY, max_per_tile=MAX_PER_TILE,
+                          exact_cull=True, visible_capacity=-1)
+    # SH coefficients above degree 0 (the bench scene's are 0), so that the
+    # SH degree shows, as [view graph]'s
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    varied = p0._replace(sh_rest=0.1 * torch.randn(
+        p0.sh_rest.shape, generator=gen, device=dev))
+    with contextlib.redirect_stdout(io.StringIO()):
+        tr = Trainer([view], None, 1.0,
+                     ModelConfig(sh_degree=3, data_device=str(dev)),
+                     OptimizationConfig(), PipelineConfig(), raster,
+                     start_state=init_state(varied, alive0, num_images=1),
+                     mesh=LocalGroup(MESH_K, dev))
+    del varied
+    tr.iteration = 3000                  # the full SH degree
+    fields = ("image", "invdepth", "final_T", "radii", "visibility",
+              "num_duplicates", "max_tile_len", "overflow", "num_valid",
+              "band_duplicates", "band_visible", "band_work")
+
+    def same(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+
+    launches = {k: 0 for k in counters}
+
+    def graphed(cam):
+        c0 = {k: c.launches for k, c in counters.items()}
+        tr._eager_dispatch = False
+        out = tr.render_view(cam)
+        for k, c in counters.items():
+            launches[k] += c.launches - c0[k]
+        return out
+
+    def eager(cam):
+        tr._eager_dispatch = True
+        try:
+            return tr.render_view(cam)
+        finally:
+            tr._eager_dispatch = False
+
+    seen = []
+
+    def both(name, cam, want):
+        before = len(tr.views.captures)
+        ref = eager(cam)
+        got = graphed(cam)
+        captured = len(tr.views.captures) - before
+        check(same(got, ref), f"[mesh view graph] {name}: the graphed view "
+              f"!= the eager view")
+        check(captured == want, f"[mesh view graph] {name}: {captured} "
+              f"captures, want {want}")
+        check(not bool(got.overflow), f"[mesh view graph] {name}: overflow")
+        seen.append(f"{name} ({captured} capture"
+                    f"{'' if captured == 1 else 's'})")
+        return got
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        base = both("base", cam0, 1)
+
+        def frame(fn):
+            def call(i):
+                check(not bool(fn(bench_camera(i)).overflow),
+                      f"[mesh view graph] frame {i} overflowed")
+            return call
+
+        for k in launches:
+            launches[k] = 0
+        times = host_ms_in_turns(torch, {"eager": frame(eager),
+                                         "graph": frame(graphed)},
+                                 MESH_VIEW_FRAMES // 2)
+        window = dict(launches)        # the timed graphed views' alone
+        n_graphed = sum(window.values())
+        per_view = {k: v / MESH_VIEW_FRAMES for k, v in window.items()}
+        busy = {k: busy_per_call(torch, lambda fn=fn: fn(cam0))
+                for k, fn in (("graph", graphed), ("eager", eager))}
+        check(per_view["K2"] == per_view["K1"] == MESH_K
+              and per_view["K1g"] == per_view["K3"] == per_view["K4"] == 0,
+              f"[mesh view graph] launches per graphed view {per_view} "
+              f"({n_graphed} in all), want K2 = K1 = {MESH_K}")
+        moved = both("pose", bench_camera(40), 0)
+        check(not torch.equal(moved.image, base.image),
+              "[mesh view graph] the pose change left the image")
+        tr.iteration = 1000
+        low = both("SH degree 1", cam0, 0)
+        check(not torch.equal(low.image, base.image),
+              "[mesh view graph] the SH degree left the image")
+        tr.iteration = 3000
+        gen.manual_seed(5)
+        for name, want in (("a densify's state", 1),
+                           ("a second densify", 0)):
+            st = tr.state
+            st.grad_accum.copy_(4e-4 * torch.rand(
+                st.grad_accum.shape, generator=gen, device=dev))
+            st.denom.fill_(1.0)
+            tr.state, info = tr._densify(st, False)
+            check(int(info.n_cloned) + int(info.n_split) > 0,
+                  f"[mesh view graph] {name}: {info}")
+            dense = both(name, cam0, want)
+            check(not torch.equal(dense.image, base.image),
+                  f"[mesh view graph] {name} left the image")
+        shard_visible = int(dense.band_visible.max())
+        tr.raster = dataclasses.replace(raster,
+                                        visible_capacity=shard_visible // 2)
+        both(f"visible_capacity {shard_visible // 2}", cam0, 2)
+        band_dup = int(dense.band_duplicates.max())
+        tr.raster = dataclasses.replace(raster, dup_capacity=band_dup // 2)
+        both(f"dup_capacity {band_dup // 2}", cam0, 2)
+    host = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"[mesh view graph] the bench frame {W}x{H} through "
+          f"Trainer.render_view under LocalGroup({MESH_K}): every output "
+          f"bitwise the eager view; ms per frame (host clock, synchronised, "
+          f"median of {MESH_VIEW_FRAMES}, in turns): graph "
+          f"{host['graph']:.3f} (" + ", ".join(
+              f"{x:.2f}" for x in times["graph"]) + f"), eager "
+          f"{host['eager']:.3f} (" + ", ".join(
+              f"{x:.2f}" for x in times["eager"]) + f"); device busy per "
+          f"frame (one profiled): graph {busy['graph'][0]:.4f} ms in "
+          f"{busy['graph'][1]:.0f} kernels, eager {busy['eager'][0]:.4f} ms "
+          f"in {busy['eager'][1]:.0f}; graph "
+          f"{idle_text(busy['graph'][0], host['graph'])}, eager "
+          f"{idle_text(busy['eager'][0], host['eager'])}; launches per "
+          f"graphed view {per_view}", flush=True)
+    print(f"[mesh view graph] bitwise the eager view: " + ", ".join(seen)
+          + "; captures " + ", ".join(
+              f"{c['width']}x{c['height']} at {c['capacity']} local slots, "
+              f"dup_capacity {c['dup_capacity']}: {c['ms']:.1f} ms, pool "
+              f"peak {c['pool_peak_bytes']}, reserved growth "
+              f"{c['pool_growth_bytes']}" for c in tr.views.captures)
+          + "; the densifies' captures " + ", ".join(
+              f"{c['what']} {c['ms']:.1f} ms" for c in tr.density_captures),
+          flush=True)
+    tr.views.release()
+    tr._runner.release()
+    del tr
+    torch.cuda.empty_cache()
+    return window
+
+
+METRICS_VIEWS = 8              # [metrics graph]: 1080p views scored
+
+
+def metrics_graph_phase(torch, dev, tmpdir, model):
+    """[metrics graph]: the metrics CLI's SSIM and LPIPS as CUDA graphs
+    (``utils/cuda_graphs.py::GraphedFunction``) against the eager
+    functions, on METRICS_VIEWS 1080p views of the [trainer] model (the
+    render CLI's train and test views, each with its ground truth), with
+    [lpips]'s seeded random weights: ``results.json`` and ``per_view.json``
+    of the graphed CLI byte for byte the eager CLI's; per view, SSIM +
+    PSNR + LPIPS timed each way in turns by host clock (synchronised), one
+    view each way profiled (busy, kernels), each capture's ms, peak
+    allocation and growth of the reserved memory."""
+    from gs_tpu_torch.apps import metrics as metrics_app
+    from gs_tpu_torch.apps import render as render_app
+    from gs_tpu_torch.ops.losses import psnr
+    from gs_tpu_torch.ops.lpips import lpips_vgg
+    from gs_tpu_torch.ops.ssim import ssim as ssim_fn
+    from gs_tpu_torch.render import MAX_DUP_CAPACITY
+
+    # the test view as [render CLI default] rendered it, at these buffers
+    with contextlib.redirect_stdout(io.StringIO()):
+        render_app.main(["-m", model, "--skip_test", "--dup_capacity",
+                         str(MAX_DUP_CAPACITY)])
+    pairs = []
+    for split in ("train", "test"):
+        d = os.path.join(model, split, f"ours_{TRAINER_ITERS}")
+        pairs += [(os.path.join(d, "renders", f), os.path.join(d, "gt", f))
+                  for f in sorted(os.listdir(os.path.join(d, "renders")))]
+    check(len(pairs) == METRICS_VIEWS, f"[metrics graph] {len(pairs)} views")
+    dirs = {}
+    for how in ("graphed", "eager"):
+        top = os.path.join(tmpdir, "metrics_" + how)
+        out = os.path.join(top, "test", f"ours_{TRAINER_ITERS}")
+        for sub in ("renders", "gt"):
+            os.makedirs(os.path.join(out, sub))
+        for i, (r, g) in enumerate(pairs):
+            os.symlink(r, os.path.join(out, "renders", f"{i:05d}.png"))
+            os.symlink(g, os.path.join(out, "gt", f"{i:05d}.png"))
+        dirs[how] = top
+    graphed = metrics_app.metric_functions(dev)
+    eager = (ssim_fn, lpips_vgg(device=dev))
+    check(graphed[1] is not None, "[metrics graph] no LPIPS weights")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        metrics_app.evaluate([dirs["graphed"]], device=dev, functions=graphed)
+    t_graphed = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        metrics_app.evaluate([dirs["eager"]], device=dev, functions=eager)
+    t_eager = time.perf_counter() - t0
+    for name in ("results.json", "per_view.json"):
+        with open(os.path.join(dirs["graphed"], name), "rb") as f, \
+                open(os.path.join(dirs["eager"], name), "rb") as g:
+            check(f.read() == g.read(), f"[metrics graph] {name}: the "
+                  f"graphed CLI's != the eager CLI's")
+    with open(os.path.join(dirs["graphed"], "results.json")) as f:
+        results = json.load(f)[f"ours_{TRAINER_ITERS}"]
+    out = os.path.join(dirs["graphed"], "test", f"ours_{TRAINER_ITERS}")
+    renders, gts, _ = metrics_app.read_images(os.path.join(out, "renders"),
+                                              os.path.join(out, "gt"))
+    images = [tuple(torch.from_numpy(a.transpose(2, 0, 1).copy()).to(dev)
+                    for a in (x, y)) for x, y in zip(renders, gts)]
+    check(len(images) == METRICS_VIEWS, "[metrics graph] images")
+
+    def per_view(fns):
+        s_f, l_f = fns
+
+        def call(i):
+            a, b = images[i % len(images)]
+            return (float(s_f(a, b)), float(psnr(a[None], b[None])[0, 0]),
+                    float(l_f(a, b)))
+        return call
+
+    with torch.no_grad():
+        times = host_ms_in_turns(torch, {"eager": per_view(eager),
+                                         "graph": per_view(graphed)},
+                                 METRICS_VIEWS // 2)
+        busy = {k: busy_per_call(torch, lambda f=fns: per_view(f)(0))
+                for k, fns in (("graph", graphed), ("eager", eager))}
+        # each function alone: device ms by CUDA events (3 calls) and its
+        # kernels (one profiled call)
+        parts = {}
+        a, b = images[0]
+        for k, fns in (("graph", graphed), ("eager", eager)):
+            parts[k] = [(time_ms(torch, lambda f=f: f(a, b), 3, 1),
+                         busy_per_call(torch, lambda f=f: f(a, b))[1])
+                        for f in fns]
+    host = {k: float(np.median(v)) for k, v in times.items()}
+    caps = [(name, c) for name, f in (("SSIM", graphed[0]),
+                                      ("LPIPS", graphed[1]))
+            for c in f.captures]
+    print(f"[metrics graph] the metrics CLI on {METRICS_VIEWS} {W}x{H} views "
+          f"of the [trainer] model (seeded random LPIPS weights): "
+          f"results.json and per_view.json of the graphed CLI byte for byte "
+          f"the eager CLI's ({results}); the CLI {t_graphed:.2f} s graphed, "
+          f"{t_eager:.2f} s eager (the first with its captures); ms per "
+          f"view, SSIM + PSNR + LPIPS (host clock, synchronised, median of "
+          f"{METRICS_VIEWS}, in turns): graph {host['graph']:.3f} ("
+          + ", ".join(f"{x:.2f}" for x in times["graph"]) + f"), eager "
+          f"{host['eager']:.3f} (" + ", ".join(
+              f"{x:.2f}" for x in times["eager"]) + f"); device busy per "
+          f"view: graph {busy['graph'][0]:.4f} ms in {busy['graph'][1]:.0f} "
+          f"kernels, eager {busy['eager'][0]:.4f} ms in "
+          f"{busy['eager'][1]:.0f}; graph "
+          f"{idle_text(busy['graph'][0], host['graph'])}, eager "
+          f"{idle_text(busy['eager'][0], host['eager'])}; SSIM ms by CUDA "
+          f"events (kernels) graph {parts['graph'][0][0]:.4f} "
+          f"({parts['graph'][0][1]:.0f}), eager {parts['eager'][0][0]:.4f} "
+          f"({parts['eager'][0][1]:.0f}); LPIPS graph "
+          f"{parts['graph'][1][0]:.4f} ({parts['graph'][1][1]:.0f}), eager "
+          f"{parts['eager'][1][0]:.4f} ({parts['eager'][1][1]:.0f}); "
+          f"captures " + ", ".join(
+              f"{name} {c['shapes'][0]} {c['ms']:.1f} ms, pool peak "
+              f"{c['pool_peak_bytes']}, reserved growth "
+              f"{c['pool_growth_bytes']}" for name, c in caps), flush=True)
+    for f in graphed:
+        f.release()
+    del images, graphed, eager
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4841,6 +5392,10 @@ def main() -> int:
     step_graph_launches = step_graph_phase(torch, dev, root, counters)
     print(f"[step graph] in {time.perf_counter() - t_graph:.1f} s",
           flush=True)
+    t_graph = time.perf_counter()
+    density_graph_phase(torch, dev, root, model, dup, counters)
+    print(f"[density graph] in {time.perf_counter() - t_graph:.1f} s",
+          flush=True)
     t_mesh = time.perf_counter()
     mesh_errs, _ = mesh_kernels_phase(torch, dev, p0, alive0, bench_camera,
                                       counters)
@@ -4856,11 +5411,20 @@ def main() -> int:
                                                    counters)
     print(f"[mesh graph trainer] in {time.perf_counter() - t_mesh:.1f} s",
           flush=True)
+    t_mesh = time.perf_counter()
+    mesh_view_graph_launches = mesh_view_graph_phase(
+        torch, dev, p0, alive0, bench_camera, counters)
+    print(f"[mesh view graph] in {time.perf_counter() - t_mesh:.1f} s",
+          flush=True)
     frames, live_cams = live_frames(torch, dev, p0, alive0, pts)
     del p0, alive0, mid
     viewer_launches, viewer_errs = viewer_phase(torch, dev, root, dup,
                                                 steady_ms, counters)
     lpips_phase(torch, dev, trainer_tmp.name, model)
+    t_graph = time.perf_counter()
+    metrics_graph_phase(torch, dev, trainer_tmp.name, model)
+    print(f"[metrics graph] in {time.perf_counter() - t_graph:.1f} s",
+          flush=True)
     full_eval_phase(torch, dev, trainer_tmp.name, root, dup, counters)
     t_new = time.perf_counter()
     native_phase(root)
@@ -4910,6 +5474,7 @@ def main() -> int:
         k["mesh_graph_launches"] = mesh_graph_launches[k["id"]]
         k["step_graph_launches"] = step_graph_launches[k["id"]]
         k["view_graph_launches"] = view_graph_launches[k["id"]]
+        k["mesh_view_graph_launches"] = mesh_view_graph_launches[k["id"]]
         k["max_abs_err"] = max(k["max_abs_err"], viewer_errs[k["id"]],
                                live_errs[k["id"]], rain_errs[k["id"]],
                                mesh_errs.get(k["id"], 0.0),

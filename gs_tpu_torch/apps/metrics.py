@@ -8,6 +8,13 @@ LPIPS-vgg on ``--data_device`` (``cuda`` by default) and writes
 (``ops/lpips.py``: ``$GS_TPU_LPIPS_WEIGHTS`` or
 ``~/.cache/gs_tpu/lpips_vgg.npz``); without it the CLI says so and reports
 SSIM/PSNR, as the JAX package does.
+
+SSIM and LPIPS are computed as the JAX CLI computes them, one compiled
+executable per view (its ``jit_ssim``, ``gs_tpu/apps/metrics.py:47``, and
+the jitted LPIPS distance, ``gs_tpu/ops/lpips.py:110``): on CUDA each is a
+``utils/cuda_graphs.py::GraphedFunction``, one graph replay per view and
+image size; on the CPU they run eagerly. PSNR stays eager, as the JAX CLI
+does not jit it either.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 from ..ops.losses import psnr as psnr_fn
 from ..ops.lpips import lpips_vgg
 from ..ops.ssim import ssim as ssim_fn
+from ..utils.cuda_graphs import GraphedFunction
 from .args import resolve_data_device
 
 
@@ -37,15 +45,29 @@ def read_images(renders_dir: str, gt_dir: str):
     return renders, gts, names
 
 
-@torch.no_grad()
-def evaluate(model_paths: list[str], use_lpips: bool = True, device="cuda"):
-    """ref: metrics.py:36-93 (evaluate)."""
+def metric_functions(device="cuda", use_lpips: bool = True) -> tuple:
+    """(SSIM, LPIPS) as :func:`evaluate` computes them, each a
+    ``GraphedFunction`` (one replay per view on CUDA). LPIPS is None
+    without its weights, or unless ``use_lpips``."""
     lpips_fn = None
     if use_lpips:
         try:
             lpips_fn = lpips_vgg(device=device)
         except FileNotFoundError as e:
             print(f"LPIPS unavailable ({e}); reporting SSIM/PSNR only")
+    return (GraphedFunction(ssim_fn, label="SSIM"),
+            None if lpips_fn is None
+            else GraphedFunction(lpips_fn, label="LPIPS"))
+
+
+@torch.no_grad()
+def evaluate(model_paths: list[str], use_lpips: bool = True, device="cuda",
+             *, functions: tuple | None = None):
+    """ref: metrics.py:36-93 (evaluate). ``functions``: the (SSIM, LPIPS)
+    pair to use (LPIPS may be None), :func:`metric_functions`' when
+    None."""
+    ssim_f, lpips_f = (metric_functions(device, use_lpips)
+                       if functions is None else functions)
     full_dict, per_view_dict = {}, {}
     for scene_dir in model_paths:
         print("Scene:", scene_dir)
@@ -62,10 +84,10 @@ def evaluate(model_paths: list[str], use_lpips: bool = True, device="cuda"):
             for r, g in zip(renders, gts):
                 rc = torch.from_numpy(r.transpose(2, 0, 1).copy()).to(device)
                 gc = torch.from_numpy(g.transpose(2, 0, 1).copy()).to(device)
-                ssims.append(float(ssim_fn(rc, gc)))
+                ssims.append(float(ssim_f(rc, gc)))
                 psnrs.append(float(psnr_fn(rc[None], gc[None])[0, 0]))
-                if lpips_fn is not None:
-                    lpipss.append(float(lpips_fn(rc, gc)))
+                if lpips_f is not None:
+                    lpipss.append(float(lpips_f(rc, gc)))
             print(f"  SSIM : {np.mean(ssims):>12.7f}")
             print(f"  PSNR : {np.mean(psnrs):>12.7f}")
             if lpipss:

@@ -21,13 +21,14 @@ replays one captured CUDA graph of the step per iteration
 (``train/graph.py::ChainStep.step``), as the JAX CLI dispatches its
 jitted step once per iteration. Elsewhere step mode is the default (the
 step's body run eagerly) and --block_scan asks for blocks. Test views and
-the viewer's frames replay a captured graph of the view on one CUDA device
-(``render.py::ViewGraph``). Unless --disable_viewer
-is given, a SIBR-protocol viewer server listens on --ip:--port
-(``viewer/server.py``) and is polled after every iteration (after every
-block in block mode, whose length is then capped to about a second of
-iterations); a port that cannot be bound is reported and training goes
-on. A checkpoint may be the port's or the
+the viewer's frames replay a captured graph of the view on CUDA, banded
+under a mesh (``render.py::ViewGraph``), and each densify and opacity
+reset one of density control (``train/graph.py::DensityGraph``). Unless
+--disable_viewer is given, a SIBR-protocol viewer server listens on
+--ip:--port (``viewer/server.py``) and is polled after every iteration
+(after every block in block mode, whose length is then capped to about a
+second of iterations); a port that cannot be bound is reported and
+training goes on. A checkpoint may be the port's or the
 JAX package's (``train/checkpoint.py``).
 
 Several devices (``gs_tpu/apps/train.py:75-151``): ``--mesh N`` (or

@@ -310,17 +310,20 @@ class DensifyInfo(NamedTuple):
 def _nonzero_padded(mask: torch.Tensor, fill: int) -> torch.Tensor:
     """Indices of ``mask``'s true entries in order, padded with ``fill`` to
     the mask's length (``jnp.nonzero(mask, size=c, fill_value=fill)``).
-    Reads the count back from the device."""
-    idx = torch.nonzero(mask).squeeze(1)
-    out = torch.full(mask.shape, fill, dtype=torch.int64, device=mask.device)
-    out[:idx.shape[0]] = idx
-    return out
+    Nothing is read back, so a CUDA graph can capture it: each true entry's
+    index goes to its place in the running count, each false entry's to a
+    spare last slot, which is then dropped."""
+    c = mask.shape[0]
+    dest = torch.where(mask, torch.cumsum(mask, 0) - 1, c)
+    out = torch.full((c + 1,), fill, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, dest, torch.arange(c, device=mask.device))
+    return out[:c]
 
 
 def densify_and_prune(state: TrainState, noise: Optional[torch.Tensor] = None,
                       *, grad_threshold: float, min_opacity: float,
                       extent: float, percent_dense: float,
-                      use_size_threshold: bool,
+                      use_size_threshold,
                       generator: Optional[torch.Generator] = None,
                       ) -> tuple[TrainState, DensifyInfo]:
     """One densify/clone/split/prune pass at fixed capacity.
@@ -328,7 +331,10 @@ def densify_and_prune(state: TrainState, noise: Optional[torch.Tensor] = None,
     ``noise`` [C, 3] is the standard-normal draw that places split children
     (ref: :376-378); without it one is drawn from ``generator``. The
     reference enables size pruning only after the first opacity reset
-    (train.py:163): ``use_size_threshold``.
+    (train.py:163): ``use_size_threshold``, a bool or a 0-d bool tensor
+    (JAX traces it as a ``jnp.bool_``), used only in the masks. Given the
+    noise, the pass reads nothing back to the host, so a CUDA graph can
+    capture it (``train/graph.py::DensityGraph``).
     """
     p = state.params
     c = p.capacity
@@ -353,7 +359,7 @@ def densify_and_prune(state: TrainState, noise: Optional[torch.Tensor] = None,
     # post-postfix (zeroed) max_radii2D in the reference, so it is always
     # False — reproduced deliberately, as in the JAX package.
     ws_prune = max_scale > 0.1 * extent
-    use_st = bool(use_size_threshold)
+    use_st = use_size_threshold          # never read on the host
     prune_cond = (opacity < min_opacity) | (use_st & ws_prune)
 
     keep = alive & ~prune_cond & ~split_mask

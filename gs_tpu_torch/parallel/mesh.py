@@ -28,10 +28,12 @@ into one preallocated tensor and the packet gather's backward is
 ``capture_error_mode``: a "global" capture forbids unsafe CUDA calls in
 every thread of the process, NCCL's watchdog thread among them, which
 queries the events of earlier collectives; "thread_local" forbids them in
-the capturing thread only. Captured and eager collectives (densify's
-gathers, ``num_alive``, the banded evaluation) share one communicator,
-which NCCL allows (``NCCL_GRAPH_MIXING_SUPPORT``, on by default); every
-eager collective between blocks follows the last replay on the same
+the capturing thread only. The densify's gathers (``gather_state``,
+``shard_state``) and the banded view are captured too
+(``train/graph.py::DensityGraph``, ``render.py::ViewGraph``). Captured
+and eager collectives (``num_alive``, ``every``, a growth's gathers) share
+one communicator, which NCCL allows (``NCCL_GRAPH_MIXING_SUPPORT``, on by
+default); every eager collective follows the last replay on the same
 stream. NCCL destroys a communicator only after every graph that captured
 its collectives is gone, so a ``ProcessGroup`` ends with :meth:`close`.
 
@@ -168,8 +170,9 @@ class ProcessGroup:
         self.local = [self.rank]
         self.device = torch.device(device)
         self.backend = dist.get_backend()
-        # the step graphs (train/graph.py) that captured this group's
-        # collectives, released by ``close``
+        # the graphs that captured this group's collectives (the step's
+        # and density control's, train/graph.py; the view's, render.py),
+        # released by ``close``
         self.graphs = weakref.WeakSet()
 
     @property
@@ -313,10 +316,13 @@ def shard_state(state, group):
     if len(group.local) == group.size:
         return state
     n = state.capacity // group.size
-    idx = torch.cat([torch.arange(d * n, (d + 1) * n) for d in group.local])
 
     def take(x, axis):
-        return x.index_select(axis, idx.to(x.device)).contiguous()
+        # the index made on the tensor's device: a copy from the host
+        # could not be captured (``train/graph.py::DensityGraph``)
+        idx = torch.cat([torch.arange(d * n, (d + 1) * n, device=x.device)
+                         for d in group.local])
+        return x.index_select(axis, idx).contiguous()
 
     return _map_sharded(take, state)
 

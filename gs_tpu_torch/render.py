@@ -42,7 +42,7 @@ from .core.project import Projected, preprocess
 from .ops.binning import F32_EXACT, bin_gaussians
 from .ops.rasterize import rasterize
 from .ops.rasterize_plain import rasterize_binned, rasterize_depthwise
-from .utils.cuda_graphs import capture, replay
+from .utils.cuda_graphs import GraphCache, capture, replay
 
 TILE_X = 16
 TILE_Y = 16
@@ -125,26 +125,30 @@ def render_grown(camera: Camera, params: GaussianParams, bg: torch.Tensor,
     ``mesh`` (a group of ``parallel/mesh.py``) the view is
     ``render_multichip``'s, banded by ``raster.band_assign`` and compacted
     to ``raster.visible_capacity``, and the largest band and shard size
-    the grown buffers. With ``graph`` (one device) every render is that
-    :class:`ViewGraph`'s, and ``kwargs`` are its call's (``params`` may
-    then be a packed block and ``sh_degree`` masks the SH ramp)."""
+    the grown buffers. With ``graph`` every render is that
+    :class:`ViewGraph`'s (under ``mesh`` one made with it), and ``kwargs``
+    are its call's (``params`` may then be a packed block and
+    ``sh_degree`` masks the SH ramp)."""
+    if graph is not None and graph.mesh is not mesh:
+        raise ValueError("the view graph was made for another group")
     attempts = 0
     while True:
         common = dict(backend=raster.backend, dup_capacity=raster.dup_capacity,
                       max_per_tile=raster.max_per_tile, chunk=raster.chunk,
                       **raster_lever_kwargs(raster), **kwargs)
+        if mesh is not None:
+            # the multi-GPU render streams f32 features, as the JAX
+            # package's does: it takes no bf16_features
+            common.pop("bf16_features")
+            common.update(band_assign=raster.band_assign,
+                          visible_capacity=max(raster.visible_capacity, 0))
         if graph is not None:
             out = graph(camera, params, bg, **common)
         elif mesh is None:
             out = render(camera, params, bg, **common)
         else:
-            # the multi-GPU render streams f32 features, as the JAX
-            # package's does: it takes no bf16_features
             from .parallel.render_mc import render_multichip
-            common.pop("bf16_features")
-            out = render_multichip(
-                params, camera, bg, mesh, band_assign=raster.band_assign,
-                visible_capacity=max(raster.visible_capacity, 0), **common)
+            out = render_multichip(params, camera, bg, mesh, **common)
         if not bool(out.overflow):
             return out, raster
         banded = out.band_duplicates is not None
@@ -302,13 +306,16 @@ class _View:
 MAX_VIEWS = 4
 
 
-class ViewGraph:
+class ViewGraph(GraphCache):
     """The no-grad view as a CUDA graph: the port of the JAX package's
     jitted per-view render (the trainer's ``_eval_render``, the render
     CLI's ``render_view``).
 
     A call renders ``params`` (a ``GaussianParams``, or a packed [R, C]
-    block, unpacked inside the view) with ``render()``'s arguments. On
+    block, unpacked inside the view) with ``render()``'s arguments, or,
+    made with a ``mesh`` (a group of ``parallel/mesh.py``), the local
+    shards with ``render_multichip``'s (``band_assign`` and
+    ``visible_capacity`` among them; no ``scaling_modifier``). On
     CUDA it replays the graph captured for the call's key and returns a
     copy of its outputs; on the CPU it runs the same body eagerly. The
     graph's static inputs are the camera's tensors, the background, the SH
@@ -335,23 +342,27 @@ class ViewGraph:
     (another key's replay may write over them). ``captures`` records each
     capture's resolution, capacity, ``dup_capacity``, ms, peak allocation
     (``pool_peak_bytes``) and what it added to the memory the card
-    reserves (``pool_growth_bytes``: none where the shared pool had room)."""
+    reserves (``pool_growth_bytes``: none where the shared pool had room).
 
-    def __init__(self, max_views: int = MAX_VIEWS):
+    Under a mesh every process renders every view, banded, and the graph
+    holds the render's collectives: the key adds the group's size, every
+    rank captures at the same call (what decides a capture is what the
+    ranks share: the resolution, the shapes, the buffers) with the group's
+    ``capture_error_mode``, the ranks agree (``every``) that the capture
+    succeeded, and a ``ProcessGroup`` releases the view graphs before it
+    is destroyed (``close``)."""
+
+    def __init__(self, max_views: int = MAX_VIEWS, mesh=None):
+        super().__init__()
         self.max_views = max(int(max_views), 1)
-        self.views: OrderedDict = OrderedDict()   # key -> _View, oldest first
+        self.mesh = mesh
         self.reads: tuple = ()       # weak references to the state's tensors
-        self.pool = None             # the graphs' shared memory pool
         self.captures: list = []     # {width, height, capacity, ms, pool}
 
-    def release(self):
-        """Destroy every captured view (and so free their pool)."""
-        for v in self.views.values():
-            if v.graph is not None:
-                v.graph.reset()
-        self.views = OrderedDict()
-        # a pool that no graph uses is freed: the next capture makes one
-        self.pool = None
+    @property
+    def views(self) -> OrderedDict:
+        """The captured views by key, the oldest first."""
+        return self.entries
 
     def _reads_from(self, leaves) -> bool:
         return len(leaves) == len(self.reads) and all(
@@ -360,28 +371,26 @@ class ViewGraph:
     def __call__(self, camera: Camera, params, bg: torch.Tensor, *,
                  alive: torch.Tensor, sh_degree=None,
                  scaling_modifier: float = 1.0, **kwargs) -> RenderOutput:
+        if self.mesh is not None and scaling_modifier != 1.0:
+            raise ValueError("scaling_modifier is not supported under a "
+                             "mesh")
         leaves = ([params] if isinstance(params, torch.Tensor)
                   else list(params)) + [alive]
         if not self._reads_from(leaves):
             self.release()
             self.reads = tuple(weakref.ref(t) for t in leaves)
         key = (camera.width, camera.height, sh_degree is None,
+               None if self.mesh is None else self.mesh.size,
                tuple((tuple(t.shape), t.dtype) for t in leaves),
                tuple(sorted(kwargs.items())))
-        v = self.views.get(key)
+        v = self.lookup(key)
         if v is None:
             v = _View(camera, bg, sh_degree is not None)
             v.load(camera, bg, sh_degree, scaling_modifier)
             if camera.device.type == "cuda":
                 self._capture(v, params, alive, kwargs)
-            self.views[key] = v
-            while len(self.views) > self.max_views:
-                # after the capture: the pool keeps a graph that uses it
-                _, old = self.views.popitem(last=False)
-                if old.graph is not None:
-                    old.graph.reset()
+            self.insert(key, v, self.max_views)
         else:
-            self.views.move_to_end(key)
             v.load(camera, bg, sh_degree, scaling_modifier)
         if v.graph is not None:
             replay(v.graph, v.counts)
@@ -390,28 +399,27 @@ class ViewGraph:
         return RenderOutput(*[x.clone() if isinstance(x, torch.Tensor) else x
                               for x in v.out])
 
-    @staticmethod
-    def _body(v: _View, params, alive, kwargs) -> RenderOutput:
+    def _body(self, v: _View, params, alive, kwargs) -> RenderOutput:
         if isinstance(params, torch.Tensor):
             params = unpack_params(params, degree_from_rows(params.shape[0]))
         if v.sh_degree is not None:
             params = mask_sh_rest(params, v.sh_degree)
         with torch.no_grad():
+            if self.mesh is not None:
+                from .parallel.render_mc import render_multichip
+                return render_multichip(params, v.camera, v.bg, self.mesh,
+                                        alive=alive, **kwargs)
             return render(v.camera, params, v.bg, alive=alive,
                           scaling_modifier=v.scaling_modifier, **kwargs)
 
     def _capture(self, v: _View, params, alive, kwargs):
-        dev = v.camera.device
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-
         def body():
             v.out = self._body(v, params, alive, kwargs)
 
-        cap = capture(dev, lambda: self._body(v, params, alive, kwargs), body,
-                      pool=self.pool)
-        if cap.error is not None:
-            raise RuntimeError("capturing the view failed") from cap.error
+        cap = capture(v.camera.device,
+                      lambda: self._body(v, params, alive, kwargs), body,
+                      "view", mesh=self.mesh, owner=self,
+                      pool=self.pool_handle())
         v.graph, v.counts = cap.graph, cap.counts
         ms = 1e3 * (time.perf_counter() - cap.start)
         capacity = alive.shape[0]

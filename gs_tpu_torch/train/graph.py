@@ -25,11 +25,13 @@ state is updated in place: the step's last operation writes each new
 value into the state's own tensor (``inplace`` in
 ``models/gaussian_model.py``), so no step copies the state (a packed state
 of 1,048,576 slots holds ~0.8 GB of parameters and moments). Alternating
-between two captures would need a second state and buys nothing here. A
-state handed in from outside (a densify's result, an opacity reset, the
-trainer's snapshot for an overflow replay, a checkpoint) is copied into
-the static tensors; one of another shape (a capacity growth) makes new
-static tensors and a new capture. A caller that keeps a state past the
+between two captures would need a second state and buys nothing here.
+Density control writes its result into the static tensors too
+(:class:`DensityGraph`, which the runner holds). A state handed in from
+outside (the trainer's snapshot for an overflow replay, a checkpoint, an
+eager densify's result) is copied into the static tensors; one of another
+shape (a capacity growth) makes new static tensors and a new capture. A
+caller that keeps a state past the
 next replay (the trainer's snapshot) keeps a copy of every static tensor
 in it (``unshared``): those change at every replay.
 
@@ -68,6 +70,12 @@ graph. Step mode draws its background before each call, the eager step's
 own ``torch.rand(3)`` in the eager order (the densify's noise comes from
 the same generator). Each graph adds the launches its capture made to the
 kernel wrappers' counters at every replay.
+
+Density control, the port of the JAX trainer's jitted ``densify_and_prune``
+and ``reset_opacity``, is :class:`DensityGraph`: one captured graph per
+densify and one per opacity reset, which write into the step graph's
+static state; the runner holds it (:meth:`_Graphed.density_control`) and
+releases it with its own graph.
 """
 from __future__ import annotations
 
@@ -77,7 +85,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.gaussians import GaussianParams
-from ..parallel.mesh import ProcessGroup
+from ..models.gaussian_model import (DensifyInfo, densify_and_prune,
+                                     reset_opacity)
+from ..models.packed_state import (PackedState, densify_and_prune_packed,
+                                   reset_opacity_packed)
+from ..parallel.mesh import gather_state, shard_state
 from ..utils.cuda_graphs import capture, launch_counters, replay  # noqa: F401
 from .step import StepMetrics
 
@@ -139,6 +151,9 @@ class _Graphed:
         self.graph = None
         self.counts: dict = {}       # kernel wrapper -> launches per replay
         self.captures: list = []     # {capacity, ms, pool_peak_bytes}
+        # density control on the static state, made when first asked for
+        self.density: Optional[DensityGraph] = None
+        self.density_captures: list = []
         dev, b = self.device, self.bucket
         # per step: camera index and iteration; schedule row and background
         self.ints = torch.zeros((b, 2), dtype=torch.int64, device=dev)
@@ -181,11 +196,19 @@ class _Graphed:
                     if a is not b:
                         a.copy_(b)
             return
-        self.graph = None
+        self.release()
         self.state = clone_state(state)
         self.data = data
         if self.graphed:
             self._capture()
+
+    def density_control(self) -> "DensityGraph":
+        """Density control on the static state (a :class:`DensityGraph`),
+        made when first asked for and again for new static tensors."""
+        if self.density is None:
+            self.density = DensityGraph(self.state, self.mesh,
+                                        self.density_captures)
+        return self.density
 
     def load(self, ints: torch.Tensor, floats: torch.Tensor,
              valid: torch.Tensor):
@@ -231,22 +254,12 @@ class _Graphed:
         return n // len(self.mesh.local) * self.mesh.size
 
     def _capture(self):
-        dev, mesh = self.device, self.mesh
+        mesh = self.mesh
         warm = [clone_state(self.state)]
-        mode = "global" if mesh is None else mesh.capture_error_mode
-        cap = capture(dev, lambda: self.warm_up(warm.pop()),
-                      self.graph_body, mode)
+        cap = capture(self.device, lambda: self.warm_up(warm.pop()),
+                      self.graph_body, self.label, mesh=mesh, owner=self)
         self.counts = cap.counts
-        ok = cap.error is None
-        if mesh is not None:
-            ok = mesh.every(ok)      # a collective: every rank learns it
-        if not ok:
-            where = "" if cap.error is not None else " on another rank"
-            raise RuntimeError(f"capturing the {self.label} failed"
-                               f"{where}") from cap.error
         self.graph = cap.graph
-        if isinstance(mesh, ProcessGroup):
-            mesh.graphs.add(self)     # released before the group is closed
         ms = 1e3 * (time.perf_counter() - cap.start)
         capacity = self.capacity()
         self.captures.append(dict(capacity=capacity, ms=ms,
@@ -257,10 +270,14 @@ class _Graphed:
               f"{cap.pool_peak_bytes} bytes)", flush=True)
 
     def release(self):
-        """Destroy the captured graph; a later call raises (``dispatch``)."""
+        """Destroy the captured graphs, the step's and density control's; a
+        later step raises (``dispatch``)."""
         if self.graph is not None:
             self.graph.reset()
             self.graph = None
+        if self.density is not None:
+            self.density.release()
+            self.density = None
 
     def dispatch(self):
         """The graph's replay on CUDA, the body itself on the CPU; on CUDA
@@ -453,3 +470,137 @@ def make_train_steps_scan(train_step, *, use_alpha: bool, use_depth: bool,
     :func:`make_train_step_chain`."""
     return ScanSteps(train_step, use_alpha=use_alpha, use_depth=use_depth,
                      bucket=bucket)
+
+
+class DensityGraph:
+    """Density control as CUDA graphs: the port of the JAX trainer's jitted
+    ``densify_and_prune`` and ``reset_opacity`` (``gs_tpu/train/loop.py:
+    225-231``, packed or tree, ``use_size_threshold`` a traced
+    ``jnp.bool_``), one replay per densify and one per opacity reset.
+
+    A DensityGraph works on the one ``state`` it is made with (a
+    TrainState or PackedState; under ``mesh`` its local shards): each graph
+    reads it and writes its result into its own tensors, in place
+    (``copy_`` after every read). The step runners hold one on their
+    static state (:meth:`_Graphed.density_control`), so the next step's
+    replay takes the result as its own, with no copy, and the view graphs,
+    which hold the same tensors, keep their captures; a runner with new
+    static tensors makes a new one. The densify's static inputs are the
+    split noise ``noise`` [C, 3] (C the whole capacity; the caller draws it
+    there, or hands in a tensor that is copied there) and
+    ``use_size_threshold`` as a 0-d bool tensor; its :class:`DensifyInfo`
+    is copied out after the replay. Both graphs allocate from one pool.
+
+    Under a mesh the densify graph holds ``gather_state``, the one-device
+    pass and ``shard_state``, with their collectives; the opacity reset
+    runs on the local shards, as on one device. The captures agree across
+    the ranks and register with the group (``utils/cuda_graphs.py::
+    capture``). On the CPU the same bodies run eagerly, in place.
+    ``captures`` (a list the caller may share) records each capture's
+    kind, capacity, ms, peak allocation and what it added to the memory
+    the card reserves."""
+
+    def __init__(self, state, mesh=None, captures: Optional[list] = None):
+        self.state = state
+        self.mesh = mesh
+        self.device = state.alive.device
+        self.graphed = self.device.type == "cuda"
+        self.capacity = state.alive.shape[0]
+        if mesh is not None:
+            self.capacity = self.capacity // len(mesh.local) * mesh.size
+        self.noise = torch.empty((self.capacity, 3), device=self.device)
+        self.use_size_threshold = torch.zeros((), dtype=torch.bool,
+                                              device=self.device)
+        self.graphs: dict = {}       # "densify" / "reset" -> Capture
+        self.kw: dict = {}           # the densify graph's thresholds
+        self.info: Optional[DensifyInfo] = None
+        self.pool = None
+        self.captures = [] if captures is None else captures
+
+    def release(self):
+        """Destroy the captured graphs (and so free their pool)."""
+        for cap in self.graphs.values():
+            cap.graph.reset()
+        self.graphs = {}
+        self.pool = None
+
+    @staticmethod
+    def _write(state, new):
+        """``new``'s tensors into ``state``'s own, where they differ."""
+        with torch.no_grad():
+            for a, b in zip(state_leaves(state), state_leaves(new)):
+                if a is not b:
+                    a.copy_(b)
+
+    def _densify_body(self, state):
+        mesh = self.mesh
+        full = state if mesh is None else gather_state(state, mesh)
+        fn = (densify_and_prune_packed if isinstance(state, PackedState)
+              else densify_and_prune)
+        new, self.info = fn(full, self.noise,
+                            use_size_threshold=self.use_size_threshold,
+                            **self.kw)
+        if mesh is not None:
+            new = shard_state(new, mesh)
+        self._write(state, new)
+
+    def _reset_body(self, state):
+        fn = (reset_opacity_packed if isinstance(state, PackedState)
+              else reset_opacity)
+        self._write(state, fn(state))
+
+    def _run(self, what: str):
+        body = self._densify_body if what == "densify" else self._reset_body
+        cap = self.graphs.get(what)
+        if cap is None and self.graphed:
+            cap = self._capture(what, body)
+        if cap is not None:
+            replay(cap.graph, cap.counts)
+        else:
+            body(self.state)
+
+    def _capture(self, what: str, body):
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        warm = [clone_state(self.state)]
+        cap = capture(self.device, lambda: body(warm.pop()),
+                      lambda: body(self.state), f"{what} graph",
+                      mesh=self.mesh, owner=self, pool=self.pool)
+        self.graphs[what] = cap
+        ms = 1e3 * (time.perf_counter() - cap.start)
+        self.captures.append(dict(
+            what=what, capacity=self.capacity, ms=ms,
+            pool_peak_bytes=cap.pool_peak_bytes,
+            pool_growth_bytes=cap.reserved_growth_bytes))
+        shards = "" if self.mesh is None else f" in {self.mesh.size} shards"
+        print(f"[gs_tpu_torch] captured the {what} graph at capacity "
+              f"{self.capacity}{shards} in {ms:.1f} ms (graph pool peak "
+              f"{cap.pool_peak_bytes} bytes)", flush=True)
+        return cap
+
+    def densify(self, noise: torch.Tensor, use_size_threshold, *,
+                grad_threshold: float, min_opacity: float, extent: float,
+                percent_dense: float) -> DensifyInfo:
+        """``densify_and_prune(_packed)`` of the state with ``noise`` and
+        ``use_size_threshold`` (a bool or a 0-d bool tensor), written into
+        the state's tensors. Returns a copy of the :class:`DensifyInfo`.
+        Other thresholds than the graph's capture it again."""
+        kw = dict(grad_threshold=grad_threshold, min_opacity=min_opacity,
+                  extent=extent, percent_dense=percent_dense)
+        if kw != self.kw:
+            if "densify" in self.graphs:
+                self.graphs.pop("densify").graph.reset()
+            self.kw = kw
+        if noise is not self.noise:
+            self.noise.copy_(noise)
+        if isinstance(use_size_threshold, torch.Tensor):
+            self.use_size_threshold.copy_(use_size_threshold)
+        else:
+            self.use_size_threshold.fill_(bool(use_size_threshold))
+        self._run("densify")
+        return DensifyInfo(*[x.clone() for x in self.info])
+
+    def reset_opacity(self):
+        """``reset_opacity(_packed)`` of the state, written into its
+        tensors."""
+        self._run("reset")

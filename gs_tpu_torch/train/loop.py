@@ -19,8 +19,8 @@ The training images (and alpha masks, depth maps, depth masks and depth
 weights) move to ``model_cfg.data_device`` once, in the constructor.
 Nothing reads the device back between syncs (every ``sync_every``
 iterations in step mode, after every block in block mode, at test
-iterations, and at every densify, whose ``torch.nonzero`` reads the
-counts).
+iterations, and after every densify, whose growth check reads the alive
+count, as the JAX trainer's ``_maybe_grow`` does).
 
 Step mode runs one iteration at a time, as the JAX trainer dispatches
 its jitted step once per iteration (``gs_tpu/train/loop.py:261-280``): on
@@ -62,11 +62,18 @@ which unpack, run the tree layout's and pack again. The snapshot, the
 checkpoints (``train/checkpoint.py`` unpacks) and every render of a view
 read ``PackedState.params``/``.alive``.
 
-The one-device views of ``render_view`` and ``evaluate`` (and so the
-viewer's frames) replay a captured CUDA graph of the view
+The views of ``render_view`` and ``evaluate`` (and so the viewer's
+frames) replay a captured CUDA graph of the view
 (``render.py::ViewGraph``), as the JAX trainer jits ``_eval_render``
 (``gs_tpu/train/loop.py:661-701``); a new state, resolution or buffer size
-captures again. Under a mesh the view renders eagerly.
+captures again. Under a mesh the graph holds the banded view and its
+collectives. Density control replays one captured graph per densify and
+one per opacity reset (``train/graph.py::DensityGraph``), as the JAX
+trainer jits ``densify_and_prune`` and ``reset_opacity``
+(``gs_tpu/train/loop.py:225-231``): the graph writes its result into the
+step graph's static state, so the next step and the views keep their
+captures. ``_eager_dispatch`` runs step mode's step, the view and density
+control eagerly: the reference the card's checks hold the graphs to.
 
 Not ported, being XLA machinery of the JAX trainer: the background thread
 of the next capacity tier's compile (a capture takes about one step, so
@@ -99,7 +106,7 @@ from ..ops.losses import psnr
 from ..parallel.mesh import gather_state, pad_state, shard_state
 from ..render import (MAX_DUP_CAPACITY, RenderOutput, ViewGraph,
                       overflow_changes, render_grown)
-from .graph import (TrainingData, make_train_step_chain,
+from .graph import (DensityGraph, TrainingData, make_train_step_chain,
                     make_train_steps_scan)
 from .step import StepMetrics, make_train_step, mask_sh_rest
 
@@ -243,11 +250,16 @@ class Trainer:
         self.block_dispatch = "chain"
         self._runner = None
         self.captures: list = []      # every capture: capacity, ms, pool peak
-        # the one-device view's graphs (render_view, evaluate, the viewer)
-        self.views = ViewGraph()
-        # True: step mode's step and the one-device view run eagerly, not
-        # as graph replays (the reference the card's checks hold them to;
-        # as the JAX CLI has no switch for its jit, no flag sets it)
+        # the view's graphs (render_view, evaluate, the viewer), banded
+        # under a mesh
+        self.views = ViewGraph(mesh=mesh)
+        # every capture of density control's graphs (densify, opacity
+        # reset), which the step runner holds on its static state
+        self.density_captures: list = []
+        # True: step mode's step, the view and density control run
+        # eagerly, not as graph replays (the reference the card's checks
+        # hold them to; as the JAX CLI has no switch for its jit, no flag
+        # sets it)
         self._eager_dispatch = False
         self._build_step()
         self._camera_stack: list[int] = []
@@ -265,8 +277,9 @@ class Trainer:
         # of everything dispatched since, so a binning overflow (observable
         # only at syncs) re-runs the damaged window with grown buffers
         # instead of keeping truncated-gradient updates. Holding references
-        # is the snapshot: no step or density-control function writes into
-        # its input state.
+        # is the snapshot, but for the step graph's static tensors, which
+        # the graphs (step and density control) write in place: the
+        # snapshot holds copies of those (``_take_snapshot``).
         self._replaying = False
         self._replay_log: list = []
         self._synced = None
@@ -335,24 +348,48 @@ class Trainer:
         return int(self._camera_stack.pop())
 
     def _densify_noise(self, capacity: int) -> torch.Tensor:
-        """The split children's standard-normal offsets, [capacity, 3]."""
+        """The split children's standard-normal offsets, [capacity, 3],
+        drawn into density control's static input (a new tensor under
+        ``_eager_dispatch``)."""
+        out = (None if self._eager_dispatch
+               else self._runner.density_control().noise)
         return torch.randn((capacity, 3), generator=self.generator,
-                           device=self.device)
+                           device=self.device, out=out)
+
+    def _density_control(self, state) -> DensityGraph:
+        """Density control on the step graph's static state, with
+        ``state`` bound into it first: the current runner's (else one for
+        ``block_dispatch``), which the next step replays, so the view
+        graphs, which read the same tensors, keep their captures."""
+        runner = self._graph_runner(self._runner.mode if self._runner
+                                    else self.block_dispatch)
+        runner.bind(state, self._data)
+        return runner.density_control()
 
     def _densify(self, state, use_size_threshold: bool):
-        """One densify/prune. Under a mesh: gather, the one-device pass with
-        the same noise on every process (the same generator state), and
-        shard again."""
+        """One densify/prune: one replay of density control's graph on the
+        step graph's static state (on the CPU its body), as the JAX trainer
+        dispatches its jitted densify once. Under a mesh: gather, the
+        one-device pass with the same noise on every process (the same
+        generator state), and shard again, in the graph too. Under
+        ``_eager_dispatch``, eagerly on new tensors."""
+        kw = dict(grad_threshold=self.opt.densify_grad_threshold,
+                  min_opacity=0.005, extent=self.spatial_lr_scale,
+                  percent_dense=self.opt.percent_dense)
+        capacity = state.capacity
+        if self.mesh is not None:
+            capacity = capacity // len(self.mesh.local) * self.mesh.size
+        if not self._eager_dispatch:
+            density = self._density_control(state)
+            info = density.densify(self._densify_noise(capacity),
+                                   use_size_threshold, **kw)
+            return density.state, info
         if self.mesh is not None:
             state = gather_state(state, self.mesh)
         densify = densify_and_prune_packed if self.packed else \
             densify_and_prune
-        state, info = densify(
-            state, self._densify_noise(state.capacity),
-            grad_threshold=self.opt.densify_grad_threshold,
-            min_opacity=0.005, extent=self.spatial_lr_scale,
-            percent_dense=self.opt.percent_dense,
-            use_size_threshold=use_size_threshold)
+        state, info = densify(state, self._densify_noise(capacity),
+                              use_size_threshold=use_size_threshold, **kw)
         if self.mesh is not None:
             state = shard_state(state, self.mesh)
         return state, info
@@ -414,8 +451,13 @@ class Trainer:
             if i % opt.opacity_reset_interval == 0 or (
                     self.model_cfg.white_background and
                     i == opt.densify_from_iter):
-                self.state = (reset_opacity_packed if self.packed
-                              else reset_opacity)(self.state)
+                if self._eager_dispatch:
+                    self.state = (reset_opacity_packed if self.packed
+                                  else reset_opacity)(self.state)
+                else:
+                    density = self._density_control(self.state)
+                    density.reset_opacity()
+                    self.state = density.state
 
     def run_block(self, k: int) -> StepMetrics:
         """Run ``k`` iterations with no schedule and no sync. The caller
@@ -459,6 +501,7 @@ class Trainer:
                 use_depth=self.use_depth,
                 bucket=max(int(self.opt.densification_interval), 1))
             self._runner.captures = self.captures
+            self._runner.density_captures = self.density_captures
         return self._runner
 
     def _bucket_inputs(self, cams: list, bucket: int):
@@ -653,10 +696,11 @@ class Trainer:
         basis evaluated), the trainer's pipeline and raster settings, and a
         second render at grown buffers if the view overflows them
         (``render_grown``; the trainer's own ``raster`` stays as it is).
-        On one device the view replays a captured graph (``views``, a
+        The view replays a captured graph (``views``, a
         ``render.py::ViewGraph``; on the CPU its body runs eagerly) and the
-        output is a copy. Under a mesh every process renders the same
-        view, banded (K2 and K1 per band), eagerly."""
+        output is a copy, as the JAX trainer jits ``_eval_render``. Under a
+        mesh every process renders the same view, banded (K2 and K1 per
+        band), and the graph holds the bands' collectives."""
         bg = torch.full((3,), 1.0 if self.model_cfg.white_background else 0.0,
                         device=self.device)
         sh_deg = min(self.iteration // 1000, self.model_cfg.sh_degree)
@@ -669,22 +713,20 @@ class Trainer:
                 # applied
                 raise ValueError("scaling_modifier is not supported under "
                                  "a mesh")
-            out, _ = render_grown(cam, mask_sh_rest(self.state.params, sh_deg),
-                                  bg, self.raster, mesh=self.mesh, **kw)
-            return out
-        kw.update(scaling_modifier=scaling_modifier,
-                  convert_SHs_python=self.pipe.convert_SHs_python,
-                  compute_cov3D_python=self.pipe.compute_cov3D_python)
+        else:
+            kw.update(scaling_modifier=scaling_modifier,
+                      convert_SHs_python=self.pipe.convert_SHs_python,
+                      compute_cov3D_python=self.pipe.compute_cov3D_python)
         if self._eager_dispatch:
             out, _ = render_grown(cam, mask_sh_rest(self.state.params, sh_deg),
-                                  bg, self.raster, **kw)
+                                  bg, self.raster, mesh=self.mesh, **kw)
             return out
         # the packed block itself (its ``params`` unpack anew at each
         # access): the graph unpacks it, and masks, inside the view
         src = (self.state.packed if isinstance(self.state, PackedState)
                else self.state.params)
-        out, _ = render_grown(cam, src, bg, self.raster, graph=self.views,
-                              sh_degree=sh_deg, **kw)
+        out, _ = render_grown(cam, src, bg, self.raster, mesh=self.mesh,
+                              graph=self.views, sh_degree=sh_deg, **kw)
         return out
 
     @torch.no_grad()

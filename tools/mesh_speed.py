@@ -6,6 +6,7 @@ Gaussians.
 Usage, from the repository root:
 
     python3 tools/mesh_speed.py [--ranks 4] [--iterations 200] [--block]
+                                [--schedule]
 
 On a machine with k CUDA cards the sharded run is ``--mesh k`` (k ranks,
 one per card, NCCL); with ``--device cpu`` it is k ``--multihost``
@@ -24,8 +25,19 @@ the field's largest magnitude and the largest difference. At HELD at most
 1 % may lie beyond (Adam's sign flips on gradients that are zero up to
 rounding, the rule of tests/test_torch_trainer.py); later the sums' other
 order, through Adam's normalised steps, carries the runs apart, so the
-last iteration's gap is reported, not held. Exits non-zero if a run fails
-or the rule does not hold.
+last iteration's gap is reported, not held. With ``--schedule`` both runs
+also densify every 50 iterations from 50 (the graphed densify and its
+gathers), reset the opacities at 100 and render their test and training
+views after the last iteration (the banded view's graph under ``--mesh
+k``), with the test views held out (``--eval``); the sharded run must
+still exit, which it does only if the group's close released every graph
+that captured its collectives. A third run then trains k ranks again with
+the trainer's density control, step mode's step and views eager (its
+``_eager_dispatch``, which no flag of the CLI sets: the ranks run
+EAGER_CLI), and its point clouds at HELD, after the first densify (50)
+and at the last iteration must be byte for byte the sharded run's: the
+captured densify, with its gathers, is the eager one. Exits non-zero if a
+run fails or a rule does not hold.
 """
 from __future__ import annotations
 
@@ -43,6 +55,18 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HELD = 20          # the iteration whose point clouds are held to the rule
+FIRST_DENSIFY = 50  # --schedule's first densify
+# the train CLI with every Trainer's ``_eager_dispatch`` set
+EAGER_CLI = """
+import runpy
+from gs_tpu_torch.train.loop import Trainer
+init = Trainer.__init__
+def eager(self, *args, **kwargs):
+    init(self, *args, **kwargs)
+    self._eager_dispatch = True
+Trainer.__init__ = eager
+runpy.run_module("gs_tpu_torch.apps.train", run_name="__main__")
+"""
 
 
 def _free_port() -> int:
@@ -71,6 +95,16 @@ def _run(cmds_envs, log_dir, name):
     return outs[0]
 
 
+def _ranks(cmd, k, env):
+    """``cmd`` as the k ranks of a --multihost group on this machine (rank
+    r on card r)."""
+    port = _free_port()
+    return [(cmd + ["--multihost"],
+             dict(env, GS_TPU_COORD=f"127.0.0.1:{port}",
+                  GS_TPU_NPROCS=str(k), GS_TPU_PROCID=str(r)))
+            for r in range(k)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=4)
@@ -81,6 +115,9 @@ def main() -> int:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--block", action="store_true",
                     help="train both runs in block mode (else step mode)")
+    ap.add_argument("--schedule", action="store_true",
+                    help="densify every 50 iterations from 50, reset the "
+                    "opacities at 100 and evaluate the views at the end")
     args = ap.parse_args()
 
     import torch
@@ -127,45 +164,66 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     it = args.iterations
-    common = ["-s", root, "-r", "1", "--iterations", str(it),
-              "--densify_from_iter", str(10 * it), "--test_iterations",
-              str(10 * it), "--save_iterations", str(HELD), str(it),
+    events = (["--eval", "--densify_from_iter", "25",
+               "--densification_interval", "50", "--densify_until_iter",
+               str(it + 1), "--opacity_reset_interval", "100",
+               "--test_iterations", str(it)] if args.schedule else
+              ["--densify_from_iter", str(10 * it), "--test_iterations",
+               str(10 * it)])
+    saves = (HELD, FIRST_DENSIFY, it) if args.schedule else (HELD, it)
+    common = ["-s", root, "-r", "1", "--iterations", str(it), *events,
+              "--save_iterations", *map(str, saves),
               "--dup_capacity", str(dup), "--max_per_tile", "4096",
               "--disable_viewer", "--data_device", args.device,
               "--block_scan" if args.block else "--no_block_scan"]
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="4")
     runs = {}
-    for name, k in (("one device", 1), (f"{args.ranks} ranks", args.ranks)):
-        model = os.path.join(tmp.name, f"model_{k}")
-        cmd = [sys.executable, "-m", "gs_tpu_torch.apps.train", *common,
-               "-m", model]
+    k = args.ranks
+    sharded, eager = f"{k} ranks", f"{k} ranks, eager"
+    plan = [("one device", 1), (sharded, k)]
+    if args.schedule:
+        plan.append((eager, k))
+    for name, k in plan:
+        model = os.path.join(tmp.name, f"model_{len(runs)}")
+        cli = (["-c", EAGER_CLI] if name == eager
+               else ["-m", "gs_tpu_torch.apps.train"])
+        cmd = [sys.executable, *cli, *common, "-m", model]
         t0 = time.perf_counter()
         if k == 1:
             out = _run([(cmd, env)], tmp.name, "one")
-        elif dev.type == "cuda":
+        elif dev.type == "cuda" and name != eager:
             out = _run([(cmd + ["--mesh", str(k)], env)], tmp.name, "mesh")
         else:
-            port = _free_port()
-            out = _run([(cmd + ["--multihost"],
-                         dict(env, GS_TPU_COORD=f"127.0.0.1:{port}",
-                              GS_TPU_NPROCS=str(k), GS_TPU_PROCID=str(r)))
-                        for r in range(k)], tmp.name, "multihost")
+            out = _run(_ranks(cmd, k, env), tmp.name, f"ranks{len(runs)}")
         wall = time.perf_counter() - t0
         rates = re.findall(r"\[(\d+)/\d+\] loss=\S+ pts=\d+ ([\d.]+) it/s", out)
-        sharded = re.findall(r"Sharding gaussians over .*", out)
+        shard_line = re.findall(r"Sharding gaussians over .*", out)
+        for line in re.findall(r"\[ITER \d+\] Evaluating .*|\[gs_tpu_torch\] "
+                               r"captured the (?:densify|reset|\d+x\d+ view)"
+                               r".*", out):
+            print(f"[mesh speed] {name}: {line}", flush=True)
+        plys = {i: os.path.join(model, "point_cloud", f"iteration_{i}",
+                                "point_cloud.ply") for i in saves}
         runs[name] = dict(
             its=float(rates[-1][1]) if rates else float("nan"), wall=wall,
-            ply={i: load_gaussian_ply(os.path.join(
-                model, "point_cloud", f"iteration_{i}", "point_cloud.ply"))
-                for i in (HELD, it)})
-        print(f"[mesh speed] {name}: {sharded[0] if sharded else 'one device'}; "
+            ply={i: load_gaussian_ply(f) for i, f in plys.items()},
+            bytes={i: open(f, "rb").read() for i, f in plys.items()})
+        where = shard_line[0] if shard_line else "one device"
+        print(f"[mesh speed] {name}: {where}; "
               f"{runs[name]['its']:.3f} it/s over iterations "
               f"{int(rates[-1][0]) - 99 if rates else '?'}..{it} "
               f"({1e3 / runs[name]['its']:.3f} ms per iteration); "
               f"{wall:.1f} s with start-up", flush=True)
     ok = True
     for i in (HELD, it):
-        a, b = (runs[k]["ply"][i] for k in runs)
+        a, b = (runs[k]["ply"][i] for k in ("one device", sharded))
+        if i != HELD and len(a["xyz"]) != len(b["xyz"]):
+            # a densify's clone and split decisions sit on gradient
+            # thresholds, which the sums' other order can cross
+            print(f"[mesh speed] after {i} iterations the two runs keep "
+                  f"{len(a['xyz'])} and {len(b['xyz'])} Gaussians",
+                  flush=True)
+            continue
         worst = {}
         for key in a:
             va = np.asarray(a[key], np.float64)
@@ -184,7 +242,17 @@ def main() -> int:
               f"{'; held: at most 1 %' if i == HELD else ''}): " + ", ".join(
                   f"{k} {v[0]:.3%} {v[1]:.3e}" for k, v in worst.items()),
               flush=True)
-    one, many = (runs[k]["its"] for k in runs)
+    if args.schedule:
+        same = {i: runs[sharded]["bytes"][i] == runs[eager]["bytes"][i]
+                for i in saves}
+        ok = ok and all(same.values())
+        sizes = {i: len(runs[sharded]["ply"][i]["xyz"]) for i in saves}
+        print(f"[mesh speed] {sharded} against {eager} (density control, "
+              f"step and views eager), the PLYs byte for byte equal (held) "
+              f"after " + ", ".join(
+                  f"{i} iterations: {same[i]} ({sizes[i]} Gaussians)"
+                  for i in saves), flush=True)
+    one, many = (runs[k]["its"] for k in ("one device", sharded))
     print(f"[mesh speed] {args.ranks} ranks at {many / one:.3f}x one "
           f"device's iterations per second, both in "
           f"{'block' if args.block else 'step'} mode", flush=True)
