@@ -1,0 +1,16 @@
+"""preprocess_ms.view (ms): the preprocess a frame (``preprocess``), by the
+program's stage stamps inside the view's graph replay
+(``gs_tpu_torch/utils/spans.py``), the mean over the traced frames."""
+
+STAGES = ("preprocess",)
+
+
+def read(t):
+    if t.get("kind") != "view" or not t["busy_s"][0] or not t["units"]:
+        return None
+    try:
+        from gs_tpu_torch.utils import spans
+    except ImportError:     # a program without stage stamps
+        return None
+    m = spans.stage_means(last=t["units"], unit="frame")
+    return sum(m.get(s, 0.0) for s in STAGES) if m else None

@@ -277,6 +277,7 @@ TPU_NUM_DUPLICATES = 3_022_338                      # bench.py:100, same scene
 FRAMES = 8
 TRAIN_STEPS = 8
 PROFILED_STEPS = 5
+STAGE_REPLAYS = 5              # [train stages]: replays of the graphed step
 HBM_BYTES_PER_S = 3.35e12                           # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12
 # the bench training steps' losses on an NVIDIA H100 80GB HBM3 (700 W);
@@ -508,8 +509,7 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
     from gs_tpu_torch.core.gaussians import GaussianParams, inverse_sigmoid
     from gs_tpu_torch.core.project import preprocess
     from gs_tpu_torch.core.sh import rgb2sh
-    from gs_tpu_torch.models.gaussian_model import (adam_update, group_lrs,
-                                                    init_state)
+    from gs_tpu_torch.models.gaussian_model import init_state
     from gs_tpu_torch.ops.binning import bin_gaussians_payload, tile_grid
     from gs_tpu_torch.ops.expand import expand_rows
     from gs_tpu_torch.ops.fold import fold_rows, fold_rows_plain
@@ -527,7 +527,9 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
     from gs_tpu_torch.ops.segment import segment_sum_runend
     from gs_tpu_torch.ops.ssim import ssim
     from gs_tpu_torch.render import render
+    from gs_tpu_torch.train.graph import TrainingData, make_train_step_chain
     from gs_tpu_torch.train.step import make_train_step
+    from gs_tpu_torch.utils import spans
 
     counters = {"K2": expand_rows, "K1": raster_tiles_fwd,
                 "K1g": raster_tiles_fwd_save, "K3": raster_tiles_bwd,
@@ -725,40 +727,28 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
     check(all(launches[k] == TRAIN_STEPS for k in ("K1g", "K2", "K3", "K4"))
           and launches["K1"] == 0, f"train launches {launches}")
 
-    # where a step's time goes, each stage timed alone by CUDA events
-    leaves = [t.detach().requires_grad_(True) for t in state.params]
-    cam = cams.select(0)
-    kw = dict(active_sh_degree=3, alive=state.alive, dup_capacity=DUP_CAPACITY,
-              max_per_tile=MAX_PER_TILE, exact_cull=True)
-    zero_bg = torch.zeros(3, device=dev)
-
-    def fwd():
-        return render(cam, GaussianParams(*leaves), zero_bg, **kw).image
-
-    def fwd_bwd():
-        torch.autograd.grad(fwd().sum(), leaves)
-
-    img = fwd().detach().requires_grad_(True)
-
-    def loss_fwd_bwd():
-        loss = 0.8 * l1_loss(img, gt) + 0.2 * (1.0 - ssim(img, gt))
-        torch.autograd.grad(loss, [img])
-
-    grads = torch.autograd.grad(fwd().sum(), leaves)
-    lrs = group_lrs(opt, 3, 1.0)
-    stage_ms = {
-        "render forward (grad)": time_ms(torch, fwd, 5),
-        "render forward + backward": time_ms(torch, fwd_bwd, 5),
-        "L1 + SSIM forward + backward": time_ms(torch, loss_fwd_bwd, 5),
-        "Adam": time_ms(torch, lambda: adam_update(
-            state, GaussianParams(*grads), lrs), 5),
-        "K1g": k1g_ms, "K3": k3_ms, "K4": k4_ms,
-        "whole step": time_ms(torch, lambda: step(state, 0, gt,
-                                                  iteration=11), 5),
-    }
-    print("[train stages] ms by CUDA events: " + ", ".join(
-        f"{k} {v:.4f}" for k, v in stage_ms.items()), flush=True)
-    del grads, img
+    # where a step's time goes: the program's stage stamps inside a
+    # graphed step (utils/spans.py), the chain's replay of this step
+    chain = make_train_step_chain(step, use_alpha=False, use_depth=False)
+    row = np.concatenate([step.schedule(11)[0], np.zeros(3, np.float32)])
+    chain.load(torch.tensor([[0, 11]]), torch.from_numpy(row)[None],
+               torch.ones(1, dtype=torch.bool))
+    data = TrainingData(gt[None])
+    chain(state, data, 0)                              # the capture
+    for _ in range(STAGE_REPLAYS):
+        chain(chain.state, data, 0)
+    stages = spans.stage_means(last=STAGE_REPLAYS, unit="step")
+    print(f"[train stages] ms per stage of the graphed step by its stage "
+          f"stamps (the mean of {STAGE_REPLAYS} replays): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in stages.items())
+          + f"; all {sum(stages.values()):.4f}; the bench frame's K1g "
+          f"{k1g_ms:.4f}, K3 {k3_ms:.4f}, K4 {k4_ms:.4f} by CUDA events",
+          flush=True)
+    check(list(stages) == ["step", "preprocess", "binning", "raster", "loss",
+                           "loss_bwd", "raster_bwd", "preprocess_bwd",
+                           "update"], f"train stages {list(stages)}")
+    chain.release()
+    del chain, data
 
     from torch.profiler import ProfilerActivity, profile
     # one step's device time moves by ~2 % from run to run: profile several
@@ -812,7 +802,8 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
 
     def step_grads(backend):
         leaves = [t.clone().requires_grad_(True) for t in mid]
-        out = render(mcam, GaussianParams(*leaves), zero_bg, active_sh_degree=3,
+        out = render(mcam, GaussianParams(*leaves),
+                     torch.zeros(3, device=dev), active_sh_degree=3,
                      backend=backend, dup_capacity=1 << 20, max_per_tile=4096,
                      exact_cull=True)
         check(not bool(out.overflow), f"[grad] {backend} overflow")
@@ -3195,8 +3186,7 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
 
 PACKED_ITERS = 60              # [packed trainer]: a densify at 50
 PACKED_STEADY = (20, 49)       # no densify, replay or eval in 21..49
-PROFILE_ROWS = ("SelectBackward0", "aten::add_", "aten::stack",
-                "gs_tpu_torch.adam")
+PROFILE_ROWS = ("SelectBackward0", "aten::add_", "aten::stack")
 
 
 def profiled_steps(torch, fn):
@@ -3204,7 +3194,10 @@ def profiled_steps(torch, fn):
     device busy ms, the kernel launches of one step, and the device ms of
     PROFILE_ROWS in the last one (an autograd node or an annotation counts
     the kernels of everything under it; an annotation's device-side span,
-    a second event of the same name, is not counted again)."""
+    a second event of the same name, is not counted again), and its
+    ``update`` stage (densification statistics, Adam, exposure) by the
+    program's stage stamps (``utils/spans.py``)."""
+    from gs_tpu_torch.utils import spans
     from torch.profiler import ProfilerActivity, profile
     busy = []
     for _ in range(PROFILED_STEPS):
@@ -3223,6 +3216,8 @@ def profiled_steps(torch, fn):
         rows[name] = (sum(getattr(e, "device_time_total", None)
                           or getattr(e, "cuda_time_total", 0.0) for e in hit)
                       / 1e3, sum(e.count for e in hit))
+    rows["update stage"] = (
+        spans.stage_means(last=1, unit="step").get("update", 0.0), 1)
     return float(np.median(busy)), sum(e.count for e in run), rows
 
 

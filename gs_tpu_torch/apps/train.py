@@ -7,7 +7,9 @@ Dataset load, the 30k-iteration schedule with densify/prune, periodic test
 PSNR reports, PLY saves at --save_iterations, checkpoints at
 --checkpoint_iterations (``chkpnt{i}.pth``), resume via --start_checkpoint
 or --resume, TensorBoard scalars when ``torch.utils.tensorboard`` imports,
-and a ``torch.profiler`` trace of warm iterations with --profile. The model
+and a ``torch.profiler`` trace of warm iterations with --profile, at whose
+end the ms of each stage of the step over that window are printed from the
+step's stage stamps (``utils/spans.py``). The model
 dir has the JAX package's layout (``cfg_args``, ``config.json``,
 ``cameras.json``, ``input.ply``, ``point_cloud/iteration_N/``).
 
@@ -63,6 +65,7 @@ from ..data.scene import Scene
 from ..parallel.mesh import init_from_env
 from ..train.checkpoint import load_checkpoint, save_checkpoint
 from ..train.loop import Trainer
+from ..utils import spans
 from ..viewer.server import ViewerServer
 from .args import extract_dataclass, make_parser, resolve_data_device
 
@@ -182,7 +185,10 @@ def main(argv=None, *, group=None):
     parser.add_argument("--profile", type=str, default="",
                         help="directory for a torch.profiler trace (Chrome "
                              "trace JSON) of --profile_steps iterations, "
-                             "started once training is warm")
+                             "started once training is warm; at its end "
+                             "the ms per iteration of each stage of the "
+                             "step in that window is printed, by the "
+                             "step's stage stamps")
     parser.add_argument("--profile_steps", type=int, default=50)
     parser.add_argument("--initial_capacity", type=int, default=0,
                         help="starting gaussian capacity (0 = auto)")
@@ -326,12 +332,20 @@ def _train(args, model_cfg, opt, pipe, raster, group):
     # steady-state steps and not the first kernel build
     prof = {"profiler": None, "start": None}
 
-    def stop_profile():
+    def stop_profile(i):
         prof["profiler"].stop()
         path = os.path.join(args.profile, "trace.json")
         prof["profiler"].export_chrome_trace(path)
         prof["profiler"] = None
         print(f"[profile] trace written to {path}")
+        # the window's steps by their stage stamps (utils/spans.py)
+        n = i - prof["start"]
+        stages = spans.stage_means(last=n, unit="step")
+        if stages:
+            print(f"[profile] ms per iteration by stage over the last {n} "
+                  "iterations: " + ", ".join(f"{k} {v:.3f}"
+                                             for k, v in stages.items())
+                  + f"; all {sum(stages.values()):.3f}", flush=True)
 
     def profile_tick(i):
         if not args.profile:
@@ -349,7 +363,7 @@ def _train(args, model_cfg, opt, pipe, raster, group):
                   f"to {args.profile}")
         elif prof["profiler"] is not None \
                 and i >= prof["start"] + args.profile_steps:
-            stop_profile()
+            stop_profile(i)
 
     def on_step(i, metrics, tr):
         profile_tick(i)
@@ -438,7 +452,7 @@ def _train(args, model_cfg, opt, pipe, raster, group):
             viewer.close()
     print(f"\nTraining complete ({elapsed:.1f}s).")
     if prof["profiler"] is not None:   # the run ended inside the window
-        stop_profile()
+        stop_profile(trainer.iteration)
     if tb_writer is not None:
         tb_writer.close()
     return trainer

@@ -62,6 +62,7 @@ from .composite import (ALPHA_MAX, T_EPS, alpha_from_power, composite_chunk,
                         splat_power, transmittance)
 from .fold import SOURCE as FOLD_SOURCE, fold_rows
 from .rasterize_plain import tile_pixels, pack_projected, untile
+from ..utils import spans
 
 TILE = 16            # the kernel's tile edge (16x16 pixels, one CTA)
 PIX = TILE * TILE
@@ -628,6 +629,7 @@ class _RasterizeBinned(torch.autograd.Function):
         if bf16:
             feats = unpack_feature_pairs(feats)
         gx, _ = tile_grid(width, height, TILE, TILE)
+        spans.stage("raster", feats.device)
         out, last = raster_tiles_fwd_save(feats, bins.tile_start,
                                           bins.tile_end, gx, max_chunks,
                                           row_map=row_map)
@@ -699,6 +701,7 @@ def rasterize(proj: Projected, width: int, height: int, bg: torch.Tensor, *,
                                             bf16_pairs=bf16_features, **rows)
         if bf16_features:
             feats = unpack_feature_pairs(feats)
+        spans.stage("raster", feats.device)
         out = raster_tiles_fwd(feats, bins.tile_start, bins.tile_end, gx,
                                max_chunks, row_map=kmap)
     img = out[:, 0:3] + out[:, 4:5] * bg[None, :, None]
@@ -706,5 +709,8 @@ def rasterize(proj: Projected, width: int, height: int, bg: torch.Tensor, *,
     rest = untile(out[:, 3:5], gx, gy, TILE, TILE, width, height)
     max_len = torch.max(bins.tile_end - bins.tile_start)
     overflow = bins.overflow | (max_len > max_per_tile)
-    return (image, rest[0:1], rest[1], bins.num_duplicates, max_len,
+    # the backward of K3 and K4 begins where the images' gradients arrive
+    image, invdepth, final_t = spans.mark("raster_bwd", image, rest[0:1],
+                                          rest[1])
+    return (image, invdepth, final_t, bins.num_duplicates, max_len,
             overflow, bins.num_valid)

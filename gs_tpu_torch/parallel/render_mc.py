@@ -23,6 +23,14 @@ each band's contribution into the shard that owns the packet; the visible
 compaction's backward is a gather (``_CompactRows``). Every tile composites
 the same entries in the same depth order as a full-frame render, so the
 frame is the full frame's.
+
+The stage stamps (``utils/spans.py``): ``preprocess`` before phase 1,
+``exchange`` before each collective (the packet gather, the cost
+all-reduce, the band and statistics gathers), ``binning`` where the band
+assignment and the bands' binning resume; in the backward ``exchange_bwd``
+where the gathered packets' gradient has arrived (the reduce-scatter
+follows) and ``preprocess_bwd`` where the shards' own rows' has. Every
+frame writes the gathered ``band_work`` into the ring as a counter.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ from ..core.project import (Projected, preprocess, preprocess_packed,
 from ..ops.binning import tile_grid
 from ..ops.rasterize_plain import pack_projected
 from ..render import RenderOutput, render_projected
+from ..utils import spans
 
 TILE = 16
 BAND_ASSIGNS = ("cost", "stride")
@@ -227,15 +236,20 @@ def band_assignment(projs, group, width: int, height: int,
         # band d owns the global rows d, d + k, d + 2k, ...
         rows = torch.arange(gy_pad, device=dev).reshape(band_rows, k).T
     else:
-        cost = group.sum([_row_costs(p, gx, gy_pad) for p in projs])
+        costs = [_row_costs(p, gx, gy_pad) for p in projs]
+        spans.stage("exchange", dev)
+        cost = group.sum(costs)
+        spans.stage("binning", dev)
         rows = None if split else _snake_row_map(cost, k)
     if rows is not None:
         kws = [dict(row_map=rows[d], row_cumown=_cumown(rows[d], gy_pad))
                for d in range(k)]
         return kws, None, torch.argsort(rows.reshape(-1))
     heavy = torch.argsort(-cost, stable=True)[:split]
-    colcosts = group.sum([_heavy_col_costs(p, heavy, gx, gy_pad)
-                          for p in projs])
+    colcosts = [_heavy_col_costs(p, heavy, gx, gy_pad) for p in projs]
+    spans.stage("exchange", dev)
+    colcosts = group.sum(colcosts)
+    spans.stage("binning", dev)
     rows, c0, c1 = _assign_bands_split(cost, heavy, colcosts, k,
                                        band_rows - split, split, gx)
     kws = [dict(row_map=rows[d], row_cumown=_cumown(rows[d], gy_pad),
@@ -316,6 +330,8 @@ def render_multichip(params: GaussianParams, camera: Camera,
                                              split_rows)
 
     # 1. each local shard: preprocess, pack, compact
+    dev = camera.device
+    spans.stage("preprocess", dev)
     projs, rows, vis_over = [], [], []
     for s in range(nl):
         sl = slice(s * n, (s + 1) * n)
@@ -346,10 +362,16 @@ def render_multichip(params: GaussianParams, camera: Camera,
         projs.append(proj)
         rows.append(r)
 
-    # 2. every shard's rows to every band
-    proj_all = _rows_projected(group.gather(rows))
+    # 2. every shard's rows to every band; the backward's reduce-scatter
+    # starts where the gathered rows' gradient has arrived, and the
+    # preprocess backward where the shards' rows' gradient has
+    rows = spans.mark("preprocess_bwd", *rows)
+    rows = [rows] if isinstance(rows, torch.Tensor) else list(rows)
+    spans.stage("exchange", dev)
+    proj_all = _rows_projected(spans.mark("exchange_bwd", group.gather(rows)))
 
     # 3. each local band renders its rows
+    spans.stage("binning", dev)
     with torch.no_grad():
         kws, src, src_rows = band_assignment(projs, group, width, height,
                                              band_assign, split_rows)
@@ -360,6 +382,7 @@ def render_multichip(params: GaussianParams, camera: Camera,
             for d in group.local]
 
     # 4. the bands back into the frame
+    spans.stage("exchange", dev)
     bands = group.gather_bands([torch.cat([o.image, o.invdepth,
                                            o.final_T[None]]) for o in outs])
     frame = _reassemble(bands, band_rows, src, src_rows)[:, :height]
@@ -369,6 +392,8 @@ def render_multichip(params: GaussianParams, camera: Camera,
         (o.overflow | ov).to(torch.int64), o.num_valid.to(torch.int64),
         p.visible.sum().to(torch.int64)])
         for o, ov, p in zip(outs, vis_over, projs)])        # [k, 5]
+    # every band's composited entries, every rank's copy of them
+    spans.count("band_work", stats[:, 3])
     return RenderOutput(
         image=frame[0:3], invdepth=frame[3:4], final_T=frame[4],
         radii=torch.cat([p.radius for p in projs]),

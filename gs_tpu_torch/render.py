@@ -23,6 +23,13 @@ it renders through it: on CUDA one captured CUDA graph replayed per view,
 as the JAX package jits its per-view render (``gs_tpu/train/loop.py:
 661-701``, ``gs_tpu/apps/render.py:70-85``); on the CPU the same body,
 eagerly. ``render()`` itself stays eager, as the JAX package's is.
+
+The view's stage stamps (``utils/spans.py``): ``frame`` and ``end`` around
+the view graph's body, ``preprocess`` in ``render``, ``binning`` in
+``render_projected``, ``raster`` before K1 (``ops/rasterize.py``). Host
+spans: ``view`` around ``render_grown`` (a new frame each), with a view
+graph's ``view.load``, ``view.replay`` and ``view.copy_out``, and
+``view.overflow_check``, inside.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ from .core.project import Projected, preprocess
 from .ops.binning import F32_EXACT, bin_gaussians
 from .ops.rasterize import rasterize
 from .ops.rasterize_plain import rasterize_binned, rasterize_depthwise
+from .utils import spans
 from .utils.cuda_graphs import GraphCache, capture, replay
 
 TILE_X = 16
@@ -131,44 +139,49 @@ def render_grown(camera: Camera, params: GaussianParams, bg: torch.Tensor,
     ``sh_degree`` masks the SH ramp)."""
     if graph is not None and graph.mesh is not mesh:
         raise ValueError("the view graph was made for another group")
-    attempts = 0
-    while True:
-        common = dict(backend=raster.backend, dup_capacity=raster.dup_capacity,
-                      max_per_tile=raster.max_per_tile, chunk=raster.chunk,
-                      **raster_lever_kwargs(raster), **kwargs)
-        if mesh is not None:
-            # the multi-GPU render streams f32 features, as the JAX
-            # package's does: it takes no bf16_features
-            common.pop("bf16_features")
-            common.update(band_assign=raster.band_assign,
-                          visible_capacity=max(raster.visible_capacity, 0))
-        if graph is not None:
-            out = graph(camera, params, bg, **common)
-        elif mesh is None:
-            out = render(camera, params, bg, **common)
-        else:
-            from .parallel.render_mc import render_multichip
-            out = render_multichip(params, camera, bg, mesh, **common)
-        if not bool(out.overflow):
-            return out, raster
-        banded = out.band_duplicates is not None
-        nd = int(out.band_duplicates.max() if banded else out.num_duplicates)
-        ml = int(out.max_tile_len)
-        changes = overflow_changes(
-            raster.dup_capacity, raster.max_per_tile, nd, ml,
-            raster.visible_capacity if banded else 0,
-            int(out.band_visible.max()) if banded else 0)
-        if not changes or attempts == 3:
-            print(f"[gs_tpu_torch] WARNING: {label} overflowed at "
-                  f"dup_capacity {raster.dup_capacity}, max_per_tile "
-                  f"{raster.max_per_tile} (num_duplicates {nd}, max_tile_len "
-                  f"{ml}); entries were dropped", flush=True)
-            return out, raster
-        print(f"[gs_tpu_torch] {label} overflowed its buffers "
-              f"(num_duplicates {nd}, max_tile_len {ml}); rendering again "
-              f"with {changes}", flush=True)
-        raster = dataclasses.replace(raster, **changes)
-        attempts += 1
+    with spans.span("view", frame=True):
+        attempts = 0
+        while True:
+            common = dict(backend=raster.backend,
+                          dup_capacity=raster.dup_capacity,
+                          max_per_tile=raster.max_per_tile, chunk=raster.chunk,
+                          **raster_lever_kwargs(raster), **kwargs)
+            if mesh is not None:
+                # the multi-GPU render streams f32 features, as the JAX
+                # package's does: it takes no bf16_features
+                common.pop("bf16_features")
+                common.update(band_assign=raster.band_assign,
+                              visible_capacity=max(raster.visible_capacity, 0))
+            if graph is not None:
+                out = graph(camera, params, bg, **common)
+            elif mesh is None:
+                out = render(camera, params, bg, **common)
+            else:
+                from .parallel.render_mc import render_multichip
+                out = render_multichip(params, camera, bg, mesh, **common)
+            with spans.span("view.overflow_check"):
+                overflowed = bool(out.overflow)
+            if not overflowed:
+                return out, raster
+            banded = out.band_duplicates is not None
+            nd = int(out.band_duplicates.max() if banded
+                     else out.num_duplicates)
+            ml = int(out.max_tile_len)
+            changes = overflow_changes(
+                raster.dup_capacity, raster.max_per_tile, nd, ml,
+                raster.visible_capacity if banded else 0,
+                int(out.band_visible.max()) if banded else 0)
+            if not changes or attempts == 3:
+                print(f"[gs_tpu_torch] WARNING: {label} overflowed at "
+                      f"dup_capacity {raster.dup_capacity}, max_per_tile "
+                      f"{raster.max_per_tile} (num_duplicates {nd}, "
+                      f"max_tile_len {ml}); entries were dropped", flush=True)
+                return out, raster
+            print(f"[gs_tpu_torch] {label} overflowed its buffers "
+                  f"(num_duplicates {nd}, max_tile_len {ml}); rendering again "
+                  f"with {changes}", flush=True)
+            raster = dataclasses.replace(raster, **changes)
+            attempts += 1
 
 
 def render(camera: Camera, params: GaussianParams, bg: torch.Tensor, *,
@@ -209,6 +222,7 @@ def render(camera: Camera, params: GaussianParams, bg: torch.Tensor, *,
         sh = feats.transpose(1, 2)
         override_color = torch.clamp_min(
             eval_sh(active_sh_degree, sh, dirs) + 0.5, 0.0)
+    spans.stage("preprocess", camera.device)
     proj = preprocess(params, camera, active_sh_degree=active_sh_degree,
                       scaling_modifier=scaling_modifier,
                       antialiasing=antialiasing, alive=alive,
@@ -242,17 +256,20 @@ def render_projected(proj: Projected, width: int, height: int,
     rows = dict(row_map=row_map, row_cumown=row_cumown, col0_map=col0_map,
                 col1_map=col1_map)
     dev = proj.depth.device
+    spans.stage("binning", dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     nv = zero_i
     if backend == "depthwise":
         if row_map is not None:
             raise ValueError("the depthwise oracle renders full frames only")
+        spans.stage("raster", dev)
         image, invd, finalT = rasterize_depthwise(
             proj, width, height, bg, tile_x=TILE_X, tile_y=TILE_Y, chunk=chunk)
         nd, ml, ov = zero_i, zero_i, torch.zeros((), dtype=torch.bool, device=dev)
     elif backend == "binned":
         bins = bin_gaussians(proj, width, height, TILE_X, TILE_Y, dup_capacity,
                              **rows)
+        spans.stage("raster", dev)
         image, invd, finalT = rasterize_binned(
             proj, bins, width, height, bg, tile_x=TILE_X, tile_y=TILE_Y,
             max_per_tile=max_per_tile, chunk=chunk, row_map=row_map)
@@ -374,32 +391,39 @@ class ViewGraph(GraphCache):
         if self.mesh is not None and scaling_modifier != 1.0:
             raise ValueError("scaling_modifier is not supported under a "
                              "mesh")
-        leaves = ([params] if isinstance(params, torch.Tensor)
-                  else list(params)) + [alive]
-        if not self._reads_from(leaves):
-            self.release()
-            self.reads = tuple(weakref.ref(t) for t in leaves)
-        key = (camera.width, camera.height, sh_degree is None,
-               None if self.mesh is None else self.mesh.size,
-               tuple((tuple(t.shape), t.dtype) for t in leaves),
-               tuple(sorted(kwargs.items())))
-        v = self.lookup(key)
+        with spans.span("view.load"):
+            leaves = ([params] if isinstance(params, torch.Tensor)
+                      else list(params)) + [alive]
+            if not self._reads_from(leaves):
+                self.release()
+                self.reads = tuple(weakref.ref(t) for t in leaves)
+            key = (camera.width, camera.height, sh_degree is None,
+                   None if self.mesh is None else self.mesh.size,
+                   tuple((tuple(t.shape), t.dtype) for t in leaves),
+                   tuple(sorted(kwargs.items())))
+            v = self.lookup(key)
+            if v is not None:
+                v.load(camera, bg, sh_degree, scaling_modifier)
         if v is None:
             v = _View(camera, bg, sh_degree is not None)
             v.load(camera, bg, sh_degree, scaling_modifier)
             if camera.device.type == "cuda":
                 self._capture(v, params, alive, kwargs)
             self.insert(key, v, self.max_views)
-        else:
-            v.load(camera, bg, sh_degree, scaling_modifier)
-        if v.graph is not None:
-            replay(v.graph, v.counts)
-        else:
-            v.out = self._body(v, params, alive, kwargs)
-        return RenderOutput(*[x.clone() if isinstance(x, torch.Tensor) else x
-                              for x in v.out])
+        with spans.span("view.replay"):
+            if v.graph is not None:
+                replay(v.graph, v.counts)
+            else:
+                v.out = self._body(v, params, alive, kwargs)
+        with spans.span("view.copy_out"):
+            return RenderOutput(*[x.clone() if isinstance(x, torch.Tensor)
+                                  else x for x in v.out])
 
     def _body(self, v: _View, params, alive, kwargs) -> RenderOutput:
+        """The view: its ``frame`` stamp opens the stages that the render
+        stamps, and ``end`` closes them (``utils/spans.py``)."""
+        dev = v.camera.device
+        spans.stage("frame", dev)
         if isinstance(params, torch.Tensor):
             params = unpack_params(params, degree_from_rows(params.shape[0]))
         if v.sh_degree is not None:
@@ -407,10 +431,13 @@ class ViewGraph(GraphCache):
         with torch.no_grad():
             if self.mesh is not None:
                 from .parallel.render_mc import render_multichip
-                return render_multichip(params, v.camera, v.bg, self.mesh,
-                                        alive=alive, **kwargs)
-            return render(v.camera, params, v.bg, alive=alive,
-                          scaling_modifier=v.scaling_modifier, **kwargs)
+                out = render_multichip(params, v.camera, v.bg, self.mesh,
+                                       alive=alive, **kwargs)
+            else:
+                out = render(v.camera, params, v.bg, alive=alive,
+                             scaling_modifier=v.scaling_modifier, **kwargs)
+        spans.stage("end", dev)
+        return out
 
     def _capture(self, v: _View, params, alive, kwargs):
         def body():

@@ -90,6 +90,7 @@ from ..models.gaussian_model import (DensifyInfo, densify_and_prune,
 from ..models.packed_state import (PackedState, densify_and_prune_packed,
                                    reset_opacity_packed)
 from ..parallel.mesh import gather_state, shard_state
+from ..utils import spans
 from ..utils.cuda_graphs import capture, launch_counters, replay  # noqa: F401
 from .step import StepMetrics
 
@@ -159,6 +160,8 @@ class _Graphed:
         self.ints = torch.zeros((b, 2), dtype=torch.int64, device=dev)
         self.floats = torch.zeros((b, 6), dtype=torch.float32, device=dev)
         self.valid = torch.zeros((b,), dtype=torch.bool, device=dev)
+        # the loaded bucket's iterations, on the host: its spans' units
+        self.iterations: list = [0] * b
 
     # ------------------------------------------------------------ the state
 
@@ -218,6 +221,7 @@ class _Graphed:
         self.ints.copy_(ints, non_blocking=True)
         self.floats.copy_(floats, non_blocking=True)
         self.valid.copy_(valid, non_blocking=True)
+        self.iterations = ints[:, 1].tolist()
 
     # ------------------------------------------------------------- the step
 
@@ -226,7 +230,9 @@ class _Graphed:
         """One step on ``state`` (in place unless ``inplace`` is False), its
         camera and iteration from ``ints`` [2], its schedule row and
         background from ``floats`` [6], its views gathered from the data by
-        the device index."""
+        the device index. Its ``step`` stamp opens the step's stages
+        (``utils/spans.py``); the graph body closes them with ``end``."""
+        spans.stage("step", self.device)
         d = self.data
         index = ints[0].reshape(1)
 
@@ -315,6 +321,7 @@ class ChainStep(_Graphed):
     def warm_up(self, state):
         _, m = self.step_body(state, self.row_ints, self.row_floats)
         self._make_fold(m)
+        spans.stage("end", self.device)
 
     def _make_fold(self, m: StepMetrics):
         # outside any capture: a zero fill made inside one would replay
@@ -327,6 +334,7 @@ class ChainStep(_Graphed):
                                               self.row_floats)
         self._make_fold(self.out)
         self._fold_in(self.out)
+        spans.stage("end", self.device)
 
     def _fold_in(self, m: StepMetrics):
         """The bucket's worst overflow and largest counts, in place."""
@@ -339,9 +347,10 @@ class ChainStep(_Graphed):
         static state unless it is that already). Returns the static state
         and the step's metrics, which the next call overwrites."""
         self.bind(state, data)
-        self.row_ints.copy_(self.ints[j])
-        self.row_floats.copy_(self.floats[j])
-        self.dispatch()
+        with spans.span("train.step", unit=self.iterations[j]):
+            self.row_ints.copy_(self.ints[j])
+            self.row_floats.copy_(self.floats[j])
+            self.dispatch()
         return self.state, self.out
 
     def step(self, state, data: TrainingData, cam: int, iteration: int,
@@ -358,11 +367,13 @@ class ChainStep(_Graphed):
         bucket's fold, which the graph also updates, is not read (``run``
         zeroes it before a bucket)."""
         self.bind(state, data)
-        self.row_ints.copy_(torch.tensor([cam, iteration]), non_blocking=True)
-        self.row_floats[:3].copy_(sched, non_blocking=True)
-        if bg is not None:
-            self.row_floats[3:].copy_(bg)
-        self.dispatch()
+        with spans.span("train.step", unit=iteration):
+            self.row_ints.copy_(torch.tensor([cam, iteration]),
+                                non_blocking=True)
+            self.row_floats[:3].copy_(sched, non_blocking=True)
+            if bg is not None:
+                self.row_floats[3:].copy_(bg)
+            self.dispatch()
         return self.state, StepMetrics(*[
             x.clone() if isinstance(x, torch.Tensor) else x
             for x in self.out])
@@ -396,6 +407,7 @@ class ScanSteps(_Graphed):
     def warm_up(self, state):
         self.step_body(state, self.ints[0], self.floats[0],
                        valid=self.valid[0])
+        spans.stage("end", self.device)
 
     def graph_body(self):
         state, ms = self.state, []
@@ -423,6 +435,7 @@ class ScanSteps(_Graphed):
             overflow=(column("overflow") & v).any(),
             **{k: largest(k) for k in FOLDED[1:]
                if getattr(ms[0], k) is not None})
+        spans.stage("end", self.device)
 
     def __call__(self, state, data: TrainingData):
         """The loaded bucket on ``state``, one replay: its valid steps
@@ -430,7 +443,8 @@ class ScanSteps(_Graphed):
         Returns the static state and the last valid step's metrics with
         the bucket's worst overflow and largest counts (copies)."""
         self.bind(state, data)
-        self.dispatch()
+        with spans.span("train.step", unit=self.iterations[0]):
+            self.dispatch()
         return self.state, StepMetrics(*[
             x.clone() if isinstance(x, torch.Tensor) else x
             for x in self.out])
@@ -533,6 +547,7 @@ class DensityGraph:
                     a.copy_(b)
 
     def _densify_body(self, state):
+        spans.stage("densify", self.device)
         mesh = self.mesh
         full = state if mesh is None else gather_state(state, mesh)
         fn = (densify_and_prune_packed if isinstance(state, PackedState)
@@ -543,11 +558,14 @@ class DensityGraph:
         if mesh is not None:
             new = shard_state(new, mesh)
         self._write(state, new)
+        spans.stage("end", self.device)
 
     def _reset_body(self, state):
+        spans.stage("reset_opacity", self.device)
         fn = (reset_opacity_packed if isinstance(state, PackedState)
               else reset_opacity)
         self._write(state, fn(state))
+        spans.stage("end", self.device)
 
     def _run(self, what: str):
         body = self._densify_body if what == "densify" else self._reset_body

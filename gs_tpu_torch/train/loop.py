@@ -75,6 +75,12 @@ step graph's static state, so the next step and the views keep their
 captures. ``_eager_dispatch`` runs step mode's step, the view and density
 control eagerly: the reference the card's checks hold the graphs to.
 
+Host spans (``utils/spans.py``) time what the host does around the
+replays: ``train`` (a ``train`` call), ``train.block``, ``train.load`` (a
+bucket's inputs), ``train.step`` (one replay, in ``train/graph.py``),
+``train.sync``, ``train.snapshot`` and ``train.schedule``, each with the
+iteration it belongs to, and ``view`` around ``render_view``.
+
 Not ported, being XLA machinery of the JAX trainer: the background thread
 of the next capacity tier's compile (a capture takes about one step, so
 the next tier is captured when it is needed; ``train/graph.py`` says
@@ -106,6 +112,7 @@ from ..ops.losses import psnr
 from ..parallel.mesh import gather_state, pad_state, shard_state
 from ..render import (MAX_DUP_CAPACITY, RenderOutput, ViewGraph,
                       overflow_changes, render_grown)
+from ..utils import spans
 from .graph import (DensityGraph, TrainingData, make_train_step_chain,
                     make_train_steps_scan)
 from .step import StepMetrics, make_train_step, mask_sh_rest
@@ -441,23 +448,25 @@ class Trainer:
 
     def _apply_schedule(self, i: int):
         """Densify/opacity-reset at iteration i (ref: train.py:157-167)."""
-        self._log(("schedule", i))
-        opt = self.opt
-        if i < opt.densify_until_iter:
-            if i > opt.densify_from_iter and i % opt.densification_interval == 0:
-                self.state, _ = self._densify(
-                    self.state, i > opt.opacity_reset_interval)
-                self._maybe_grow()
-            if i % opt.opacity_reset_interval == 0 or (
-                    self.model_cfg.white_background and
-                    i == opt.densify_from_iter):
-                if self._eager_dispatch:
-                    self.state = (reset_opacity_packed if self.packed
-                                  else reset_opacity)(self.state)
-                else:
-                    density = self._density_control(self.state)
-                    density.reset_opacity()
-                    self.state = density.state
+        with spans.span("train.schedule", unit=i):
+            self._log(("schedule", i))
+            opt = self.opt
+            if i < opt.densify_until_iter:
+                if (i > opt.densify_from_iter
+                        and i % opt.densification_interval == 0):
+                    self.state, _ = self._densify(
+                        self.state, i > opt.opacity_reset_interval)
+                    self._maybe_grow()
+                if i % opt.opacity_reset_interval == 0 or (
+                        self.model_cfg.white_background and
+                        i == opt.densify_from_iter):
+                    if self._eager_dispatch:
+                        self.state = (reset_opacity_packed if self.packed
+                                      else reset_opacity)(self.state)
+                    else:
+                        density = self._density_control(self.state)
+                        density.reset_opacity()
+                        self.state = density.state
 
     def run_block(self, k: int) -> StepMetrics:
         """Run ``k`` iterations with no schedule and no sync. The caller
@@ -474,20 +483,22 @@ class Trainer:
         if self.block_dispatch not in ("chain", "scan"):
             raise ValueError(f"block_dispatch {self.block_dispatch!r}: "
                              f"'chain' or 'scan'")
-        runner = self._graph_runner(self.block_dispatch)
-        done = 0
-        while done < k:
-            b = min(runner.bucket, k - done)
-            cams = [self._next_camera() for _ in range(b)]
-            runner.load(*self._bucket_inputs(cams, runner.bucket))
-            self.state, metrics = runner.run(self.state, self._data, b)
-            self.iteration += b
-            done += b
-            self._last_cam = cams[-1]
-            self._window_metrics = _fold_window(metrics,
-                                                self._window_metrics)
-        self._last_metrics = self._window_metrics
-        return self._last_metrics
+        with spans.span("train.block", unit=self.iteration + 1):
+            runner = self._graph_runner(self.block_dispatch)
+            done = 0
+            while done < k:
+                b = min(runner.bucket, k - done)
+                with spans.span("train.load", unit=self.iteration + 1):
+                    cams = [self._next_camera() for _ in range(b)]
+                    runner.load(*self._bucket_inputs(cams, runner.bucket))
+                self.state, metrics = runner.run(self.state, self._data, b)
+                self.iteration += b
+                done += b
+                self._last_cam = cams[-1]
+                self._window_metrics = _fold_window(metrics,
+                                                    self._window_metrics)
+            self._last_metrics = self._window_metrics
+            return self._last_metrics
 
     def _graph_runner(self, mode: str):
         """Block mode's chain or scan of the current step, built when first
@@ -543,18 +554,19 @@ class Trainer:
 
     def _take_snapshot(self):
         """Mark the current state verified-clean; replay restores to here."""
-        self._last_sync_iter = self.iteration
-        self._replay_log = []
-        self._window_metrics = None
-        state = self.state
-        if self._runner is not None:
-            # the next block writes into the graph's static tensors
-            state = self._runner.unshared(state)
-        self._snapshot = dict(
-            state=state, iteration=self.iteration,
-            generator=self.generator.get_state(),
-            camera_stack=list(self._camera_stack),
-            rng_state=copy.deepcopy(self.rng.bit_generator.state))
+        with spans.span("train.snapshot", unit=self.iteration):
+            self._last_sync_iter = self.iteration
+            self._replay_log = []
+            self._window_metrics = None
+            state = self.state
+            if self._runner is not None:
+                # the next block writes into the graph's static tensors
+                state = self._runner.unshared(state)
+            self._snapshot = dict(
+                state=state, iteration=self.iteration,
+                generator=self.generator.get_state(),
+                camera_stack=list(self._camera_stack),
+                rng_state=copy.deepcopy(self.rng.bit_generator.state))
 
     def _restore_snapshot(self):
         s = self._snapshot
@@ -593,43 +605,47 @@ class Trainer:
         metrics = self._last_metrics
         if metrics is None or metrics is self._synced:
             return
-        attempts = 0
-        while bool(metrics.overflow):
-            banded = metrics.max_band_duplicates is not None
-            changes = overflow_changes(
-                self.raster.dup_capacity, self.raster.max_per_tile,
-                int(metrics.max_band_duplicates if banded
-                    else metrics.num_duplicates),
-                int(metrics.max_tile_len),
-                self.raster.visible_capacity if banded else 0,
-                int(metrics.max_band_visible) if banded else 0)
-            replay = bool(changes) and attempts < 4
-            if changes:
-                self._grow_raster(changes, will_replay=replay)
-            if not replay:
-                # replay budget exhausted, or the buffer is at its limit:
-                # this window trained on truncated renders. Record it loudly.
-                why = (f"after {attempts} attempts" if changes else
-                       f"at the dup_capacity limit {MAX_DUP_CAPACITY}")
-                self.overflow_exhausted += 1
-                print(f"[gs_tpu_torch] WARNING: overflow replay exhausted "
-                      f"{why} at iteration {self.iteration} "
-                      f"({int(metrics.num_duplicates)} entries); truncated "
-                      f"updates kept "
-                      f"(overflow_exhausted={self.overflow_exhausted})",
-                      flush=True)
-                break
-            attempts += 1
-            metrics = self._replay_window()
-        loss = float(metrics.loss)
-        if not math.isfinite(loss):
-            self._dump_debug(self._last_cam)
-            raise FloatingPointError(
-                f"non-finite loss at iteration {self.iteration} (camera "
-                f"{self._last_cam}); state snapshot written next to the model")
-        self.ema_loss = 0.4 * loss + 0.6 * self.ema_loss  # ref: train.py:142-148
-        self._synced = self._last_metrics
-        self._take_snapshot()
+        with spans.span("train.sync", unit=self.iteration):
+            attempts = 0
+            while bool(metrics.overflow):
+                banded = metrics.max_band_duplicates is not None
+                changes = overflow_changes(
+                    self.raster.dup_capacity, self.raster.max_per_tile,
+                    int(metrics.max_band_duplicates if banded
+                        else metrics.num_duplicates),
+                    int(metrics.max_tile_len),
+                    self.raster.visible_capacity if banded else 0,
+                    int(metrics.max_band_visible) if banded else 0)
+                replay = bool(changes) and attempts < 4
+                if changes:
+                    self._grow_raster(changes, will_replay=replay)
+                if not replay:
+                    # replay budget exhausted, or the buffer is at its limit:
+                    # this window trained on truncated renders. Record it
+                    # loudly.
+                    why = (f"after {attempts} attempts" if changes else
+                           f"at the dup_capacity limit {MAX_DUP_CAPACITY}")
+                    self.overflow_exhausted += 1
+                    print(f"[gs_tpu_torch] WARNING: overflow replay exhausted "
+                          f"{why} at iteration {self.iteration} "
+                          f"({int(metrics.num_duplicates)} entries); "
+                          f"truncated updates kept "
+                          f"(overflow_exhausted={self.overflow_exhausted})",
+                          flush=True)
+                    break
+                attempts += 1
+                metrics = self._replay_window()
+            loss = float(metrics.loss)
+            if not math.isfinite(loss):
+                self._dump_debug(self._last_cam)
+                raise FloatingPointError(
+                    f"non-finite loss at iteration {self.iteration} (camera "
+                    f"{self._last_cam}); state snapshot written next to the "
+                    f"model")
+            # ref: train.py:142-148
+            self.ema_loss = 0.4 * loss + 0.6 * self.ema_loss
+            self._synced = self._last_metrics
+            self._take_snapshot()
 
     def _dump_debug(self, cam_idx: int):
         """Crash snapshot of the rasterizer inputs — the counterpart of the
@@ -701,33 +717,37 @@ class Trainer:
         output is a copy, as the JAX trainer jits ``_eval_render``. Under a
         mesh every process renders the same view, banded (K2 and K1 per
         band), and the graph holds the bands' collectives."""
-        bg = torch.full((3,), 1.0 if self.model_cfg.white_background else 0.0,
-                        device=self.device)
-        sh_deg = min(self.iteration // 1000, self.model_cfg.sh_degree)
-        kw = dict(active_sh_degree=self.model_cfg.sh_degree,
-                  antialiasing=self.pipe.antialiasing, alive=self.state.alive)
-        if self.mesh is not None:
-            if scaling_modifier != 1.0:
-                # every process renders the same view, banded; the
-                # reference's debug switches change no value and are not
-                # applied
-                raise ValueError("scaling_modifier is not supported under "
-                                 "a mesh")
-        else:
-            kw.update(scaling_modifier=scaling_modifier,
-                      convert_SHs_python=self.pipe.convert_SHs_python,
-                      compute_cov3D_python=self.pipe.compute_cov3D_python)
-        if self._eager_dispatch:
-            out, _ = render_grown(cam, mask_sh_rest(self.state.params, sh_deg),
-                                  bg, self.raster, mesh=self.mesh, **kw)
+        with spans.span("view", frame=True):
+            bg = torch.full((3,),
+                            1.0 if self.model_cfg.white_background else 0.0,
+                            device=self.device)
+            sh_deg = min(self.iteration // 1000, self.model_cfg.sh_degree)
+            kw = dict(active_sh_degree=self.model_cfg.sh_degree,
+                      antialiasing=self.pipe.antialiasing,
+                      alive=self.state.alive)
+            if self.mesh is not None:
+                if scaling_modifier != 1.0:
+                    # every process renders the same view, banded; the
+                    # reference's debug switches change no value and are not
+                    # applied
+                    raise ValueError("scaling_modifier is not supported under "
+                                     "a mesh")
+            else:
+                kw.update(scaling_modifier=scaling_modifier,
+                          convert_SHs_python=self.pipe.convert_SHs_python,
+                          compute_cov3D_python=self.pipe.compute_cov3D_python)
+            if self._eager_dispatch:
+                out, _ = render_grown(
+                    cam, mask_sh_rest(self.state.params, sh_deg), bg,
+                    self.raster, mesh=self.mesh, **kw)
+                return out
+            # the packed block itself (its ``params`` unpack anew at each
+            # access): the graph unpacks it, and masks, inside the view
+            src = (self.state.packed if isinstance(self.state, PackedState)
+                   else self.state.params)
+            out, _ = render_grown(cam, src, bg, self.raster, mesh=self.mesh,
+                                  graph=self.views, sh_degree=sh_deg, **kw)
             return out
-        # the packed block itself (its ``params`` unpack anew at each
-        # access): the graph unpacks it, and masks, inside the view
-        src = (self.state.packed if isinstance(self.state, PackedState)
-               else self.state.params)
-        out, _ = render_grown(cam, src, bg, self.raster, mesh=self.mesh,
-                              graph=self.views, sh_degree=sh_deg, **kw)
-        return out
 
     @torch.no_grad()
     def evaluate(self, cams: Sequence[LoadedCamera],
@@ -774,38 +794,39 @@ class Trainer:
         between blocks (the reference drains its socket every iteration,
         ref: train.py:72-86).
         """
-        end = iterations if iterations is not None else self.opt.iterations
-        events = sorted(set(test_iterations) | set(boundary_iterations))
         t0 = time.perf_counter()
-        while self.iteration < end:
-            if block_scan:
-                nb = self._next_boundary(self.iteration, end, extra=events)
-                if block_cap is not None:
-                    cap = block_cap()
-                    if cap:
-                        nb = min(nb, self.iteration + max(int(cap), 1))
-                self.run_block(nb - self.iteration)
-                i = self.iteration
-                self._apply_schedule(i)
-                self.sync_metrics()
-                if on_step is not None:
-                    on_step(i, self._last_metrics, self)
-            else:
-                metrics = self.step()
-                i = self.iteration
-                if on_step is not None and i % log_every == 0:
-                    on_step(i, metrics, self)
-            if i in test_iterations:
-                self.sync_metrics()   # replay any overflow before scoring
-                report = {
-                    "test": self.evaluate(self.test_cams),
-                    "train_sample": self.evaluate(self.train_cams[:5]),
-                }
-                if on_test is not None:
-                    on_test(i, report, self)
+        with spans.span("train", unit=self.iteration + 1):
+            end = iterations if iterations is not None else self.opt.iterations
+            events = sorted(set(test_iterations) | set(boundary_iterations))
+            while self.iteration < end:
+                if block_scan:
+                    nb = self._next_boundary(self.iteration, end, extra=events)
+                    if block_cap is not None:
+                        cap = block_cap()
+                        if cap:
+                            nb = min(nb, self.iteration + max(int(cap), 1))
+                    self.run_block(nb - self.iteration)
+                    i = self.iteration
+                    self._apply_schedule(i)
+                    self.sync_metrics()
+                    if on_step is not None:
+                        on_step(i, self._last_metrics, self)
                 else:
-                    print(f"[ITER {i}] " + " ".join(
-                        f"{k}: psnr={v.get('psnr', float('nan')):.2f} "
-                        f"l1={v.get('l1', float('nan')):.4f}"
-                        for k, v in report.items() if v))
+                    metrics = self.step()
+                    i = self.iteration
+                    if on_step is not None and i % log_every == 0:
+                        on_step(i, metrics, self)
+                if i in test_iterations:
+                    self.sync_metrics()   # replay any overflow before scoring
+                    report = {
+                        "test": self.evaluate(self.test_cams),
+                        "train_sample": self.evaluate(self.train_cams[:5]),
+                    }
+                    if on_test is not None:
+                        on_test(i, report, self)
+                    else:
+                        print(f"[ITER {i}] " + " ".join(
+                            f"{k}: psnr={v.get('psnr', float('nan')):.2f} "
+                            f"l1={v.get('l1', float('nan')):.4f}"
+                            for k, v in report.items() if v))
         return time.perf_counter() - t0

@@ -27,6 +27,13 @@ basis, as the JAX step does, so the masked coefficients get exact zero
 gradients. The random background (``opt.random_background``) is drawn
 from the ``generator`` the caller passes, or given outright as ``bg``.
 Nothing in the step reads the device back: the metrics are 0-d tensors.
+
+The core stamps where its stages begin (``utils/spans.py``): ``preprocess``
+(one device; the banded render stamps its own), ``loss``, ``update``, and,
+in the backward, ``loss_bwd`` and ``preprocess_bwd`` by marks on the loss
+and on the screen-space means (the render marks ``raster_bwd``). Its
+callers open the step with ``step`` (the per-step wrapper here, the graphed
+runners' ``step_body``) and close it with ``end``.
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from ..ops.losses import l1_loss
 from ..ops.ssim import ssim
 from ..parallel.render_mc import render_multichip
 from ..render import render_projected
+from ..utils import spans
 from ..utils.schedules import expon_lr
 
 
@@ -161,11 +169,13 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
             ).requires_grad_(use_exposure)
 
         if mesh is not None:
+            # the stages of the banded render are stamped inside it
             out = render_multichip(
                 masked, cam, bg, mesh, alive=state.alive, mean2d_tap=tap,
                 packed_sh_degree=max_sh_degree if packed else None,
                 **mesh_kw)
         else:
+            spans.stage("preprocess", dev)
             if packed:
                 proj = preprocess_packed(
                     masked, cam, sh_degree=max_sh_degree,
@@ -175,10 +185,12 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
                 proj = preprocess(masked, cam, active_sh_degree=max_sh_degree,
                                   antialiasing=pipe.antialiasing,
                                   alive=state.alive)
-            proj = proj._replace(mean2d=proj.mean2d + tap)
+            proj = proj._replace(mean2d=spans.mark(
+                "preprocess_bwd", proj.mean2d + tap))
             out = render_projected(proj, width, height, bg,
                                    bf16_features=raster.bf16_features,
                                    **render_kw)
+        spans.stage("loss", dev)
         image = out.image
         if use_exposure:
             image = apply_exposure(image, exposure_row)
@@ -198,11 +210,13 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
             dl1 = torch.zeros((), device=dev)
 
         inputs = leaves + [tap] + ([exposure_row] if use_exposure else [])
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+        grads = torch.autograd.grad(spans.mark("loss_bwd", loss), inputs,
+                                    allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(inputs, grads)]
         tap_grad = grads[len(leaves)]
 
+        spans.stage("update", dev)
         with torch.no_grad():
             # densification statistics, while densification runs
             # (ref: train.py:157-160)
@@ -211,18 +225,16 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
                 state, tap_grad, stats_gate, width, height, out.radii,
                 scale=stats_scale, valid=valid, inplace=inplace)
             visible = out.visibility if use_sparse else None
-            # a profiler trace shows the update under this name
-            with torch.profiler.record_function("gs_tpu_torch.adam"):
-                if packed:
-                    # the xyz rows take the scheduled rate, by selection
-                    lr = torch.where(xyz_rows, sched[0], lr_fixed)
-                    state = adam_update_packed(state, grads[0], lr, visible,
-                                               valid=valid, inplace=inplace)
-                else:
-                    state = adam_update(
-                        state, GaussianParams(*grads[:len(leaves)]),
-                        lrs_fixed._replace(xyz=sched[0]), visible,
-                        valid=valid, inplace=inplace)
+            if packed:
+                # the xyz rows take the scheduled rate, by selection
+                lr = torch.where(xyz_rows, sched[0], lr_fixed)
+                state = adam_update_packed(state, grads[0], lr, visible,
+                                           valid=valid, inplace=inplace)
+            else:
+                state = adam_update(
+                    state, GaussianParams(*grads[:len(leaves)]),
+                    lrs_fixed._replace(xyz=sched[0]), visible,
+                    valid=valid, inplace=inplace)
             if use_exposure:
                 full = torch.zeros_like(state.exposure).index_copy_(
                     0, index, grads[-1][None])
@@ -256,12 +268,15 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
              generator: Optional[torch.Generator] = None):
         if bg is None and opt.random_background:
             bg = torch.rand(3, generator=generator, device=dev)
+        spans.stage("step", dev)
         sched = torch.from_numpy(schedule(iteration)[0]).to(
             dev, non_blocking=True)
-        return core(state, upload(cam_idx, torch.int64),
-                    upload(iteration, torch.int64), sched, gt_image,
-                    alpha_mask, invdepth_gt, depth_mask,
-                    upload(depth_ok, torch.float32), bg)
+        out = core(state, upload(cam_idx, torch.int64),
+                   upload(iteration, torch.int64), sched, gt_image,
+                   alpha_mask, invdepth_gt, depth_mask,
+                   upload(depth_ok, torch.float32), bg)
+        spans.stage("end", dev)
+        return out
 
     def schedule(iterations) -> np.ndarray:
         return schedule_table(opt, spatial_lr_scale,

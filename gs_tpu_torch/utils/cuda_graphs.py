@@ -10,7 +10,9 @@ body into a graph, with a memory pool of its own or one that several graphs
 share. The kernel wrappers' launch counters count Python calls, which a
 replay does not make: a capture keeps the launches it made (and takes them
 off the counters, since it ran no kernel) and :func:`replay` adds them
-again at every replay.
+again at every replay. The stage stamps the bodies make
+(``utils/spans.py``) are captured with them; their ring is made before the
+first capture.
 """
 from __future__ import annotations
 
@@ -54,6 +56,8 @@ def capture(device: torch.device, warm_up: Callable, body: Callable,
     ``ProcessGroup``'s ``graphs``, which ``close`` releases before the
     group is destroyed."""
     t0 = time.perf_counter()
+    from . import spans
+    spans.ring(device)       # the stage stamps' ring, made outside a capture
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):

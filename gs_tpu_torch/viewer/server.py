@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core.camera import Camera
+from ..utils import spans
 
 
 def _recv_exact(conn: socket.socket, n: int) -> bytes:
@@ -75,9 +76,16 @@ def decode_camera(message: dict, device="cuda") -> Optional[Camera]:
 def frame_bytes(image: torch.Tensor) -> bytes:
     """[3, H, W] float image -> H*W*3 RGB bytes by the JAX server's formula,
     ``(clip(img, 0, 1) * 255).astype(uint8)`` (truncating), computed on the
-    image's device."""
-    rgb = (torch.clamp(image, 0.0, 1.0) * 255).to(torch.uint8)
-    return rgb.permute(1, 2, 0).contiguous().cpu().numpy().tobytes()
+    image's device. Host spans (``utils/spans.py``): the conversion, the
+    readback (the wait for the device) and the copy into bytes."""
+    with spans.span("frame_bytes"):
+        with spans.span("frame_bytes.convert"):
+            rgb = (torch.clamp(image, 0.0, 1.0) * 255).to(torch.uint8)
+            rgb = rgb.permute(1, 2, 0).contiguous()
+        with spans.span("frame_bytes.readback"):
+            rgb = rgb.cpu()
+        with spans.span("frame_bytes.tobytes"):
+            return rgb.numpy().tobytes()
 
 
 class ViewerServer:
