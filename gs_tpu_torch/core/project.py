@@ -13,13 +13,36 @@ Behavioral spec (ref: gaussian_renderer/__init__.py:32-109):
 * radius = ceil(3 * sqrt(max eigenvalue)), eigen-discriminant clamped at 0.1
 * pixel coords: ((ndc + 1) * S - 1) / 2
 * SH -> RGB for the active degree with clamp at max(c + 0.5, 0)
+
+Over the packed block on a CUDA device (:func:`preprocess_packed` with no
+``override_color`` and no ``cov3d_precomp``; a block of SH degree above 3
+is refused there) one hand-written kernel pair runs it,
+``csrc/preprocess.cu``: a forward that reads each alive slot's rows and
+writes every ``Projected`` field, and a backward that recomputes from the
+block and writes every row of the block's gradient; the camera, the SH
+ramp's degree and the scaling modifier reach them as device tensors, so a
+graph replays them with new values. A ``torch.autograd.Function`` holds
+the two, and the
+wrappers :func:`preprocess_fwd` and :func:`preprocess_bwd` count their
+launches. The flat-channel PyTorch code below is the kernels' twin: it
+runs on the CPU and with either override, and the tests hold the kernels
+to it. The rules the pair keeps: FP32, the twin's operations in its order
+and rounding in the forward (so every output is the twin's bit for bit on
+the card), the twin's guards and clamps, and the twin's autograd gradient
+in the backward. Two things the twin computes and the kernels do not: a
+dead slot's float fields are zeros and carry no gradient (the twin
+computes them from the slot's rows; no consumer reads them, since the
+slot is invisible), and a column whose cotangents are all zero gets a zero
+gradient without reading its rows.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops import _cuda
 from .camera import Camera
 from .gaussians import GaussianParams, unpack_symmetric
 from .sh import eval_sh_channels
@@ -27,6 +50,9 @@ from .sh import eval_sh_channels
 NEAR_CULL_Z = 0.2
 LOWPASS = 0.3
 AA_DET_CLAMP = 0.000025
+# the camera's tensors, as the kernels take them
+CAMERA_TENSORS = ("world_view", "full_proj", "camera_center", "tan_fovx",
+                 "tan_fovy")
 
 
 class Projected(NamedTuple):
@@ -213,17 +239,65 @@ def preprocess(params: GaussianParams, camera: Camera, *,
 
 def preprocess_packed(packed: torch.Tensor, camera: Camera, *,
                       sh_degree: int, active_sh_degree: int,
-                      scaling_modifier: float = 1.0,
+                      scaling_modifier=1.0,
                       antialiasing: bool = False,
                       alive: Optional[torch.Tensor] = None,
                       override_color: Optional[torch.Tensor] = None,
-                      cov3d_precomp: Optional[torch.Tensor] = None
-                      ) -> Projected:
+                      cov3d_precomp: Optional[torch.Tensor] = None,
+                      mask_degree=None) -> Projected:
     """:func:`preprocess` over the channel-major packed block [R, C]
-    (``core/packed.py``), the training layout. One differentiable read of
-    every channel row feeds the same channel math, so the block's gradient
-    is one [R, C] stack, not a zero-filled tensor and an add per row."""
-    from .packed import all_channels
+    (``core/packed.py``), the training layout; ``packed`` may be a column
+    slice of a wider block. ``mask_degree`` (an int or a 0-d integer
+    tensor; None: no mask) applies the SH ramp: the coefficients above that
+    degree read as zero and get a zero gradient, as ``mask_sh_rows``
+    followed by the unmasked call gives. ``scaling_modifier`` may be a 0-d
+    tensor.
+
+    On a CUDA device with no override (:func:`uses_kernel`) it is the
+    kernel pair of ``csrc/preprocess.cu``; otherwise the twin,
+    :func:`preprocess_packed_plain`."""
+    if uses_kernel(packed.device, sh_degree, override_color, cov3d_precomp):
+        return _preprocess_kernel(packed, camera, sh_degree, active_sh_degree,
+                                  scaling_modifier, antialiasing, alive,
+                                  mask_degree)
+    return preprocess_packed_plain(
+        packed, camera, sh_degree=sh_degree,
+        active_sh_degree=active_sh_degree, scaling_modifier=scaling_modifier,
+        antialiasing=antialiasing, alive=alive, override_color=override_color,
+        cov3d_precomp=cov3d_precomp, mask_degree=mask_degree)
+
+
+def uses_kernel(device: torch.device, sh_degree: int, override_color=None,
+                cov3d_precomp=None) -> bool:
+    """Whether :func:`preprocess_packed` runs the kernel pair: on a CUDA
+    device with neither override. A block of an SH degree above the
+    kernels' on a CUDA device with no override is an error: the twin
+    would run there unseen."""
+    if (torch.device(device).type != "cuda" or override_color is not None
+            or cov3d_precomp is not None):
+        return False
+    if sh_degree > KERNEL_MAX_SH_DEGREE:
+        raise ValueError(
+            f"the preprocess kernels take SH degrees up to "
+            f"{KERNEL_MAX_SH_DEGREE}, not {sh_degree}, on a CUDA device")
+    return True
+
+
+def preprocess_packed_plain(packed: torch.Tensor, camera: Camera, *,
+                            sh_degree: int, active_sh_degree: int,
+                            scaling_modifier=1.0,
+                            antialiasing: bool = False,
+                            alive: Optional[torch.Tensor] = None,
+                            override_color: Optional[torch.Tensor] = None,
+                            cov3d_precomp: Optional[torch.Tensor] = None,
+                            mask_degree=None) -> Projected:
+    """The kernel pair's twin: ``mask_sh_rows`` (with ``mask_degree``),
+    then one differentiable read of every channel row feeding the same
+    channel math as :func:`preprocess`, so the block's gradient is one
+    [R, C] stack, not a zero-filled tensor and an add per row."""
+    from .packed import all_channels, layout, mask_sh_rows
+    if mask_degree is not None:
+        packed = mask_sh_rows(packed, layout(sh_degree), mask_degree)
     ch = all_channels(packed, sh_degree)
     coeffs = None
     if override_color is None:
@@ -234,6 +308,187 @@ def preprocess_packed(packed: torch.Tensor, camera: Camera, *,
         scaling_modifier=scaling_modifier, antialiasing=antialiasing,
         alive=alive, override_color=override_color,
         cov3d_precomp=cov3d_precomp)
+
+
+# ------------------------------------------------------------ the kernels
+
+KERNEL_SOURCE = "preprocess.cu"
+KERNEL_MAX_SH_DEGREE = 3
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the arguments the two entries share: the block, its stride and width, the
+# layout's and the evaluated SH degree, antialiasing, alive, the camera's
+# five tensors and its size, the mask degree, the scaling modifier
+_COMMON_ARGS = [_PTR, _LL, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
+                _PTR, _PTR, _INT, _INT, _PTR, _PTR]
+
+
+class _Static(NamedTuple):
+    """What a launch takes as plain values: fixed per capture."""
+    sh_degree: int
+    active_sh_degree: int
+    antialiasing: bool
+    width: int
+    height: int
+
+
+def _check_inputs(packed, cam_tensors, alive, mask, scale, st: _Static):
+    from .packed import layout
+    dev = packed.device
+    if dev.type != "cuda":
+        raise ValueError(f"the preprocess kernels run on cuda, not {dev}")
+    rows = layout(st.sh_degree).rows
+    if (packed.dtype != torch.float32 or packed.dim() != 2
+            or packed.shape[0] != rows or packed.stride(1) != 1):
+        raise ValueError(f"the block must be float32 [{rows}, C] with "
+                         f"contiguous rows, got {packed.dtype} "
+                         f"{tuple(packed.shape)} strides {packed.stride()}")
+    n = packed.shape[1]
+    if 3 * n >= 2 ** 31:
+        raise ValueError(f"{n} slots are out of the kernels' int32 range")
+    if not 0 <= st.active_sh_degree <= st.sh_degree <= KERNEL_MAX_SH_DEGREE:
+        raise ValueError(f"SH degrees {st.active_sh_degree} <= "
+                         f"{st.sh_degree} <= {KERNEL_MAX_SH_DEGREE} expected")
+    for name, t, numel in zip(CAMERA_TENSORS, cam_tensors, (16, 16, 3, 1, 1)):
+        if (t.dtype != torch.float32 or t.numel() != numel
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"camera {name} must be {numel} contiguous "
+                             f"float32 on {dev}")
+    if alive is not None and (alive.dtype != torch.bool
+                              or tuple(alive.shape) != (n,)
+                              or alive.device != dev
+                              or not alive.is_contiguous()):
+        raise ValueError(f"alive must be a contiguous bool [{n}] on {dev}")
+    for name, t, dtype in (("mask_degree", mask, torch.int64),
+                           ("scaling_modifier", scale, torch.float32)):
+        if (not isinstance(t, torch.Tensor) or t.dtype != dtype
+                or t.numel() != 1 or t.device != dev):
+            raise ValueError(f"{name} must be a 0-d {dtype} on {dev}")
+
+
+def _common_args(packed, cam_tensors, alive, mask, scale, st: _Static):
+    return [packed.data_ptr(), packed.stride(0), packed.shape[1],
+            st.sh_degree, st.active_sh_degree, int(st.antialiasing),
+            _ptr(alive), *[t.data_ptr() for t in cam_tensors], st.width,
+            st.height, mask.data_ptr(), scale.data_ptr()]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _device_scalar(x, dtype, device) -> torch.Tensor:
+    """``x`` (a number or a tensor of one element) as a 0-d ``dtype`` tensor
+    on ``device``; a number is filled there, which a graph captures."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype).reshape(())
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+def preprocess_fwd(packed, cam_tensors, alive, mask, scale,
+                   st: _Static) -> tuple:
+    """The forward kernel: the ``Projected`` fields of the block's columns
+    (mean2d, conic, depth, radius, rgb, opacity, visible, radius_cull), as
+    a tuple. ``cam_tensors``: the camera's ``CAMERA_TENSORS``; ``mask``
+    and ``scale``: the SH ramp's degree (int64) and the scaling modifier
+    (float32), 0-d tensors on the block's device."""
+    _check_inputs(packed, cam_tensors, alive, mask, scale, st)
+    n, dev = packed.shape[1], packed.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = (empty(n, 2), empty(n, 3), empty(n), empty(n, dtype=torch.int32),
+           empty(n, 3), empty(n), empty(n, dtype=torch.bool),
+           empty(n, 2, dtype=torch.int32))
+    if n == 0:
+        return out
+    fn = _cuda.function(KERNEL_SOURCE, "gs_preprocess_fwd",
+                        _COMMON_ARGS + [_PTR] * 8 + [_INT, _PTR])
+    err = fn(*_common_args(packed, cam_tensors, alive, mask, scale, st),
+             *[t.data_ptr() for t in out], dev.index, _cuda.stream_ptr(dev))
+    _cuda.check(KERNEL_SOURCE, err, "preprocess_fwd")
+    preprocess_fwd.launches += 1
+    return out
+
+
+preprocess_fwd.launches = 0
+
+
+def preprocess_bwd(packed, cam_tensors, alive, mask, scale, st: _Static,
+                   cotangents) -> torch.Tensor:
+    """The backward kernel: the [R, n] gradient of the block's columns
+    from the cotangents of (mean2d, conic, depth, rgb, opacity), each None
+    for zero; every row written, the padding and the masked rows 0."""
+    _check_inputs(packed, cam_tensors, alive, mask, scale, st)
+    n, dev = packed.shape[1], packed.device
+    grad = torch.empty((packed.shape[0], n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return grad
+    args = []
+    for name, g, width in zip(("mean2d", "conic", "depth", "rgb", "opacity"),
+                              cotangents, (2, 3, 0, 3, 0)):
+        if g is None:
+            args += [None, 0]
+            continue
+        shape = (n, width) if width else (n,)
+        if (tuple(g.shape) != shape or g.dtype != torch.float32
+                or g.device != dev):
+            raise ValueError(f"the {name} cotangent must be float32 "
+                             f"{list(shape)} on {dev}")
+        if width and g.stride(1) != 1:
+            g = g.contiguous()
+        args += [g.data_ptr(), g.stride(0)]
+    fn = _cuda.function(KERNEL_SOURCE, "gs_preprocess_bwd",
+                        _COMMON_ARGS + [_PTR, _LL] * 5 + [_PTR, _INT, _INT,
+                                                          _PTR])
+    err = fn(*_common_args(packed, cam_tensors, alive, mask, scale, st),
+             *args, grad.data_ptr(), grad.shape[0], dev.index,
+             _cuda.stream_ptr(dev))
+    _cuda.check(KERNEL_SOURCE, err, "preprocess_bwd")
+    preprocess_bwd.launches += 1
+    return grad
+
+
+preprocess_bwd.launches = 0
+
+
+class _PreprocessKernel(torch.autograd.Function):
+    """The kernel pair as one differentiable function of the block: the
+    forward saves only its inputs, the backward recomputes from them."""
+
+    @staticmethod
+    def forward(ctx, packed, world_view, full_proj, camera_center, tan_fovx,
+                tan_fovy, alive, mask, scale, st):
+        cam = (world_view, full_proj, camera_center, tan_fovx, tan_fovy)
+        out = preprocess_fwd(packed, cam, alive, mask, scale, st)
+        ctx.save_for_backward(packed, *cam, alive, mask, scale)
+        ctx.st = st
+        ctx.mark_non_differentiable(out[3], out[6], out[7])
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_mean2d, g_conic, g_depth, _radius, g_rgb, g_opacity,
+                 _visible, _radius_cull):
+        packed, *cam, alive, mask, scale = ctx.saved_tensors
+        grad = preprocess_bwd(packed, cam, alive, mask, scale, ctx.st,
+                              (g_mean2d, g_conic, g_depth, g_rgb, g_opacity))
+        return (grad,) + (None,) * 9
+
+
+def _preprocess_kernel(packed, camera: Camera, sh_degree, active_sh_degree,
+                       scaling_modifier, antialiasing, alive, mask_degree
+                       ) -> Projected:
+    mask = _device_scalar(sh_degree if mask_degree is None else mask_degree,
+                          torch.int64, packed.device)
+    scale = _device_scalar(scaling_modifier, torch.float32, packed.device)
+    st = _Static(int(sh_degree), int(active_sh_degree), bool(antialiasing),
+                 camera.width, camera.height)
+    cam = [getattr(camera, k).contiguous() for k in CAMERA_TENSORS]
+    out = _PreprocessKernel.apply(packed, *cam, alive, mask, scale, st)
+    return Projected(mean2d=out[0], conic=out[1], depth=out[2],
+                     radius=out[3], rgb=out[4], opacity=out[5],
+                     visible=out[6], radius_cull=out[7])
 
 
 def _preprocess_from_channels(camera: Camera, x, y, z, ls, quat, lop,

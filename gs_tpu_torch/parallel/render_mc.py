@@ -293,6 +293,7 @@ def render_multichip(params: GaussianParams, camera: Camera,
                      max_per_tile: int = 1024,
                      chunk: int = 64,
                      packed_sh_degree: Optional[int] = None,
+                     mask_degree=None,
                      visible_capacity: int = 0,
                      band_assign: str = "cost",
                      split_rows: int = 0,
@@ -317,8 +318,8 @@ def render_multichip(params: GaussianParams, camera: Camera,
     ``packed_sh_degree``: ``params`` is then the channel-major [R, C]
     block of that SH degree (``core/packed.py``), the local shards side by
     side on its column axis, and each shard's column slice goes through
-    ``preprocess_packed``. The SH ramp's mask (``mask_sh_rows``) is the
-    caller's, as ``mask_sh_rest`` is on the tree layout.
+    ``preprocess_packed``, with ``mask_degree`` as its SH ramp (on the
+    tree layout the mask, ``mask_sh_rest``, is the caller's).
     """
     k, nl = group.size, len(group.local)
     cap = params.shape[1] if packed_sh_degree is not None else params.capacity
@@ -340,7 +341,8 @@ def render_multichip(params: GaussianParams, camera: Camera,
                   alive=None if alive is None else alive[sl])
         if packed_sh_degree is not None:
             proj = preprocess_packed(params[:, sl], camera,
-                                     sh_degree=packed_sh_degree, **kw)
+                                     sh_degree=packed_sh_degree,
+                                     mask_degree=mask_degree, **kw)
         else:
             proj = preprocess(GaussianParams(*[t[sl] for t in params]),
                               camera, **kw)

@@ -25,7 +25,8 @@ as the JAX package jits its per-view render (``gs_tpu/train/loop.py:
 eagerly. ``render()`` itself stays eager, as the JAX package's is.
 
 The view's stage stamps (``utils/spans.py``): ``frame`` and ``end`` around
-the view graph's body, ``preprocess`` in ``render``, ``binning`` in
+the view graph's body, ``preprocess`` in ``render`` (or before a packed
+block's ``preprocess_packed``), ``binning`` in
 ``render_projected``, ``raster`` before K1 (``ops/rasterize.py``). Host
 spans: ``view`` around ``render_grown`` (a new frame each), with a view
 graph's ``view.load``, ``view.replay`` and ``view.copy_out``, and
@@ -45,7 +46,8 @@ import torch
 from .core.camera import Camera
 from .core.gaussians import GaussianParams, mask_sh_rest
 from .core.packed import degree_from_rows, unpack_params
-from .core.project import Projected, preprocess
+from .core.project import (CAMERA_TENSORS, Projected, preprocess,
+                           preprocess_packed)
 from .ops.binning import F32_EXACT, bin_gaussians
 from .ops.rasterize import rasterize
 from .ops.rasterize_plain import rasterize_binned, rasterize_depthwise
@@ -288,11 +290,6 @@ def render_projected(proj: Projected, width: int, height: int,
                         num_valid=nv)
 
 
-# the camera's tensors, a view graph's static inputs
-CAMERA_TENSORS = ("world_view", "full_proj", "camera_center", "tan_fovx",
-                  "tan_fovy")
-
-
 class _View:
     """One captured view: its static inputs, graph and outputs."""
 
@@ -321,6 +318,24 @@ class _View:
 
 # the views a ViewGraph keeps captured: the least recently used goes first
 MAX_VIEWS = 4
+# render()'s arguments that recompute a part of the preprocess outside it
+DEBUG_SWITCHES = ("convert_SHs_python", "compute_cov3D_python",
+                  "override_color")
+
+
+def _render_packed(v: _View, packed: torch.Tensor, alive,
+                   kwargs) -> RenderOutput:
+    """``render()`` of a packed block: ``preprocess_packed`` with the
+    view's SH degree as its ramp, then ``render_projected``."""
+    kw = {k: x for k, x in kwargs.items() if k not in DEBUG_SWITCHES}
+    spans.stage("preprocess", v.camera.device)
+    proj = preprocess_packed(
+        packed, v.camera, sh_degree=degree_from_rows(packed.shape[0]),
+        active_sh_degree=kw.pop("active_sh_degree"),
+        scaling_modifier=v.scaling_modifier,
+        antialiasing=kw.pop("antialiasing", False), alive=alive,
+        mask_degree=v.sh_degree)
+    return render_projected(proj, v.camera.width, v.camera.height, v.bg, **kw)
 
 
 class ViewGraph(GraphCache):
@@ -329,7 +344,8 @@ class ViewGraph(GraphCache):
     CLI's ``render_view``).
 
     A call renders ``params`` (a ``GaussianParams``, or a packed [R, C]
-    block, unpacked inside the view) with ``render()``'s arguments, or,
+    block, read by ``preprocess_packed`` as it is, or unpacked inside the
+    view for a debug switch) with ``render()``'s arguments, or,
     made with a ``mesh`` (a group of ``parallel/mesh.py``), the local
     shards with ``render_multichip``'s (``band_assign`` and
     ``visible_capacity`` among them; no ``scaling_modifier``). On
@@ -421,18 +437,29 @@ class ViewGraph(GraphCache):
 
     def _body(self, v: _View, params, alive, kwargs) -> RenderOutput:
         """The view: its ``frame`` stamp opens the stages that the render
-        stamps, and ``end`` closes them (``utils/spans.py``)."""
+        stamps, and ``end`` closes them (``utils/spans.py``). A packed
+        block goes to ``preprocess_packed`` as it is (under a mesh through
+        ``render_multichip``'s packed shards), the SH ramp applied there;
+        only the reference's debug switches, which recompute parts of the
+        preprocess on the tree layout, unpack it."""
         dev = v.camera.device
         spans.stage("frame", dev)
-        if isinstance(params, torch.Tensor):
+        packed = isinstance(params, torch.Tensor)
+        if packed and any(kwargs.get(k) for k in DEBUG_SWITCHES):
             params = unpack_params(params, degree_from_rows(params.shape[0]))
-        if v.sh_degree is not None:
+            packed = False
+        if v.sh_degree is not None and not packed:
             params = mask_sh_rest(params, v.sh_degree)
         with torch.no_grad():
             if self.mesh is not None:
                 from .parallel.render_mc import render_multichip
-                out = render_multichip(params, v.camera, v.bg, self.mesh,
-                                       alive=alive, **kwargs)
+                out = render_multichip(
+                    params, v.camera, v.bg, self.mesh, alive=alive,
+                    packed_sh_degree=(degree_from_rows(params.shape[0])
+                                      if packed else None),
+                    mask_degree=v.sh_degree if packed else None, **kwargs)
+            elif packed:
+                out = _render_packed(v, params, alive, kwargs)
             else:
                 out = render(v.camera, params, v.bg, alive=alive,
                              scaling_modifier=v.scaling_modifier, **kwargs)

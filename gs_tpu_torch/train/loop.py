@@ -742,7 +742,7 @@ class Trainer:
                     self.raster, mesh=self.mesh, **kw)
                 return out
             # the packed block itself (its ``params`` unpack anew at each
-            # access): the graph unpacks it, and masks, inside the view
+            # access): the view's preprocess reads it and applies the ramp
             src = (self.state.packed if isinstance(self.state, PackedState)
                    else self.state.params)
             out, _ = render_grown(cam, src, bg, self.raster, mesh=self.mesh,

@@ -24,8 +24,10 @@ camera index as Python ints and uploads them with the step's schedule row.
 
 The SH ramp masks the inactive coefficients to zero and evaluates the full
 basis, as the JAX step does, so the masked coefficients get exact zero
-gradients. The random background (``opt.random_background``) is drawn
-from the ``generator`` the caller passes, or given outright as ``bg``.
+gradients: ``mask_sh_rest`` on the tree layout, ``preprocess_packed``'s
+``mask_degree`` on the packed one (inside the kernel pair on CUDA). The
+random background (``opt.random_background``) is drawn from the
+``generator`` the caller passes, or given outright as ``bg``.
 Nothing in the step reads the device back: the metrics are 0-d tensors.
 
 The core stamps where its stages begin (``utils/spans.py``): ``preprocess``
@@ -45,8 +47,7 @@ import torch
 from ..config import ModelConfig, OptimizationConfig, PipelineConfig, RasterConfig
 from ..core.camera import CameraBatch
 from ..core.gaussians import GaussianParams, mask_sh_rest
-from ..core.packed import (layout as packed_layout, mask_sh_rows,
-                           sh_band_index)
+from ..core.packed import layout as packed_layout
 from ..core.project import preprocess, preprocess_packed
 from ..models.gaussian_model import (TrainState, adam_update,
                                      add_densification_stats, exposure_lr,
@@ -139,7 +140,6 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
                                dtype=torch.float32, device=dev)
     lrs_fixed = group_lrs(opt, 0, spatial_lr_scale)
     if packed:
-        band_index = torch.from_numpy(sh_band_index(lay)).to(dev)
         lr_fixed = group_lr_rows(lay, opt, 0, spatial_lr_scale, device=dev)
         xyz_rows = (torch.arange(lay.rows, device=dev) < lay.xyz + 3)[:, None]
 
@@ -158,12 +158,12 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
             bg = bg_static
 
         if packed:
+            # the SH ramp is preprocess_packed's mask_degree
             leaves = [state.packed.detach().requires_grad_(True)]
-            masked = mask_sh_rows(leaves[0], lay, active_sh_degree,
-                                  band_index)
+            params = leaves[0]
         else:
             leaves = [t.detach().requires_grad_(True) for t in state.params]
-            masked = mask_sh_rest(GaussianParams(*leaves), active_sh_degree)
+            params = mask_sh_rest(GaussianParams(*leaves), active_sh_degree)
         tap = torch.zeros((state.capacity, 2), device=dev, requires_grad=True)
         exposure_row = state.exposure.index_select(0, index)[0].detach(
             ).requires_grad_(use_exposure)
@@ -171,18 +171,19 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
         if mesh is not None:
             # the stages of the banded render are stamped inside it
             out = render_multichip(
-                masked, cam, bg, mesh, alive=state.alive, mean2d_tap=tap,
+                params, cam, bg, mesh, alive=state.alive, mean2d_tap=tap,
                 packed_sh_degree=max_sh_degree if packed else None,
-                **mesh_kw)
+                mask_degree=active_sh_degree if packed else None, **mesh_kw)
         else:
             spans.stage("preprocess", dev)
             if packed:
                 proj = preprocess_packed(
-                    masked, cam, sh_degree=max_sh_degree,
+                    params, cam, sh_degree=max_sh_degree,
                     active_sh_degree=max_sh_degree,
-                    antialiasing=pipe.antialiasing, alive=state.alive)
+                    antialiasing=pipe.antialiasing, alive=state.alive,
+                    mask_degree=active_sh_degree)
             else:
-                proj = preprocess(masked, cam, active_sh_degree=max_sh_degree,
+                proj = preprocess(params, cam, active_sh_degree=max_sh_degree,
                                   antialiasing=pipe.antialiasing,
                                   alive=state.alive)
             proj = proj._replace(mean2d=spans.mark(

@@ -24,13 +24,15 @@ import torch
 
 
 def launch_counters() -> tuple:
-    """The kernel wrappers whose ``launches`` count their launches."""
+    """The kernel wrappers whose ``launches`` count their launches: K2,
+    K1, K1g, K3, K4, then the preprocess's forward and backward."""
+    from ..core.project import preprocess_bwd, preprocess_fwd
     from ..ops.expand import expand_rows
     from ..ops.fold import fold_rows
     from ..ops.rasterize import (raster_tiles_bwd, raster_tiles_fwd,
                                  raster_tiles_fwd_save)
     return (expand_rows, raster_tiles_fwd, raster_tiles_fwd_save,
-            raster_tiles_bwd, fold_rows)
+            raster_tiles_bwd, fold_rows, preprocess_fwd, preprocess_bwd)
 
 
 class Capture(NamedTuple):

@@ -24,7 +24,7 @@ use) runs the per-step wrapper of ``train/step.py``.
   ``Trainer(mesh=LocalGroup(2))`` by tests/test_torch_mesh_block.py's.
 * On the card (``cuda``, skipped here): the graphed step mode bitwise the
   eager step mode through the same schedule, one capture per step built
-  and K2, K1g, K3 and K4 once per replay; the metrics of a step unchanged
+  and K2, K1g, K3, K4 and the preprocess pair once per replay; the metrics of a step unchanged
   after the next replay.
 """
 import math
@@ -232,8 +232,8 @@ def cuda_device():
 @pytest.mark.cuda
 def test_graphed_step_mode_equals_eager_step_mode(cuda_device):
     """Through an overflow replay, an opacity reset and a densify, with a
-    random background: bitwise, and each replay launches K2, K1g, K3 and
-    K4 once."""
+    random background: bitwise, and each replay launches K2, K1g, K3, K4
+    and the preprocess pair once."""
     runs = {}
     for eager in (True, False):
         tr = trainer(cuda_device, eager=eager, dup_capacity=64,
@@ -250,7 +250,7 @@ def test_graphed_step_mode_equals_eager_step_mode(cuda_device):
         graph._dispatch_step()
     torch.cuda.synchronize()
     assert [(f.launches - n) / 3 for f, n in zip(counters, before)] \
-        == [1, 0, 1, 1, 1]
+        == [1, 0, 1, 1, 1, 1, 1]
 
 
 @pytest.mark.cuda
