@@ -18,7 +18,7 @@
 #define GS_STAGES(X)                                                        \
   X(step) X(preprocess) X(binning) X(raster) X(loss) X(loss_bwd)            \
   X(raster_bwd) X(preprocess_bwd) X(update) X(end) X(frame) X(exchange)     \
-  X(exchange_bwd) X(densify) X(reset_opacity)
+  X(exchange_bwd) X(densify) X(reset_opacity) X(depth) X(exposure)
 
 namespace {
 

@@ -31,11 +31,15 @@ random background (``opt.random_background``) is drawn from the
 Nothing in the step reads the device back: the metrics are 0-d tensors.
 
 The core stamps where its stages begin (``utils/spans.py``): ``preprocess``
-(one device; the banded render stamps its own), ``loss``, ``update``, and,
-in the backward, ``loss_bwd`` and ``preprocess_bwd`` by marks on the loss
-and on the screen-space means (the render marks ``raster_bwd``). Its
-callers open the step with ``step`` (the per-step wrapper here, the graphed
-runners' ``step_body``) and close it with ``end``.
+(one device; the banded render stamps its own), ``loss``, ``depth`` (the
+depth-L1 term, only with a depth prior), ``update``, ``exposure`` (the
+exposure's Adam, only under ``train_test_exp``), and, in the backward,
+``loss_bwd`` and ``preprocess_bwd`` by marks on the loss and on the
+screen-space means (the render marks ``raster_bwd``). Under
+``sparse_adam`` it writes the counter ``adam_columns``: the columns the
+masked Adam writes. Its callers open the step with ``step`` (the per-step
+wrapper here, the graphed runners' ``step_body``) and close it with
+``end``.
 """
 from __future__ import annotations
 
@@ -203,6 +207,7 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
 
         # depth regularization (ref: train.py:124-135)
         if invdepth_gt is not None:
+            spans.stage("depth", dev)
             dl1_pure = torch.mean(torch.abs((out.invdepth[0] - invdepth_gt)
                                             * depth_mask))
             dl1 = sched[2] * dl1_pure * depth_ok
@@ -226,6 +231,12 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
                 state, tap_grad, stats_gate, width, height, out.radii,
                 scale=stats_scale, valid=valid, inplace=inplace)
             visible = out.visibility if use_sparse else None
+            banded = out.band_visible is not None
+            n_vis = (torch.sum(out.visibility) if use_sparse or not banded
+                     else None)
+            if use_sparse:
+                written = n_vis if valid is None else n_vis * valid
+                spans.count("adam_columns", written.reshape(1))
             if packed:
                 # the xyz rows take the scheduled rate, by selection
                 lr = torch.where(xyz_rows, sched[0], lr_fixed)
@@ -237,18 +248,17 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
                     lrs_fixed._replace(xyz=sched[0]), visible,
                     valid=valid, inplace=inplace)
             if use_exposure:
+                spans.stage("exposure", dev)
                 full = torch.zeros_like(state.exposure).index_copy_(
                     0, index, grads[-1][None])
                 state = exposure_update(state, full, opt, iteration,
                                         valid=valid, lr=sched[1],
                                         inplace=inplace)
-            banded = out.band_visible is not None
             metrics = StepMetrics(
                 loss=loss.detach(), l1=ll1.detach(), ssim=ssim_v.detach(),
                 depth_l1=dl1.detach(), num_duplicates=out.num_duplicates,
                 max_tile_len=out.max_tile_len, overflow=out.overflow,
-                n_visible=(out.band_visible.sum() if banded
-                           else torch.sum(out.visibility)),
+                n_visible=out.band_visible.sum() if banded else n_vis,
                 max_band_visible=(out.band_visible.max() if banded
                                   else None),
                 max_band_duplicates=(out.band_duplicates.max() if banded

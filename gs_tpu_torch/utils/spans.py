@@ -26,7 +26,9 @@ returns each stage's ms of the last units.
 **Counters.** :func:`count` writes a device vector of int64 values into the
 same ring, as entries tagged with the counter and the value's index, with no
 readback (``parallel/render_mc.py`` writes ``band_work``, every band's
-composited entries, once a step); :func:`counter` reads them back, one
+composited entries, once a step; ``train/step.py`` writes
+``adam_columns``, the columns the sparse Adam writes, once a step under
+``optimizer_type="sparse_adam"``); :func:`counter` reads them back, one
 vector a unit.
 
 **Host spans.** :class:`span` is a context manager that keeps, in a bounded
@@ -56,9 +58,10 @@ import torch
 # the stages, in the order of their ids (csrc/stage.cu's GS_STAGES)
 STAGES = ("step", "preprocess", "binning", "raster", "loss", "loss_bwd",
           "raster_bwd", "preprocess_bwd", "update", "end", "frame",
-          "exchange", "exchange_bwd", "densify", "reset_opacity")
+          "exchange", "exchange_bwd", "densify", "reset_opacity", "depth",
+          "exposure")
 OPENERS = ("step", "frame", "densify", "reset_opacity")
-COUNTERS = ("band_work",)
+COUNTERS = ("band_work", "adam_columns")
 # a counter's entries are tagged COUNTER_BASE + counter * COUNTER_SPAN + i
 COUNTER_BASE = 1 << 20
 COUNTER_SPAN = 1 << 16
