@@ -60,7 +60,10 @@ Phases (each failure exits non-zero):
     fields (ints equal, floats within 1e-6, how many bitwise), the
     backward's gradient within 2e-4 of each row group's largest and
     bitwise from run to run, each kernel's and the twin's ms by CUDA
-    events against the bytes bound, registers and spills;
+    events against the bytes bound, registers and spills; [adam]: Adam's
+    kernel (csrc/adam.cu) against its twin at 4,194,304 slots, bitwise,
+    dense and column-masked, in place and not, ``valid`` False; its ms and
+    the twin's by CUDA events against the bytes bound;
  8. [train] 8 steps of the bench training configuration (bench.py's train
     probe: OptimizationConfig(iterations=30000), L1 + SSIM, Adam, a zero
     ground truth) through gs_tpu_torch.train.step.make_train_step after 2
@@ -1107,6 +1110,98 @@ def preprocess_phase(torch, dev):
             "bwd_launches": project.preprocess_bwd.launches - n0[1]}
 
 
+ADAM_SLOTS = 4_194_304
+
+
+def adam_phase(torch, dev):
+    """[adam]: the kernel of csrc/adam.cu against its twin
+    (models/packed_state.py::adam_update_packed_plain) at ADAM_SLOTS slots
+    of SH degree 3, from seeded parameters, moments and gradient at Adam's
+    step 20,000: every output bitwise the twin's, dense and column-masked
+    (about half the columns), out of place and in place, and with ``valid``
+    False; the in-place kernel's time by CUDA events, dense and masked,
+    against the twin's and the bytes bound (7 x 4 B x R x C); the kernel's
+    registers. Returns the numbers."""
+    from gs_tpu_torch.config import OptimizationConfig
+    from gs_tpu_torch.core import packed as pk
+    from gs_tpu_torch.models import packed_state as P
+    from gs_tpu_torch.ops import _cuda
+    from gs_tpu_torch.ops import adam as A
+    lay, c = pk.layout(3), ADAM_SLOTS
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def randn(scale):
+        return torch.randn((lay.rows, c), generator=g, device=dev) * scale
+
+    zeros = torch.zeros(c, device=dev)
+    ps = P.PackedState(
+        packed=randn(1.0), alive=torch.ones(c, dtype=torch.bool, device=dev),
+        m=randn(1e-4), v=randn(1e-4) ** 2,
+        step=torch.tensor(20_000, dtype=torch.int32, device=dev),
+        grad_accum=zeros, denom=zeros,
+        max_radii2D=zeros.to(torch.int32),
+        exposure=torch.zeros((1, 3, 4), device=dev),
+        exp_m=torch.zeros((1, 3, 4), device=dev),
+        exp_v=torch.zeros((1, 3, 4), device=dev),
+        exp_step=torch.zeros((), dtype=torch.int32, device=dev))
+    grad = randn(1e-4)
+    lr = P.group_lr_rows(lay, OptimizationConfig(), 20_001, 1.0, device=dev)
+    half = torch.rand(c, generator=g, device=dev) < 0.535
+    n0 = A.adam_packed.launches
+
+    def bitwise(a, b):
+        return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in ((a.packed, b.packed), (a.m, b.m),
+                                (a.v, b.v))) and torch.equal(a.step, b.step)
+
+    def fresh():
+        return ps._replace(packed=ps.packed.clone(), m=ps.m.clone(),
+                           v=ps.v.clone(), step=ps.step.clone())
+
+    for mask in (None, half):
+        want = P.adam_update_packed_plain(ps, grad, lr, mask)
+        got = P.adam_update_packed(ps, grad, lr, mask)
+        inplace = P.adam_update_packed(fresh(), grad, lr, mask, inplace=True)
+        what = "dense" if mask is None else "masked"
+        check(bitwise(got, want), f"[adam] {what}: kernel != twin")
+        check(bitwise(inplace, want), f"[adam] {what} in place: kernel != twin")
+        del want, got, inplace
+    off = torch.tensor(False, device=dev)
+    got = P.adam_update_packed(ps, grad, lr, half, valid=off)
+    check(bitwise(got, ps), "[adam] valid False changed the state")
+    del got
+    work = fresh()
+    dense_ms = time_ms(torch, lambda: P.adam_update_packed(
+        work, grad, lr, inplace=True), 20)
+    masked_ms = time_ms(torch, lambda: P.adam_update_packed(
+        work, grad, lr, half, inplace=True), 20)
+    twin_ms = time_ms(torch, lambda: P.adam_update_packed_plain(
+        work, grad, lr, inplace=True), 5)
+    twin_masked_ms = time_ms(torch, lambda: P.adam_update_packed_plain(
+        work, grad, lr, half, inplace=True), 5)
+    work_bytes = 7 * 4 * lay.rows * c
+    bound = work_bytes / HBM_BYTES_PER_S * 1e3
+    attrs = (ctypes.c_int * 5)()
+    fn = _cuda.function(A.SOURCE, "gs_adam_packed_attributes",
+                        [ctypes.c_int, ctypes.c_void_p])
+    _cuda.check(A.SOURCE, fn(dev.index or 0, ctypes.addressof(attrs)),
+                "attributes")
+    a = list(attrs)
+    print(f"[adam] {c} slots, SH 3: the kernel bitwise the twin, dense and "
+          f"masked ({int(half.sum())} columns), out of place and in place; "
+          f"valid False leaves the state", flush=True)
+    print(f"[adam] in place: dense kernel {dense_ms:.4f} ms, masked "
+          f"{masked_ms:.4f} ms; twin dense {twin_ms:.4f} ms, masked "
+          f"{twin_masked_ms:.4f} ms; bound {bound:.4f} ms ({work_bytes} "
+          f"bytes; dense {bound / dense_ms:.1%}, masked "
+          f"{bound / masked_ms:.1%}); {a[0]} registers, {a[2]} B spills, "
+          f"{a[3]} CTAs of {a[4]} per SM", flush=True)
+    del work, ps, grad
+    return {"dense_ms": dense_ms, "masked_ms": masked_ms, "twin_ms": twin_ms,
+            "twin_masked_ms": twin_masked_ms, "bound_ms": bound,
+            "launches": A.adam_packed.launches - n0}
+
+
 TRAINER_ITERS = 300
 TRAINER_DUP = 262_144          # far below the ~3 M entries a view needs
 STEADY = (251, 299)            # no densify, sync or eval in 252..299
@@ -1203,6 +1298,17 @@ def probe_trainer(torch, counters, steady=STEADY, capture_at=None):
     finally:
         for k, f in orig.items():
             setattr(T, k, f)
+
+
+def adam_per_step(launches, tag, steps, shards):
+    """Adam's kernel once a packed training step or replay, over the
+    process's ``shards`` shards in one pass: at least ``steps`` launches,
+    and one for each ``shards`` launches of the preprocess backward (one a
+    shard a step)."""
+    check(launches["ADAM"] >= steps
+          and launches["ADAM"] * shards == launches["PRE_bwd"],
+          f"{tag} Adam launches {launches['ADAM']}, preprocess backward "
+          f"{launches['PRE_bwd']} over {shards} shards, {steps} steps")
 
 
 def steady_window(rec, counters, steady=STEADY):
@@ -1394,6 +1500,7 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
     from gs_tpu_torch.core.sh import sh2rgb
     from gs_tpu_torch.data.camera_utils import LoadedCamera
     from gs_tpu_torch.data.dataset_readers import CameraInfo
+    from gs_tpu_torch.ops.adam import adam_packed
     from gs_tpu_torch.ops.expand import expand_rows
     from gs_tpu_torch.ops.fold import fold_rows
     from gs_tpu_torch.ops.rasterize import (raster_tiles_bwd,
@@ -1406,7 +1513,7 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
 
     counters = {"K2": expand_rows, "K1": raster_tiles_fwd,
                 "K1g": raster_tiles_fwd_save, "K3": raster_tiles_bwd,
-                "K4": fold_rows}
+                "K4": fold_rows, "ADAM": adam_packed}
 
     def counts():
         return {k: c.launches for k, c in counters.items()}
@@ -1481,7 +1588,7 @@ def trainer_phase(torch, dev, pts, cols, p0, alive0, bare_step_ms, mid):
     check(rec["replay"] and trainer.raster.dup_capacity > TRAINER_DUP,
           "[trainer] no overflow replay")
     check(trainer.overflow_exhausted == 0, "[trainer] replay exhausted")
-    check(all(per_it[k] == 1 for k in ("K1g", "K2", "K3", "K4"))
+    check(all(per_it[k] == 1 for k in ("K1g", "K2", "K3", "K4", "ADAM"))
           and per_it["K1"] == 0, f"[trainer] launches per iteration {per_it}")
 
     # the bare step at the trainer's own shapes, and one profiled iteration
@@ -2013,8 +2120,8 @@ def viewer_phase(torch, dev, root, dup, steady_ms, counters):
             + views, "K1g": VIEWER_ITERS + steps,
             "K3": VIEWER_ITERS + steps, "K4": VIEWER_ITERS + steps}
     # the preprocess forward with each K2 (a step's or a view's of the
-    # packed block), its backward with each K3
-    want.update(PRE=want["K2"], PRE_bwd=want["K3"])
+    # packed block), its backward and Adam with each K3
+    want.update(PRE=want["K2"], PRE_bwd=want["K3"], ADAM=want["K3"])
     check(launches == want, f"[viewer] launches {launches}, want {want}")
     ms = client["ms"]
     idle = rec["idle"]
@@ -2083,7 +2190,8 @@ def viewer_phase(torch, dev, root, dup, steady_ms, counters):
     direct = frame_bytes(trainer.render_view(cams[0]).image)
     check("img" in got and got["img"].tobytes() == direct,
           "[viewer] a frame over the wire != Trainer.render_view, bitwise")
-    check(after["K2"] == after["K1"] == 1, f"[viewer] one frame {after}")
+    check(after["K2"] == after["K1"] == 1 and after["ADAM"] == 0,
+          f"[viewer] one frame {after}")
     print(f"[viewer] a poll (mean of 1000): with no client {poll_us:.3f} "
           f"us, with the client attached and idle {idle_poll_us:.3f} us; "
           f"after training, a frame over the wire equals Trainer.render_view "
@@ -2339,7 +2447,7 @@ def live_phase(torch, dev, tmpdir, frames, cams, dup, steady_ms, counters):
           f"[live] test PSNR did not rise: {rec['evals']}")
     check(any(d["n_cloned"] + d["n_split"] > 0 for d in rec["densify"]),
           "[live] densify neither cloned nor split")
-    check(all(per_it[k] == 1 for k in ("K1g", "K2", "K3", "K4"))
+    check(all(per_it[k] == 1 for k in ("K1g", "K2", "K3", "K4", "ADAM"))
           and per_it["K1"] == 0, f"[live] launches per iteration {per_it}")
     print(f"[live] {len(trainer.train_cams)} train and "
           f"{len(trainer.test_cams)} test cameras, each world_view its "
@@ -2965,7 +3073,8 @@ def mesh_step_phase(torch, dev, p0, alive0, bench_camera, counters):
     launches = {k: c.launches for k, c in counters.items()}
     check(not bool(m4.overflow), "[mesh step] overflow")
     check(all(launches[k] == MESH_K for k in ("K2", "K1g", "K3", "K4"))
-          and launches["K1"] == 0, f"[mesh step] launches {launches}")
+          and launches["K1"] == launches["ADAM"] == 0,
+          f"[mesh step] launches {launches}")
     l1, l4 = float(m1.loss), float(m4.loss)
     check(abs(l1 - l4) <= 1e-6 * abs(l1), f"[mesh step] loss {l4} != {l1}")
     worst = 0.0
@@ -3092,6 +3201,7 @@ def mesh_trainer_phase(torch, dev, root, dup, counters):
     check(all(launches[k] >= MESH_K * MESH_ITERS
               for k in ("K2", "K1g", "K3", "K4")) and launches["K1"] > 0,
           f"[mesh trainer] launches {launches}")
+    adam_per_step(launches, "[mesh trainer]", MESH_ITERS, MESH_K)
     check(torch.equal(mesh.state.alive, one.state.alive),
           f"[mesh trainer] alive masks differ in "
           f"{int((mesh.state.alive != one.state.alive).sum())} slots")
@@ -3300,6 +3410,8 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
         check(all(launches[k] >= MESH_K * MESH_GRAPH_ITERS
                   for k in ("K2", "K1g", "K3", "K4") + PRE_IDS),
               f"[mesh graph trainer] {mode}: launches {launches}")
+        adam_per_step(launches, f"[mesh graph trainer] {mode}:",
+                      MESH_GRAPH_ITERS, MESH_K)
         if mode == "step":
             check(not tr.captures, "[mesh graph trainer] the eager step "
                   "mode captured")
@@ -3336,10 +3448,12 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t1) / n
         per_it = {k: (c.launches - c0[k]) / n for k, c in counters.items()}
-        # the preprocess pair once a shard an iteration
-        check(all(per_it[k] == MESH_K for k in PRE_IDS),
+        # the preprocess pair once a shard an iteration, Adam once over the
+        # shards
+        check(all(per_it[k] == MESH_K for k in PRE_IDS)
+              and per_it["ADAM"] == 1,
               f"[mesh graph trainer] {mode}: launches per iteration "
-              f"{per_it}, want {MESH_K} of each of {PRE_IDS}")
+              f"{per_it}, want {MESH_K} of each of {PRE_IDS} and 1 ADAM")
         # and one more, profiled
         busy, n_k = (x / n for x in busy_per_call(torch, block))
         print(f"[mesh graph trainer] {mode}: {MESH_GRAPH_ITERS} iterations "
@@ -3428,8 +3542,10 @@ def packed_step_phase(torch, dev, p0, alive0, bench_camera, counters):
     group's largest: Adam's normalised step turns a rounding's sign flip of
     a near-zero gradient (a nearly isotropic Gaussian's quaternion) into a
     whole learning rate. No overflow, K1g, K2, K3 and K4, the preprocess
-    forward and backward once per packed step; every launch of one more
-    packed step against its plain version on its inputs. Reports ms
+    forward and backward and Adam's kernel once per packed step; every
+    launch of one more packed step against its plain version on its inputs,
+    Adam's kernel bitwise its twin on the last packed state, dense and
+    column-masked (the alive slots), with a seeded gradient. Reports ms
     per step (host, median), the device's busy time (median of
     PROFILED_STEPS profiled steps), the launches per step and the
     PROFILE_ROWS of both layouts. Returns the packed launches and each
@@ -3437,8 +3553,12 @@ def packed_step_phase(torch, dev, p0, alive0, bench_camera, counters):
     from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
                                      PipelineConfig, RasterConfig)
     from gs_tpu_torch.core.camera import stack_cameras
+    from gs_tpu_torch.core.packed import layout
     from gs_tpu_torch.models.gaussian_model import init_state
-    from gs_tpu_torch.models.packed_state import pack_state, unpack_state
+    from gs_tpu_torch.models.packed_state import (adam_update_packed,
+                                                  adam_update_packed_plain,
+                                                  group_lr_rows, pack_state,
+                                                  unpack_state)
     from gs_tpu_torch.train.step import make_train_step
 
     opt = OptimizationConfig(iterations=30_000)
@@ -3480,8 +3600,23 @@ def packed_step_phase(torch, dev, p0, alive0, bench_camera, counters):
             check(abs(a - b) <= 1e-5 * abs(b),
                   f"[packed step] {name} loss {a} != {b}")
     check(all(launches[k] == TRAIN_STEPS for k in ("K1g", "K2", "K3", "K4")
-              + PRE_IDS) and launches["K1"] == 0,
+              + PRE_IDS + ("ADAM",)) and launches["K1"] == 0,
           f"[packed step] launches {launches}")
+    ps = states["packed"]
+    adam_grad = 1e-4 * torch.randn(ps.packed.shape, device=dev,
+                                   generator=torch.Generator(
+                                       device=dev).manual_seed(21))
+    adam_lr = group_lr_rows(layout(3), opt, TRAIN_STEPS + 1, 1.0, device=dev)
+    for mask in (None, ps.alive):
+        got = adam_update_packed(ps, adam_grad, adam_lr, mask)
+        want = adam_update_packed_plain(ps, adam_grad, adam_lr, mask)
+        check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                  for x, y in ((got.packed, want.packed), (got.m, want.m),
+                               (got.v, want.v)))
+              and torch.equal(got.step, want.step),
+              f"[packed step] Adam's kernel != its twin "
+              f"({'dense' if mask is None else 'masked'})")
+    del got, want, adam_grad
 
     def excess(got, ref, tag, skip=()):
         """The worst |got - ref| - 1e-3 |ref| per leaf; the rule checked
@@ -3548,7 +3683,8 @@ def packed_step_phase(torch, dev, p0, alive0, bench_camera, counters):
           + f" (quat: {int(beyond.sum())} of {beyond.numel()} entries beyond "
           f"the rule, each where the tree's first moment is at most "
           f"{m_share:.3e} of its largest, rule < {QUAT_M_SHARE})"
-          + f"; packed launches {launches}", flush=True)
+          + f"; packed launches {launches}; Adam's kernel bitwise its twin "
+          f"on the last packed state, dense and masked", flush=True)
     for name in ("tree", "packed"):
         busy, n_launch, rows = prof[name]
         print(f"[packed step] {name}: ms per step (host clock, synchronised, "
@@ -3714,7 +3850,7 @@ def bf16_serve_phase(torch, dev, params, alive, bg, bench_camera, kw,
         check(max(worst.values()) <= 1e-2 and worst["image"] > 0,
               f"[bf16 serve] bf16 frames vs f32: {worst}")
         check(launches["K2"] == launches["K1"] == FRAMES
-              and launches["K1g"] == launches["K3"] == 0,
+              and launches["K1g"] == launches["K3"] == launches["ADAM"] == 0,
               f"[bf16 serve] launches {launches}")
         del out
         cam = bench_camera(0)
@@ -3857,7 +3993,8 @@ def packed_trainer_phase(torch, dev, root, counters):
               f"[packed trainer] packed={packed}: no replay")
         check(len(rec["densify"]) >= 1, "[packed trainer] no densify")
         check(all(per_it[k] == 1 for k in ("K1g", "K2", "K3", "K4"))
-              and all(per_it[k] == int(packed) for k in PRE_IDS),
+              and all(per_it[k] == int(packed)
+                      for k in PRE_IDS + ("ADAM",)),
               f"[packed trainer] packed={packed}: launches per iteration "
               f"{per_it}")
         runs[packed] = dict(tr=tr, ms=ms, per_it=per_it,
@@ -4012,7 +4149,7 @@ def graph_step_phase(torch, dev, p0, alive0, bench_camera, counters):
         gms.append([getattr(m, f).clone() for f in fields])
     launches = {k: c.launches - before[k] for k, c in counters.items()}
     check(all(launches[k] == TRAIN_STEPS for k in ("K1g", "K2", "K3", "K4")
-              + PRE_IDS) and launches["K1"] == 0,
+              + PRE_IDS + ("ADAM",)) and launches["K1"] == 0,
           f"[graph step] launches {launches}")
     check(not any(bool(m[fields.index("overflow")]) for m in gms),
           "[graph step] overflow")
@@ -4166,10 +4303,11 @@ def graph_trainer_phase(torch, dev, root, counters):
         check(all(v > 0 for v in launches.values()),
               f"[graph trainer] {name}: launches {launches}")
         if name == "step":
-            # one preprocess forward and backward a training step (the
-            # eager views render the tree layout)
+            # one preprocess forward and backward and one Adam a training
+            # step (the eager views render the tree layout)
             check(launches["PRE"] == launches["K1g"]
-                  and launches["PRE_bwd"] == launches["K3"],
+                  and launches["PRE_bwd"] == launches["K3"]
+                  == launches["ADAM"],
                   f"[graph trainer] step: launches {launches}")
         # one bucket more of the trained state, profiled, no schedule and no
         # sync in it: the device's busy time per iteration
@@ -4240,7 +4378,7 @@ def graph_trainer_phase(torch, dev, root, counters):
     n_cap = len(runs["chain"]["captures"])
     n_views = len(runs["chain"]["views"])
     chain_k1 = runs["chain"]["launches"]["K1"]
-    for k in ("K2", "K1g", "K3", "K4") + PRE_IDS:
+    for k in ("K2", "K1g", "K3", "K4") + PRE_IDS + ("ADAM",):
         want = (step["launches"][k] + n_cap + (n_views if k == "K2" else 0)
                 + (chain_k1 if k == "PRE" else 0))
         check(runs["chain"]["launches"][k] == want,
@@ -4463,7 +4601,8 @@ def step_graph_phase(torch, dev, root, counters):
                       and "captured the chain step" in out,
                       f"[step graph] {pair}: captures {tr.captures}")
                 check(all(launches[k] > iters for k in ("K2", "K1g", "K3",
-                                                         "K4") + PRE_IDS),
+                                                         "K4") + PRE_IDS
+                          + ("ADAM",)),
                       f"[step graph] {pair}: launches {launches}")
                 for k, v in launches.items():
                     graph_launches[k] += v
@@ -4490,7 +4629,7 @@ def step_graph_phase(torch, dev, root, counters):
             per_it = {k: (c.launches - c0[k]) / STEP_GRAPH_EXTRA
                       for k, c in counters.items()}
             check(all(per_it[k] == 1 for k in ("K2", "K1g", "K3", "K4")
-                      + PRE_IDS) and per_it["K1"] == 0,
+                      + PRE_IDS + ("ADAM",)) and per_it["K1"] == 0,
                   f"[step graph] {pair} {how}: launches per iteration "
                   f"{per_it}")
             busy, n_k = busy_per_call(torch, tr._dispatch_step, 10)
@@ -4620,7 +4759,7 @@ def view_graph_phase(torch, dev, p0, alive0, bench_camera, counters):
     # the tree layout: its preprocess is the twin
     check(launches["K2"] == launches["K1"] == want and launches["K1g"]
           == launches["K3"] == launches["K4"] == launches["PRE"]
-          == launches["PRE_bwd"] == 0,
+          == launches["PRE_bwd"] == launches["ADAM"] == 0,
           f"[view graph] launches {launches}, want K2 = K1 = {want}")
     host = {k: float(np.median(v)) for k, v in times.items()}
     cap = graph.captures[0]
@@ -5087,7 +5226,7 @@ def mesh_view_graph_phase(torch, dev, p0, alive0, bench_camera, counters):
                 for k, fn in (("graph", graphed), ("eager", eager))}
         check(per_view["K2"] == per_view["K1"] == per_view["PRE"] == MESH_K
               and per_view["K1g"] == per_view["K3"] == per_view["K4"]
-              == per_view["PRE_bwd"] == 0,
+              == per_view["PRE_bwd"] == per_view["ADAM"] == 0,
               f"[mesh view graph] launches per graphed view {per_view} "
               f"({n_graphed} in all), want K2 = K1 = PRE = {MESH_K}")
         moved = both("pose", bench_camera(40), 0)
@@ -5304,13 +5443,14 @@ def main() -> int:
     from gs_tpu_torch.render import render
 
     from gs_tpu_torch.core.project import preprocess_bwd, preprocess_fwd
+    from gs_tpu_torch.ops.adam import adam_packed
     from gs_tpu_torch.ops.fold import fold_rows
     from gs_tpu_torch.ops.rasterize import (raster_tiles_bwd,
                                             raster_tiles_fwd_save)
     counters = {"K2": expand_rows, "K1": raster_tiles_fwd,
                 "K1g": raster_tiles_fwd_save, "K3": raster_tiles_bwd,
                 "K4": fold_rows, "PRE": preprocess_fwd,
-                "PRE_bwd": preprocess_bwd}
+                "PRE_bwd": preprocess_bwd, "ADAM": adam_packed}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5617,6 +5757,9 @@ def main() -> int:
     t_pre = time.perf_counter()
     pre = preprocess_phase(torch, dev)
     print(f"[preprocess] in {time.perf_counter() - t_pre:.1f} s", flush=True)
+    t_adam = time.perf_counter()
+    adam = adam_phase(torch, dev)
+    print(f"[adam] in {time.perf_counter() - t_adam:.1f} s", flush=True)
     t_packed = time.perf_counter()
     packed_launches, packed_errs = packed_step_phase(
         torch, dev, p0, alive0, bench_camera, counters)
@@ -5729,7 +5872,17 @@ def main() -> int:
          "kernel_ms": pre[f"{way}_ms"], "plain_ms": pre[f"twin_{way}_ms"],
          "bound_ms": pre[f"{way}_bound_ms"], "bound_by": "bytes",
          "library_ms": None}
-        for way, i in zip(("fwd", "bwd"), PRE_IDS)]
+        for way, i in zip(("fwd", "bwd"), PRE_IDS)] + [
+        # port-only as well (gs_tpu's Adam is jnp); bitwise its twin, in
+        # place at ADAM_SLOTS slots, dense (and column-masked beside)
+        {"name": "adam_packed", "id": "ADAM", "route": "cuda",
+         "source": "gs_tpu_torch/csrc/adam.cu", "replaces": None,
+         "launches": adam["launches"], "max_abs_err": 0.0,
+         "ms": adam["dense_ms"], "kernel_ms": adam["dense_ms"],
+         "masked_ms": adam["masked_ms"], "plain_ms": adam["twin_ms"],
+         "plain_masked_ms": adam["twin_masked_ms"],
+         "bound_ms": adam["bound_ms"], "bound_by": "bytes",
+         "library_ms": None}]
     k4 = kernels_train[2]
     k4.update(long_k4)
     k4.update(rain_k4)
@@ -5748,7 +5901,7 @@ def main() -> int:
         k["step_graph_launches"] = step_graph_launches[k["id"]]
         k["view_graph_launches"] = view_graph_launches[k["id"]]
         k["mesh_view_graph_launches"] = mesh_view_graph_launches[k["id"]]
-        if k["id"] in PRE_IDS:
+        if k["id"] in PRE_IDS + ("ADAM",):
             continue
         k["max_abs_err"] = max(k["max_abs_err"], viewer_errs[k["id"]],
                                live_errs[k["id"]], rain_errs[k["id"]],

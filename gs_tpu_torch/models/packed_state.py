@@ -10,7 +10,13 @@ so the behaviour is tested once. ``PackedState.params`` unpacks on access,
 so cold call sites (PLY save, the viewer, histograms) work unchanged.
 
 Every function returns a new state and writes into none of its inputs, as
-the tree layout's do (the trainer's overflow replay keeps old states).
+the tree layout's do (the trainer's overflow replay keeps old states), but
+where ``inplace`` asks it to (the graph replays).
+
+Adam's pass over the block is one hand-written kernel on a CUDA device
+(``csrc/adam.cu``, ``ops/adam.py::adam_packed``, which counts its
+launches); its twin, :func:`adam_update_packed_plain`, runs elsewhere and
+is what the tests hold the kernel to, bit for bit.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from ..config import OptimizationConfig
 from ..core.gaussians import GaussianParams, inverse_sigmoid
 from ..core.packed import (PackedLayout, degree_from_rows, layout, lr_rows,
                            pack_params, unpack_params)
+from ..ops.adam import adam_packed
 from .gaussian_model import (ADAM_B1, ADAM_B2, ADAM_EPS, TrainState, _count,
                              _gate, _put, compact, densify_and_prune,
                              grow_capacity, group_lrs)
@@ -98,11 +105,36 @@ def adam_update_packed(ps: PackedState, grad: torch.Tensor,
     sparse masking ref: train.py:173-175), so the two agree bitwise.
     ``valid`` False: no update at all, the step count included (the JAX
     package's masked-tail gate, fused into the same selects); ``inplace``:
-    as ``gaussian_model.adam_update``."""
-    step = _count(ps.step, valid, inplace)
+    as ``gaussian_model.adam_update``. ``lr``: the [R, 1] row rates.
+
+    On a CUDA device the pass is the kernel of ``csrc/adam.cu``
+    (``ops/adam.py::adam_packed``); elsewhere its twin,
+    :func:`adam_update_packed_plain`."""
+    if ps.packed.device.type != "cuda":
+        return adam_update_packed_plain(ps, grad, lr, visible_mask, valid,
+                                        inplace)
+    step, bc1, bc2 = _bias_corrections(ps.step, valid, inplace)
+    p, m, v = adam_packed(ps.packed, ps.m, ps.v, grad, lr, bc1, bc2,
+                          visible_mask, valid, inplace)
+    return ps._replace(packed=p, m=m, v=v, step=step)
+
+
+def _bias_corrections(step: torch.Tensor, valid, inplace: bool):
+    """The advanced step count and Adam's 1 - B1^t and 1 - B2^t, 0-d
+    tensors on the step's device."""
+    step = _count(step, valid, inplace)
     t = step.to(torch.float32)
-    bc1 = 1.0 - ADAM_B1 ** t
-    bc2 = 1.0 - ADAM_B2 ** t
+    return step, 1.0 - ADAM_B1 ** t, 1.0 - ADAM_B2 ** t
+
+
+def adam_update_packed_plain(ps: PackedState, grad: torch.Tensor,
+                             lr: torch.Tensor,
+                             visible_mask: Optional[torch.Tensor] = None,
+                             valid: Optional[torch.Tensor] = None,
+                             inplace: bool = False) -> PackedState:
+    """The kernel's twin: :func:`adam_update_packed` as PyTorch elementwise
+    passes, on any device."""
+    step, bc1, bc2 = _bias_corrections(ps.step, valid, inplace)
     gate = _gate(None if visible_mask is None else visible_mask[None, :],
                  valid)
     m = _put(gate, ps.m, inplace, torch.add, ADAM_B1 * ps.m,

@@ -27,7 +27,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("expand.cu", "rasterize_fwd.cu", "rasterize_bwd.cu", "fold.cu",
-           "preprocess.cu")
+           "preprocess.cu", "adam.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)

@@ -453,5 +453,6 @@ def test_graphed_steps_equal_eager_steps(cuda_device):
     assert losses == eager
     leaves_equal(gs, st)
     per_step = [(f.launches - n) / 3 for f, n in zip(counters, before)]
-    # K2, K1g, K3, K4 and the preprocess pair once per step; K1 not at all
-    assert per_step == [1, 0, 1, 1, 1, 1, 1]
+    # K2, K1g, K3, K4, the preprocess pair and Adam once per step; K1 not
+    # at all
+    assert per_step == [1, 0, 1, 1, 1, 1, 1, 1]

@@ -341,5 +341,5 @@ def test_graphed_mesh_steps_equal_eager_mesh_steps(cuda_device):
     leaves_equal(gs, st)
     per_step = [(f.launches - n) / 3 for f, n in zip(counters, before)]
     # K2, K1g, K3 and K4 once per band and step, the preprocess pair once
-    # per shard; K1 not at all
-    assert per_step == [2, 0, 2, 2, 2, 2, 2]
+    # per shard, Adam once over the process's shards; K1 not at all
+    assert per_step == [2, 0, 2, 2, 2, 2, 2, 1]

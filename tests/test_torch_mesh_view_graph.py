@@ -243,9 +243,9 @@ def test_graphed_mesh_view_equals_the_eager_view(jax_side, cuda_device):
     _, first = both(cams["base"], 1)
     # the warm-up's bands and a replay's; the graph's preprocess forward a
     # shard each (the eager view is the tree layout's)
-    assert first == [4, 4, 0, 0, 0, 4, 0]
+    assert first == [4, 4, 0, 0, 0, 4, 0, 0]
     moved, launches = both(cams["moved"], 0)
-    assert launches == [2, 2, 0, 0, 0, 2, 0]
+    assert launches == [2, 2, 0, 0, 0, 2, 0, 0]
     tr.raster = dataclasses.replace(tr.raster, dup_capacity=64)
     out, _ = both(cams["base"], 2)
     assert int(out.band_duplicates.max()) > 64
