@@ -62,8 +62,8 @@ Phases (each failure exits non-zero):
     bitwise from run to run, each kernel's and the twin's ms by CUDA
     events against the bytes bound, registers and spills; [adam]: Adam's
     kernel (csrc/adam.cu) against its twin at 4,194,304 slots, bitwise,
-    dense and column-masked, in place and not, ``valid`` False; its ms and
-    the twin's by CUDA events against the bytes bound;
+    dense and column-masked, in place and not; its ms and the twin's by
+    CUDA events against the bytes bound;
  8. [train] 8 steps of the bench training configuration (bench.py's train
     probe: OptimizationConfig(iterations=30000), L1 + SSIM, Adam, a zero
     ground truth) through gs_tpu_torch.train.step.make_train_step after 2
@@ -132,10 +132,11 @@ Phases (each failure exits non-zero):
     among them) that the mesh Trainer gave it, against its plain version
     under the rules of phases 3-6; [mesh graph trainer]
     Trainer(mesh=LocalGroup(4)) on the [trainer] dataset for 30 iterations
-    in step mode and in block mode through the chain and the scan (CUDA
-    graphs of the banded step and its collectives), through a
-    visible_capacity overflow, its replay and the capture its growth
-    causes, and a densify: chain and scan bitwise step mode in the losses
+    in step mode and in block mode through the chain (CUDA graphs of the
+    banded step and its collectives), through a visible_capacity
+    overflow, its replay and the capture its growth causes, and a
+    densify: the graphed step mode and the chain bitwise the eager step
+    mode in the losses
     at the syncs and the final state; host ms, device busy and idle,
     launches per iteration over one more block, every capture's ms and
     graph-pool peak; [mesh CLI] the training CLI over a real NCCL group
@@ -214,7 +215,7 @@ Phases (each failure exits non-zero):
     own run-to-run spread, if it has one), host ms, device busy, launches,
     the capture's ms and its graph pool's peak; [graph trainer] the
     [trainer] dataset through the training CLI's default block mode on
-    CUDA, chain and scan, against --no_block_scan, 200 iterations from
+    CUDA (the chain) against --no_block_scan, 200 iterations from
     524,288 slots through the first sync's overflow replay and a growth
     to 4x at the densify at 100 (captured again): the losses at the syncs
     and the final states bitwise, ms per iteration, busy, idle, every
@@ -748,8 +749,7 @@ def train_phases(torch, dev, small, scam, p0, alive0, bench_camera):
     # graphed step (utils/spans.py), the chain's replay of this step
     chain = make_train_step_chain(step, use_alpha=False, use_depth=False)
     row = np.concatenate([step.schedule(11)[0], np.zeros(3, np.float32)])
-    chain.load(torch.tensor([[0, 11]]), torch.from_numpy(row)[None],
-               torch.ones(1, dtype=torch.bool))
+    chain.load(torch.tensor([[0, 11]]), torch.from_numpy(row)[None], [11])
     data = TrainingData(gt[None])
     chain(state, data, 0)                              # the capture
     for _ in range(STAGE_REPLAYS):
@@ -1118,8 +1118,8 @@ def adam_phase(torch, dev):
     (models/packed_state.py::adam_update_packed_plain) at ADAM_SLOTS slots
     of SH degree 3, from seeded parameters, moments and gradient at Adam's
     step 20,000: every output bitwise the twin's, dense and column-masked
-    (about half the columns), out of place and in place, and with ``valid``
-    False; the in-place kernel's time by CUDA events, dense and masked,
+    (about half the columns), out of place and in place; the in-place
+    kernel's time by CUDA events, dense and masked,
     against the twin's and the bytes bound (7 x 4 B x R x C); the kernel's
     registers. Returns the numbers."""
     from gs_tpu_torch.config import OptimizationConfig
@@ -1166,10 +1166,6 @@ def adam_phase(torch, dev):
         check(bitwise(got, want), f"[adam] {what}: kernel != twin")
         check(bitwise(inplace, want), f"[adam] {what} in place: kernel != twin")
         del want, got, inplace
-    off = torch.tensor(False, device=dev)
-    got = P.adam_update_packed(ps, grad, lr, half, valid=off)
-    check(bitwise(got, ps), "[adam] valid False changed the state")
-    del got
     work = fresh()
     dense_ms = time_ms(torch, lambda: P.adam_update_packed(
         work, grad, lr, inplace=True), 20)
@@ -1188,8 +1184,8 @@ def adam_phase(torch, dev):
                 "attributes")
     a = list(attrs)
     print(f"[adam] {c} slots, SH 3: the kernel bitwise the twin, dense and "
-          f"masked ({int(half.sum())} columns), out of place and in place; "
-          f"valid False leaves the state", flush=True)
+          f"masked ({int(half.sum())} columns), out of place and in place",
+          flush=True)
     print(f"[adam] in place: dense kernel {dense_ms:.4f} ms, masked "
           f"{masked_ms:.4f} ms; twin dense {twin_ms:.4f} ms, masked "
           f"{twin_masked_ms:.4f} ms; bound {bound:.4f} ms ({work_bytes} "
@@ -3343,11 +3339,11 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
     [trainer] dataset for MESH_GRAPH_ITERS iterations in eager step mode
     (the Trainer's private ``_eager_dispatch``, the reference), in step
     mode through its graph (one replay an iteration), then in block mode
-    through the chain and the scan (buckets of 10): the first sync's
-    visible_capacity overflow (MESH_VCAP), its replay and the capture its
-    growth causes, a densify at 20, syncs at 10, 20 and 30 in every mode.
-    The graphed step mode, chain and scan must be bitwise the eager
-    step-mode run: the losses at the syncs and the final state. Then, on the trained state,
+    through the chain (buckets of 10): the first sync's visible_capacity
+    overflow (MESH_VCAP), its replay and the capture its growth causes, a
+    densify at 20, syncs at 10, 20 and 30 in every mode. The graphed step
+    mode and the chain must be bitwise the eager step-mode run: the losses
+    at the syncs and the final state. Then, on the trained state,
     one more block of MESH_GRAPH_EXTRA iterations timed by host clock
     (synchronised at both ends) with the launch counters read around it,
     and one more profiled with device records only: device busy and idle
@@ -3367,7 +3363,7 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
     band_dup = -(-dup // 2 // 512) * 512
     n = MESH_GRAPH_EXTRA
     ref, launches_chain = None, None
-    for mode in ("step", "step graph", "chain", "scan"):
+    for mode in ("step", "step graph", "chain"):
         t0 = time.perf_counter()
         tr = Trainer(scene.get_train_cameras(), scene.point_cloud,
                      spatial_lr_scale=scene.cameras_extent,
@@ -3377,9 +3373,7 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
                                          visible_capacity=MESH_VCAP),
                      seed=0, mesh=LocalGroup(MESH_K, dev))
         tr.sync_every = 10
-        blocks = mode in ("chain", "scan")
-        if blocks:
-            tr.block_dispatch = mode
+        blocks = mode == "chain"
         tr._eager_dispatch = mode == "step"
         grows, syncs = [], {}
         grow = tr._grow_raster
@@ -3416,8 +3410,7 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
             check(not tr.captures, "[mesh graph trainer] the eager step "
                   "mode captured")
         else:
-            check(len(tr.captures) >= 2 and tr._runner.mode
-                  == ("chain" if mode == "step graph" else mode),
+            check(len(tr.captures) >= 2 and tr._runner is not None,
                   f"[mesh graph trainer] {mode}: captures {tr.captures}")
         state = [t.clone() for t in state_leaves(tr.state)]
         if ref is None:
@@ -4050,7 +4043,7 @@ def packed_trainer_phase(torch, dev, root, counters):
 GRAPH_ITERS = 200              # [graph trainer]: densifies at 100 and 150
 GRAPH_CAPACITY = 524_288       # 95 % of it alive: the densify at 100 grows it
 GRAPH_STEADY = (150, 199)      # no capture, densify, sync or eval in 151..199
-GRAPH_BUCKET = 50              # --densification_interval: the scan's bucket
+GRAPH_BUCKET = 50              # --densification_interval: the chain's bucket
 OPTION_ITERS = 30              # [graph options]: evaluations at 10 and 30
 
 
@@ -4130,7 +4123,7 @@ def graph_step_phase(torch, dev, p0, alive0, bench_camera, counters):
     ints = torch.from_numpy(np.stack([np.zeros_like(its), its], 1))
     floats = torch.zeros((TRAIN_STEPS, 6))
     floats[:, :3] = torch.from_numpy(step.schedule(its))
-    chain.load(ints, floats, torch.ones(TRAIN_STEPS, dtype=torch.bool))
+    chain.load(ints, floats, its)
     data = TrainingData(gt[None])
     before = {k: c.launches for k, c in counters.items()}
     chain.bind(s0, data)
@@ -4196,10 +4189,8 @@ def graph_step_phase(torch, dev, p0, alive0, bench_camera, counters):
     return launches
 
 
-def run_train_cli(torch, args, counters, dispatch=None, steady=None,
-                  eager=False):
-    """The training CLI on ``args``: with ``dispatch`` the Trainer's
-    block_dispatch is set to it, with ``eager`` its private
+def run_train_cli(torch, args, counters, steady=None, eager=False):
+    """The training CLI on ``args``: with ``eager`` the Trainer's private
     ``_eager_dispatch`` (step mode's eager step and view, the reference of
     the graphs; the CLI has a flag for neither, as the JAX CLI has none).
     Records the syncs and replays (probe_trainer), the host
@@ -4215,8 +4206,6 @@ def run_train_cli(torch, args, counters, dispatch=None, steady=None,
 
     def set_dispatch(self, *a, **kw):
         init(self, *a, **kw)
-        if dispatch is not None:
-            self.block_dispatch = dispatch
         self._eager_dispatch = eager
 
     def timed_block(self, k):
@@ -4248,13 +4237,13 @@ def run_train_cli(torch, args, counters, dispatch=None, steady=None,
 
 def graph_trainer_phase(torch, dev, root, counters):
     """[graph trainer]: the [trainer] dataset through the training CLI in
-    its default block mode on CUDA, chain and then scan, against
-    --no_block_scan (step mode): GRAPH_ITERS iterations from
+    its default block mode on CUDA (the chain) against --no_block_scan
+    (step mode): GRAPH_ITERS iterations from
     GRAPH_CAPACITY slots, the first sync's overflow replay (TRAINER_DUP),
     a densify and opacity reset at 100 whose growth to 4x the capacity
     captures again, a densify at 150; the step-mode run is the eager one
     (``_eager_dispatch``), the reference. The losses at every sync and the
-    final states of the three runs: bitwise, or, if not, within a second
+    final states of the two runs: bitwise, or, if not, within a second
     step-mode run's spread. The chain run's last evaluation renders its
     test view through the view graph at 2,097,152 slots: its capture's ms
     and pool peak beside the chain's. ms per iteration over GRAPH_STEADY (the block
@@ -4276,12 +4265,10 @@ def graph_trainer_phase(torch, dev, root, counters):
             "--dup_capacity", str(TRAINER_DUP), "--disable_viewer",
             "--data_device", dev.type]
     runs = {}
-    for name, extra, dispatch in (("step", ["--no_block_scan"], None),
-                                  ("chain", [], None),
-                                  ("scan", [], "scan")):
+    for name, extra in (("step", ["--no_block_scan"]), ("chain", [])):
         t0 = time.perf_counter()
         tr, rec, ms, launches, out = run_train_cli(
-            torch, args + extra, counters, dispatch,
+            torch, args + extra, counters,
             steady=(GRAPH_STEADY if name == "step"
                     else (GRAPH_STEADY[0], GRAPH_STEADY[1] + 1)),
             eager=name == "step")
@@ -4345,32 +4332,30 @@ def graph_trainer_phase(torch, dev, root, counters):
                   for c in tr.views.captures) or "none (eager views)"),
               flush=True)
         del tr
-    step = runs["step"]
-    for name in ("chain", "scan"):
-        r = runs[name]
-        syncs = [x for _, x, _ in r["rec"]["syncs"]]
-        ref = [x for _, x, _ in step["rec"]["syncs"]]
-        bitwise = syncs == ref and all(
-            torch.equal(a, b) for a, b in zip(r["state"], step["state"]))
-        if not bitwise:
-            # the eager run's own spread decides
-            tr2, rec2, _, _, _ = run_train_cli(torch, args + [
-                "--no_block_scan"], counters, eager=True)
-            spread = [float((a - b).abs().max()) if a.is_floating_point()
-                      else (0.0 if torch.equal(a, b) else math.inf)
-                      for a, b in zip(state_leaves(tr2.state), step["state"])]
-            got = [float((a - b).abs().max()) if a.is_floating_point()
-                   else (0.0 if torch.equal(a, b) else math.inf)
-                   for a, b in zip(r["state"], step["state"])]
-            check(all(g <= s for g, s in zip(got, spread)),
-                  f"[graph trainer] {name} against step mode {got}, beyond "
-                  f"the step mode's run-to-run spread {spread}")
-            del tr2
-        print(f"[graph trainer] {name} against step mode: losses at the "
-              f"syncs " + ", ".join(f"{i}: {x:.7f}"
-                                     for i, x, _ in r["rec"]["syncs"])
-              + (" and the final state bitwise equal" if bitwise else
-                 " within the step mode's run-to-run spread"), flush=True)
+    step, r = runs["step"], runs["chain"]
+    syncs = [x for _, x, _ in r["rec"]["syncs"]]
+    ref = [x for _, x, _ in step["rec"]["syncs"]]
+    bitwise = syncs == ref and all(
+        torch.equal(a, b) for a, b in zip(r["state"], step["state"]))
+    if not bitwise:
+        # the eager run's own spread decides
+        tr2, rec2, _, _, _ = run_train_cli(torch, args + [
+            "--no_block_scan"], counters, eager=True)
+        spread = [float((a - b).abs().max()) if a.is_floating_point()
+                  else (0.0 if torch.equal(a, b) else math.inf)
+                  for a, b in zip(state_leaves(tr2.state), step["state"])]
+        got = [float((a - b).abs().max()) if a.is_floating_point()
+               else (0.0 if torch.equal(a, b) else math.inf)
+               for a, b in zip(r["state"], step["state"])]
+        check(all(g <= s for g, s in zip(got, spread)),
+              f"[graph trainer] chain against step mode {got}, beyond "
+              f"the step mode's run-to-run spread {spread}")
+        del tr2
+    print(f"[graph trainer] chain against step mode: losses at the "
+          f"syncs " + ", ".join(f"{i}: {x:.7f}"
+                                 for i, x, _ in r["rec"]["syncs"])
+          + (" and the final state bitwise equal" if bitwise else
+             " within the step mode's run-to-run spread"), flush=True)
     # a chain run launches the eager step-mode run's kernels plus one
     # warm-up step per capture, and K2 once more per capture of the view
     # graph (its evaluation's view); K1 only in the evaluations, and the
@@ -4597,7 +4582,7 @@ def step_graph_phase(torch, dev, root, counters):
             check(all(math.isfinite(x) for _, x, _ in rec["syncs"]),
                   f"[step graph] {pair} {how}: non-finite loss")
             if how == "graph":
-                check(tr._runner.mode == "chain" and len(tr.captures) >= 2
+                check(tr._runner is not None and len(tr.captures) >= 2
                       and "captured the chain step" in out,
                       f"[step graph] {pair}: captures {tr.captures}")
                 check(all(launches[k] > iters for k in ("K2", "K1g", "K3",
@@ -5070,8 +5055,8 @@ def density_graph_phase(torch, dev, root, model, dup, counters):
             T._apply_schedule, T._densify = apply_schedule, densify
         check(seen["densifies"] == 2 and len(seen["captures"]) == 2,
               f"[density graph] {how}: densifies {seen}")
-        check(tr._runner is not None and tr._runner.mode == "chain",
-              f"[density graph] {how}: not the block mode")
+        check(tr._runner is not None,
+              f"[density graph] {how}: no graphed step ran")
         view_caps = len(tr.views.captures)
         # the view right after the densify, then the one after the next
         # block: the captures since the first view, per densify

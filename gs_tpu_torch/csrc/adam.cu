@@ -7,7 +7,7 @@
 // (gs_tpu/models/packed_state.py), which XLA fuses into one pass. Run eagerly
 // in PyTorch the same arithmetic is some fifteen elementwise passes over the
 // [R, C] block, each reading and writing a whole [R, C] float32 tensor, with
-// the column mask's and the scan's selects on top. That PyTorch code stays
+// the column mask's selects on top. That PyTorch code stays
 // in gs_tpu_torch/models/packed_state.py as this kernel's twin
 // (adam_update_packed_plain): it runs on the CPU, and the tests hold this
 // kernel to it bit for bit.
@@ -33,9 +33,8 @@
 //
 // What the call passes in chooses the behaviour, as in the twin: a column
 // mask (sparse Adam) leaves an unmasked column's parameters and moments as
-// they were; a `valid` flag that is false updates nothing (in place the
-// kernel returns at once; out of place it copies); in place the outputs are
-// the inputs and every element is written back by the thread that read it.
+// they were; in place the outputs are the inputs and every element is
+// written back by the thread that read it.
 // The step count and the bias corrections 1 - B1^t and 1 - B2^t are the
 // twin's own torch expressions: the kernel reads bc1 and bc2 from the device,
 // so a captured graph replays it with a new step.
@@ -74,8 +73,6 @@ struct Args {
   const float* bc1;            // [] 1 - B1^t
   const float* bc2;            // [] 1 - B2^t
   const unsigned char* mask;   // [n] bool, or null: every column
-  const unsigned char* valid;  // [] bool, or null: true
-  int inplace;
   int vec;                     // every row of every tensor starts on 16
                                // bytes, the mask on 4
   int n;
@@ -122,8 +119,6 @@ __device__ __forceinline__ void column(const Row& r, int col, bool on) {
 }
 
 __global__ void __launch_bounds__(kThreads) adam_packed_kernel(const Args a) {
-  const bool live = a.valid == nullptr || *a.valid != 0;
-  if (!live && a.inplace) return;          // nothing changes
   const long long row = blockIdx.y;
   const Row r{a.p + row * a.p_stride, a.m + row * a.m_stride,
               a.v + row * a.v_stride, a.g + row * a.g_stride,
@@ -131,7 +126,7 @@ __global__ void __launch_bounds__(kThreads) adam_packed_kernel(const Args a) {
               a.v_out + row * a.vo_stride, a.lr[row], *a.bc1, *a.bc2};
   const int first = blockIdx.x * kThreads + threadIdx.x;
   const int stride = gridDim.x * kThreads;
-  const unsigned char* mask = live ? a.mask : nullptr;
+  const unsigned char* mask = a.mask;
   const int quads = a.vec ? a.n >> 2 : 0;
   for (int q = first; q < quads; q += stride) {
     float4 p = reinterpret_cast<const float4*>(r.p)[q];
@@ -139,7 +134,7 @@ __global__ void __launch_bounds__(kThreads) adam_packed_kernel(const Args a) {
     float4 v = reinterpret_cast<const float4*>(r.v)[q];
     const float4 g = reinterpret_cast<const float4*>(r.g)[q];
     const uchar4 on = mask == nullptr
-                          ? make_uchar4(live, live, live, live)
+                          ? make_uchar4(1, 1, 1, 1)
                           : reinterpret_cast<const uchar4*>(mask)[q];
     adam(p.x, m.x, v.x, g.x, on.x != 0, r.lr, r.bc1, r.bc2);
     adam(p.y, m.y, v.y, g.y, on.y != 0, r.lr, r.bc1, r.bc2);
@@ -151,7 +146,7 @@ __global__ void __launch_bounds__(kThreads) adam_packed_kernel(const Args a) {
   }
   // the columns the vectors leave, one a thread
   for (int col = 4 * quads + first; col < a.n; col += stride) {
-    column(r, col, mask == nullptr ? live : mask[col] != 0);
+    column(r, col, mask == nullptr || mask[col] != 0);
   }
 }
 
@@ -184,16 +179,15 @@ int blocks_per_row(int device, int rows, int items) {
 // [rows, >= n] float32 with its own row stride (a column slice of a wider
 // block is fine), a row's columns contiguous; in place the outputs are p, m
 // and v themselves. lr: [rows] float32, the rows' rates. bc1, bc2: []
-// float32 on the device. mask: [n] bool or null; valid: [] bool or null.
+// float32 on the device. mask: [n] bool or null.
 // Launches on `stream`, returns cudaGetLastError().
 extern "C" int gs_adam_packed(
     const float* p, long long p_stride, const float* m, long long m_stride,
     const float* v, long long v_stride, const float* g, long long g_stride,
     float* p_out, long long po_stride, float* m_out, long long mo_stride,
     float* v_out, long long vo_stride, const float* lr, const float* bc1,
-    const float* bc2, const unsigned char* mask,
-    const unsigned char* valid, int inplace, int rows, int n, int device,
-    void* stream) {
+    const float* bc2, const unsigned char* mask, int rows, int n,
+    int device, void* stream) {
   if (rows <= 0 || rows > 65535 || n <= 0 || device < 0 ||
       device >= kMaxDevices || lr == nullptr || bc1 == nullptr ||
       bc2 == nullptr) {
@@ -209,7 +203,7 @@ extern "C" int gs_adam_packed(
                    (mask == nullptr || aligned(mask, 0, 4));
   const Args a{p, m, v, g, p_out, m_out, v_out, p_stride, m_stride, v_stride,
                g_stride, po_stride, mo_stride, vo_stride, lr, bc1, bc2, mask,
-               valid, inplace, vec, n};
+               vec, n};
   const int items = vec ? (n >> 2 > 0 ? n >> 2 : 1) : n;
   const dim3 grid(blocks_per_row(device, rows, items), rows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

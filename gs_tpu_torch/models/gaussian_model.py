@@ -20,14 +20,11 @@ caller may keep the old state (the trainer's overflow replay does). The split no
 torch's generators differ, so the tests feed both packages the same draws.
 
 The per-step updates (Adam, the exposure optimizer, the densification
-statistics) take two more arguments, as the JAX package's do for its
-block scan. ``valid``, a bool tensor, makes the update an exact no-op when
-False, step counters included (the masked tail steps of a scan bucket,
-``train/graph.py``); None is the ungated update, bit for bit. ``inplace``
-writes each result into the state's own tensor with the last operation
-that computes it (``out=``), where the default allocates a new one: the
-CUDA-graph step (``train/graph.py``) updates its static state so, and
-nowhere else is it used. The values are the same either way.
+statistics) take one more argument. ``inplace`` writes each result into
+the state's own tensor with the last operation that computes it
+(``out=``), where the default allocates a new one: the CUDA-graph step
+(``train/graph.py``) updates its static state so, and nowhere else is it
+used. The values are the same either way.
 """
 from __future__ import annotations
 
@@ -179,13 +176,6 @@ def group_lrs(opt: OptimizationConfig, step,
     )
 
 
-def _gate(mask: Optional[torch.Tensor], valid: Optional[torch.Tensor]):
-    """The row mask and the step's ``valid`` flag combined (None: none)."""
-    if valid is None:
-        return mask
-    return valid if mask is None else mask & valid
-
-
 def _put(gate, old: torch.Tensor, inplace: bool, op, *args) -> torch.Tensor:
     """``op(*args)`` where ``gate`` holds (everywhere when None), ``old``
     elsewhere; written into ``old`` when ``inplace``."""
@@ -195,29 +185,26 @@ def _put(gate, old: torch.Tensor, inplace: bool, op, *args) -> torch.Tensor:
     return torch.where(gate, op(*args), old, out=out)
 
 
-def _count(step: torch.Tensor, valid, inplace: bool) -> torch.Tensor:
-    """A step counter advanced by one (by ``valid`` when given)."""
-    inc = 1 if valid is None else valid.to(step.dtype)
-    return torch.add(step, inc, out=step if inplace else None)
+def _count(step: torch.Tensor, inplace: bool) -> torch.Tensor:
+    """A step counter advanced by one."""
+    return torch.add(step, 1, out=step if inplace else None)
 
 
 def adam_update(state: TrainState, grads: GaussianParams,
                 lrs: GaussianParams,
                 visible_mask: Optional[torch.Tensor] = None,
-                valid: Optional[torch.Tensor] = None,
                 inplace: bool = False) -> TrainState:
     """Dense Adam, or sparse (row-masked) when ``visible_mask`` is given:
-    rows outside the mask keep their parameters and moments. ``valid``
-    False: no update at all, the step count included."""
-    step = _count(state.step, valid, inplace)
+    rows outside the mask keep their parameters and moments."""
+    step = _count(state.step, inplace)
     t = step.to(torch.float32)
     bc1 = 1.0 - ADAM_B1 ** t
     bc2 = 1.0 - ADAM_B2 ** t
 
     ms, vs, ps = [], [], []
     for g, m, v, p, lr in zip(grads, state.m, state.v, state.params, lrs):
-        gate = _gate(None if visible_mask is None else visible_mask.reshape(
-            (-1,) + (1,) * (p.dim() - 1)), valid)
+        gate = None if visible_mask is None else visible_mask.reshape(
+            (-1,) + (1,) * (p.dim() - 1))
         m_new = _put(gate, m, inplace, torch.add, ADAM_B1 * m,
                      (1 - ADAM_B1) * g)
         v_new = _put(gate, v, inplace, torch.add, ADAM_B2 * v,
@@ -240,21 +227,20 @@ def exposure_lr(opt: OptimizationConfig, iteration) -> float:
 
 
 def exposure_update(state: TrainState, exp_grad: torch.Tensor,
-                    opt: OptimizationConfig, iteration,
-                    valid: Optional[torch.Tensor] = None, *, lr=None,
+                    opt: OptimizationConfig, iteration, *, lr=None,
                     inplace: bool = False) -> TrainState:
     """One Adam step of the per-image exposures. ``lr``: the rate (a 0-d
     tensor from the step's schedule row); None computes it from
     ``iteration``."""
     if lr is None:
         lr = exposure_lr(opt, iteration)
-    step = _count(state.exp_step, valid, inplace)
+    step = _count(state.exp_step, inplace)
     t = step.to(torch.float32)
-    m = _put(valid, state.exp_m, inplace, torch.add, ADAM_B1 * state.exp_m,
+    m = _put(None, state.exp_m, inplace, torch.add, ADAM_B1 * state.exp_m,
              (1 - ADAM_B1) * exp_grad)
-    v = _put(valid, state.exp_v, inplace, torch.add, ADAM_B2 * state.exp_v,
+    v = _put(None, state.exp_v, inplace, torch.add, ADAM_B2 * state.exp_v,
              (1 - ADAM_B2) * exp_grad ** 2)
-    p = _put(valid, state.exposure, inplace, torch.sub, state.exposure,
+    p = _put(None, state.exposure, inplace, torch.sub, state.exposure,
              lr * (m / (1 - ADAM_B1 ** t)) / (
                  torch.sqrt(v / (1 - ADAM_B2 ** t)) + EXP_ADAM_EPS))
     return state._replace(exposure=p, exp_m=m, exp_v=v, exp_step=step)
@@ -266,7 +252,6 @@ def add_densification_stats(state: TrainState, mean2d_grad: torch.Tensor,
                             visibility: torch.Tensor, width: int, height: int,
                             radii: torch.Tensor, *,
                             scale: Optional[torch.Tensor] = None,
-                            valid: Optional[torch.Tensor] = None,
                             inplace: bool = False) -> TrainState:
     """Accumulate ||dL/d mean2D|| in the reference's ndc-half-res units.
 
@@ -278,7 +263,6 @@ def add_densification_stats(state: TrainState, mean2d_grad: torch.Tensor,
     if scale is None:
         scale = torch.tensor([0.5 * width, 0.5 * height], dtype=torch.float32,
                              device=mean2d_grad.device)
-    visibility = _gate(visibility, valid)
     norm = torch.linalg.vector_norm(mean2d_grad * scale, dim=-1)
 
     def out(x):

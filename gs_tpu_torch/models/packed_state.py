@@ -30,8 +30,8 @@ from ..core.packed import (PackedLayout, degree_from_rows, layout, lr_rows,
                            pack_params, unpack_params)
 from ..ops.adam import adam_packed
 from .gaussian_model import (ADAM_B1, ADAM_B2, ADAM_EPS, TrainState, _count,
-                             _gate, _put, compact, densify_and_prune,
-                             grow_capacity, group_lrs)
+                             _put, compact, densify_and_prune, grow_capacity,
+                             group_lrs)
 
 
 class PackedState(NamedTuple):
@@ -97,32 +97,29 @@ def group_lr_rows(lay: PackedLayout, opt: OptimizationConfig, step,
 def adam_update_packed(ps: PackedState, grad: torch.Tensor,
                        lr: torch.Tensor,
                        visible_mask: Optional[torch.Tensor] = None,
-                       valid: Optional[torch.Tensor] = None,
                        inplace: bool = False) -> PackedState:
     """Dense Adam, or column-masked sparse Adam with ``visible_mask`` [C],
     as one elementwise pass over the block. The math and constants of
     ``gaussian_model.adam_update`` (eps 1e-15, ref: gaussian_model.py:170;
     sparse masking ref: train.py:173-175), so the two agree bitwise.
-    ``valid`` False: no update at all, the step count included (the JAX
-    package's masked-tail gate, fused into the same selects); ``inplace``:
-    as ``gaussian_model.adam_update``. ``lr``: the [R, 1] row rates.
+    ``inplace``: as ``gaussian_model.adam_update``. ``lr``: the [R, 1] row
+    rates.
 
     On a CUDA device the pass is the kernel of ``csrc/adam.cu``
     (``ops/adam.py::adam_packed``); elsewhere its twin,
     :func:`adam_update_packed_plain`."""
     if ps.packed.device.type != "cuda":
-        return adam_update_packed_plain(ps, grad, lr, visible_mask, valid,
-                                        inplace)
-    step, bc1, bc2 = _bias_corrections(ps.step, valid, inplace)
+        return adam_update_packed_plain(ps, grad, lr, visible_mask, inplace)
+    step, bc1, bc2 = _bias_corrections(ps.step, inplace)
     p, m, v = adam_packed(ps.packed, ps.m, ps.v, grad, lr, bc1, bc2,
-                          visible_mask, valid, inplace)
+                          visible_mask, inplace)
     return ps._replace(packed=p, m=m, v=v, step=step)
 
 
-def _bias_corrections(step: torch.Tensor, valid, inplace: bool):
+def _bias_corrections(step: torch.Tensor, inplace: bool):
     """The advanced step count and Adam's 1 - B1^t and 1 - B2^t, 0-d
     tensors on the step's device."""
-    step = _count(step, valid, inplace)
+    step = _count(step, inplace)
     t = step.to(torch.float32)
     return step, 1.0 - ADAM_B1 ** t, 1.0 - ADAM_B2 ** t
 
@@ -130,13 +127,11 @@ def _bias_corrections(step: torch.Tensor, valid, inplace: bool):
 def adam_update_packed_plain(ps: PackedState, grad: torch.Tensor,
                              lr: torch.Tensor,
                              visible_mask: Optional[torch.Tensor] = None,
-                             valid: Optional[torch.Tensor] = None,
                              inplace: bool = False) -> PackedState:
     """The kernel's twin: :func:`adam_update_packed` as PyTorch elementwise
     passes, on any device."""
-    step, bc1, bc2 = _bias_corrections(ps.step, valid, inplace)
-    gate = _gate(None if visible_mask is None else visible_mask[None, :],
-                 valid)
+    step, bc1, bc2 = _bias_corrections(ps.step, inplace)
+    gate = None if visible_mask is None else visible_mask[None, :]
     m = _put(gate, ps.m, inplace, torch.add, ADAM_B1 * ps.m,
              (1 - ADAM_B1) * grad)
     v = _put(gate, ps.v, inplace, torch.add, ADAM_B2 * ps.v,

@@ -1,7 +1,7 @@
 """Adam's pass over the packed block: the kernel of ``csrc/adam.cu``.
 
-``adam_packed(packed, m, v, grad, lr, bc1, bc2, visible_mask, valid,
-inplace)`` takes one Adam step of a channel-major ``[R, C]`` block with its
+``adam_packed(packed, m, v, grad, lr, bc1, bc2, visible_mask, inplace)``
+takes one Adam step of a channel-major ``[R, C]`` block with its
 moments, in one pass that reads the block, ``m``, ``v`` and the gradient
 and writes the block, ``m`` and ``v``. It replaces no TPU kernel: the JAX
 package's update is jnp, which XLA fuses. Its twin, the same arithmetic as
@@ -33,14 +33,14 @@ def _rows(t: torch.Tensor, name: str, rows: int, n: int, dev):
 
 
 def adam_packed(packed, m, v, grad, lr, bc1, bc2, visible_mask=None,
-                valid=None, inplace: bool = False) -> tuple:
+                inplace: bool = False) -> tuple:
     """The kernel: one Adam step of the block ``packed`` [R, C] with its
     moments ``m`` and ``v`` (each may be a column slice of a wider block),
     from ``grad`` [R, C], the row rates ``lr`` [R, 1] and the 0-d bias
-    corrections ``bc1`` and ``bc2``; ``visible_mask`` [C] bool,
-    ``valid`` a 0-d bool, each on the device or None. Returns (packed, m,
-    v): the inputs, written, when ``inplace``; else new tensors, ``valid``
-    False or an unmasked column giving the old values."""
+    corrections ``bc1`` and ``bc2``; ``visible_mask`` [C] bool on the
+    device or None. Returns (packed, m, v): the inputs, written, when
+    ``inplace``; else new tensors, an unmasked column giving the old
+    values."""
     dev = packed.device
     if dev.type != "cuda":
         raise ValueError(f"the Adam kernel runs on cuda, not {dev}")
@@ -64,19 +64,18 @@ def adam_packed(packed, m, v, grad, lr, bc1, bc2, visible_mask=None,
             raise ValueError(f"{name} must be {numel} contiguous float32 on "
                              f"{dev}")
         args.append(t.data_ptr())
-    for name, t, shape in (("visible_mask", visible_mask, (n,)),
-                           ("valid", valid, ())):
-        if t is not None and (t.dtype != torch.bool or t.device != dev
-                              or tuple(t.shape) != shape
-                              or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous bool {list(shape)} "
-                             f"on {dev}")
-        args.append(None if t is None else t.data_ptr())
+    if visible_mask is not None and (
+            visible_mask.dtype != torch.bool or visible_mask.device != dev
+            or tuple(visible_mask.shape) != (n,)
+            or not visible_mask.is_contiguous()):
+        raise ValueError(f"visible_mask must be a contiguous bool [{n}] on "
+                         f"{dev}")
+    args.append(None if visible_mask is None else visible_mask.data_ptr())
     if n == 0:
         return out
     fn = _cuda.function(SOURCE, "gs_adam_packed",
-                        [_PTR, _LL] * 7 + [_PTR] * 5 + [_INT] * 4 + [_PTR])
-    err = fn(*args, int(inplace), rows, n, dev.index, _cuda.stream_ptr(dev))
+                        [_PTR, _LL] * 7 + [_PTR] * 4 + [_INT] * 3 + [_PTR])
+    err = fn(*args, rows, n, dev.index, _cuda.stream_ptr(dev))
     _cuda.check(SOURCE, err, "adam_packed")
     adam_packed.launches += 1
     return out

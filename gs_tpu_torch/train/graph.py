@@ -1,37 +1,35 @@
 """Graphed dispatch of the training step — port of
-``gs_tpu/train/step.py::{make_train_step_chain, make_train_steps_scan}``
-and of the jitted step itself (``make_train_step``'s ``jax.jit``).
+``gs_tpu/train/step.py::make_train_step_chain`` and of the jitted step
+itself (``make_train_step``'s ``jax.jit``).
 
 The JAX package trains a block of steps on its accelerator with the
 training data on the device and the camera picked by a traced index, one
-compiled executable dispatched per step ("chain", the default) or per
-bucket of ``densification_interval`` steps ("scan", a ``lax.scan`` whose
-tail steps a ``valid`` mask turns into exact no-ops); in step mode it
-dispatches its jitted step once per iteration. PyTorch's counterpart of a
-compiled executable replayed per call is a CUDA graph: on a CUDA device,
-:func:`make_train_step_chain` captures one step and replays it once per
-step (and, in step mode, once per call with that call's inputs:
-:meth:`ChainStep.step`), and :func:`make_train_steps_scan` captures a
-whole bucket and replays it once per bucket. On the CPU
-the same bodies run eagerly, in the same order on the same buffers: that
-is the path the CPU tests hold against the JAX package, as the kernels'
-plain versions are.
+compiled executable dispatched per step (its default block dispatch, the
+"chain"); in step mode it dispatches its jitted step once per iteration.
+PyTorch's counterpart of a compiled executable replayed per call is a CUDA
+graph: on a CUDA device, :func:`make_train_step_chain` captures one step
+and replays it once per step of a block, and in step mode once per call
+with that call's inputs (:meth:`ChainStep.step`). On the CPU the same body
+runs eagerly, in the same order on the same buffers: that is the path the
+CPU tests hold against the JAX package, as the kernels' plain versions
+are. The JAX package's other block dispatch, a ``lax.scan`` over a bucket
+of steps, is not ported: a graph replay costs a few microseconds of a step
+of many milliseconds, so one replay a bucket has nothing to save.
 
-The graphs read and write static tensors. A bucket's inputs (camera
-indices, iterations, schedule rows, backgrounds and the ``valid`` mask)
-are uploaded into static buffers once per bucket; the chain copies its
-row of them into its step inputs on the device before each replay. The
-state is updated in place: the step's last operation writes each new
-value into the state's own tensor (``inplace`` in
-``models/gaussian_model.py``), so no step copies the state (a packed state
-of 1,048,576 slots holds ~0.8 GB of parameters and moments). Alternating
-between two captures would need a second state and buys nothing here.
-Density control writes its result into the static tensors too
-(:class:`DensityGraph`, which the runner holds). A state handed in from
-outside (the trainer's snapshot for an overflow replay, a checkpoint, an
-eager densify's result) is copied into the static tensors; one of another
-shape (a capacity growth) makes new static tensors and a new capture. A
-caller that keeps a state past the
+The graph reads and writes static tensors. A bucket's inputs (camera
+indices, iterations, schedule rows and backgrounds) are uploaded into
+static buffers once per bucket; the chain copies its row of them into its
+step inputs on the device before each replay. The state is updated in
+place: the step's last operation writes each new value into the state's
+own tensor (``inplace`` in ``models/gaussian_model.py``), so no step
+copies the state (a packed state of 1,048,576 slots holds ~0.8 GB of
+parameters and moments). Alternating between two captures would need a
+second state and buys nothing here. Density control writes its result
+into the static tensors too (:class:`DensityGraph`, which the chain
+holds). A state handed in from outside (the trainer's snapshot for an
+overflow replay, a checkpoint, an eager densify's result) is copied into
+the static tensors; one of another shape (a capacity growth) makes new
+static tensors and a new capture. A caller that keeps a state past the
 next replay (the trainer's snapshot) keeps a copy of every static tensor
 in it (``unshared``): those change at every replay.
 
@@ -48,7 +46,7 @@ Under a mesh (``train_step.mesh``, a group of ``parallel/mesh.py``) the
 step is the banded multi-GPU step, and the graph holds its collectives
 too: a ``LocalGroup``'s concatenations and sums, a ``ProcessGroup``'s NCCL
 all-gathers, reduce-scatters and all-reduces (on gloo, CPU tensors, the
-bodies run eagerly). Every rank of a ``ProcessGroup`` captures at the same
+body runs eagerly). Every rank of a ``ProcessGroup`` captures at the same
 points, because what decides a capture is what all ranks share: the
 shapes, and the gathered overflow statistics behind a growth. Each rank's
 warm-up runs the step's collectives before the capture, so NCCL's
@@ -59,28 +57,27 @@ collective). NCCL destroys a communicator only after every graph that
 captured its collectives is gone, so ``ProcessGroup.close`` releases the
 graphs of its group before it destroys the group. The bucket's metrics
 then also carry the largest shard's visible count and the largest band's
-duplicates over the bucket's valid steps, from which the trainer grows
+duplicates over the bucket's steps, from which the trainer grows
 ``visible_capacity`` and the per-band ``dup_capacity``; ``captures``
 records the whole state's capacity.
 
-The random background of a bucket is drawn before it, all B draws at
-once, in both modes, as the JAX trainer splits one key into B per bucket:
-chain and scan see the same backgrounds and no generator runs inside a
-graph. Step mode draws its background before each call, the eager step's
-own ``torch.rand(3)`` in the eager order (the densify's noise comes from
-the same generator). Each graph adds the launches its capture made to the
-kernel wrappers' counters at every replay.
+The random backgrounds of a bucket are drawn before it, all B draws at
+once, as the JAX trainer splits one key into B per bucket: no generator
+runs inside a graph. Step mode draws its background before each call, the
+eager step's own ``torch.rand(3)`` in the eager order (the densify's noise
+comes from the same generator). The graph adds the launches its capture
+made to the kernel wrappers' counters at every replay.
 
 Density control, the port of the JAX trainer's jitted ``densify_and_prune``
 and ``reset_opacity``, is :class:`DensityGraph`: one captured graph per
 densify and one per opacity reset, which write into the step graph's
-static state; the runner holds it (:meth:`_Graphed.density_control`) and
+static state; the chain holds it (:meth:`ChainStep.density_control`) and
 releases it with its own graph.
 """
 from __future__ import annotations
 
 import time
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -104,7 +101,7 @@ class TrainingData(NamedTuple):
     depth_oks: Optional[torch.Tensor] = None  # [V] float32
 
 
-# the bucket's metrics folded over its valid steps: the worst overflow and
+# the bucket's metrics folded over its steps: the worst overflow and
 # the largest counts (the last two under a mesh only), as
 # ``gs_tpu/train/step.py:291-299`` and ``train/loop.py::_fold_window``
 FOLDED = ("overflow", "num_duplicates", "max_tile_len", "max_band_visible",
@@ -131,12 +128,12 @@ def clone_state(state):
     return state_from_leaves(state, [t.clone() for t in state_leaves(state)])
 
 
-class _Graphed:
-    """What the chain and the scan share: the static state, the bucket's
-    input buffers, the capture and the replay."""
+class ChainStep:
+    """One step per call over the device-resident data (see
+    :func:`make_train_step_chain`): the static state, the bucket's input
+    buffers, the capture, the replay and density control."""
 
-    mode = ""
-    label = ""        # what the capture's messages call it
+    label = "chain step"      # what the capture's messages call it
 
     def __init__(self, train_step, *, use_alpha: bool, use_depth: bool,
                  bucket: int):
@@ -159,9 +156,14 @@ class _Graphed:
         # per step: camera index and iteration; schedule row and background
         self.ints = torch.zeros((b, 2), dtype=torch.int64, device=dev)
         self.floats = torch.zeros((b, 6), dtype=torch.float32, device=dev)
-        self.valid = torch.zeros((b,), dtype=torch.bool, device=dev)
         # the loaded bucket's iterations, on the host: its spans' units
         self.iterations: list = [0] * b
+        # the replayed step's inputs, a row of the bucket's
+        self.row_ints = torch.zeros((2,), dtype=torch.int64, device=dev)
+        self.row_floats = torch.zeros((6,), dtype=torch.float32, device=dev)
+        self.out: Optional[StepMetrics] = None
+        # the bucket's FOLDED metrics, by name
+        self.fold: Optional[dict] = None
 
     # ------------------------------------------------------------ the state
 
@@ -214,19 +216,20 @@ class _Graphed:
         return self.density
 
     def load(self, ints: torch.Tensor, floats: torch.Tensor,
-             valid: torch.Tensor):
-        """A bucket's inputs into the static buffers: ``ints`` [B, 2]
-        int64 (camera index, iteration), ``floats`` [B, 6] float32 (the
-        schedule row, the background), ``valid`` [B] bool."""
-        self.ints.copy_(ints, non_blocking=True)
-        self.floats.copy_(floats, non_blocking=True)
-        self.valid.copy_(valid, non_blocking=True)
-        self.iterations = ints[:, 1].tolist()
+             iterations: Sequence[int]):
+        """A bucket's inputs into the static buffers, one row a step (at
+        most ``bucket``): ``ints`` [b, 2] int64 (camera index, iteration),
+        ``floats`` [b, 6] float32 (the schedule row, the background), and
+        the rows' iterations on the host."""
+        b = ints.shape[0]
+        self.ints[:b].copy_(ints, non_blocking=True)
+        self.floats[:b].copy_(floats, non_blocking=True)
+        self.iterations = [int(i) for i in iterations]
 
     # ------------------------------------------------------------- the step
 
     def step_body(self, state, ints: torch.Tensor, floats: torch.Tensor,
-                  valid: Optional[torch.Tensor] = None, inplace: bool = True):
+                  inplace: bool = True):
         """One step on ``state`` (in place unless ``inplace`` is False), its
         camera and iteration from ``ints`` [2], its schedule row and
         background from ``floats`` [6], its views gathered from the data by
@@ -248,7 +251,33 @@ class _Graphed:
             invd = dmask = dok = None
         bg = floats[3:] if self.random_background else None
         return self.core(state, ints[0], ints[1], floats[:3], gt, alpha,
-                         invd, dmask, dok, bg, valid=valid, inplace=inplace)
+                         invd, dmask, dok, bg, inplace=inplace)
+
+    def _warm_up(self, state):
+        _, m = self.step_body(state, self.row_ints, self.row_floats)
+        self._make_fold(m)
+        spans.stage("end", self.device)
+
+    def _body(self):
+        """What the graph holds: one step of the static state from the row
+        inputs, folded into the bucket's metrics."""
+        self.state, self.out = self.step_body(self.state, self.row_ints,
+                                              self.row_floats)
+        self._make_fold(self.out)
+        self._fold_in(self.out)
+        spans.stage("end", self.device)
+
+    def _make_fold(self, m: StepMetrics):
+        # outside any capture: a zero fill made inside one would replay
+        if self.fold is None:
+            self.fold = {k: torch.zeros_like(getattr(m, k)) for k in FOLDED
+                         if getattr(m, k) is not None}
+
+    def _fold_in(self, m: StepMetrics):
+        """The bucket's worst overflow and largest counts, in place."""
+        for k, acc in self.fold.items():
+            op = torch.logical_or if k == "overflow" else torch.maximum
+            op(acc, getattr(m, k), out=acc)
 
     # -------------------------------------------------- capture and replay
 
@@ -262,8 +291,8 @@ class _Graphed:
     def _capture(self):
         mesh = self.mesh
         warm = [clone_state(self.state)]
-        cap = capture(self.device, lambda: self.warm_up(warm.pop()),
-                      self.graph_body, self.label, mesh=mesh, owner=self)
+        cap = capture(self.device, lambda: self._warm_up(warm.pop()),
+                      self._body, self.label, mesh=mesh, owner=self)
         self.counts = cap.counts
         self.graph = cap.graph
         ms = 1e3 * (time.perf_counter() - cap.start)
@@ -293,54 +322,9 @@ class _Graphed:
         elif self.graphed:
             raise RuntimeError(f"the {self.label} was not captured")
         else:
-            self.graph_body()
+            self._body()
 
-    def warm_up(self, state):
-        raise NotImplementedError
-
-    def graph_body(self):
-        raise NotImplementedError
-
-
-class ChainStep(_Graphed):
-    """One step per call over the device-resident data (see
-    :func:`make_train_step_chain`)."""
-
-    mode = "chain"
-    label = "chain step"
-
-    def __init__(self, train_step, **kw):
-        super().__init__(train_step, **kw)
-        dev = self.device
-        self.row_ints = torch.zeros((2,), dtype=torch.int64, device=dev)
-        self.row_floats = torch.zeros((6,), dtype=torch.float32, device=dev)
-        self.out: Optional[StepMetrics] = None
-        # the bucket's FOLDED metrics, by name
-        self.fold: Optional[dict] = None
-
-    def warm_up(self, state):
-        _, m = self.step_body(state, self.row_ints, self.row_floats)
-        self._make_fold(m)
-        spans.stage("end", self.device)
-
-    def _make_fold(self, m: StepMetrics):
-        # outside any capture: a zero fill made inside one would replay
-        if self.fold is None:
-            self.fold = {k: torch.zeros_like(getattr(m, k)) for k in FOLDED
-                         if getattr(m, k) is not None}
-
-    def graph_body(self):
-        self.state, self.out = self.step_body(self.state, self.row_ints,
-                                              self.row_floats)
-        self._make_fold(self.out)
-        self._fold_in(self.out)
-        spans.stage("end", self.device)
-
-    def _fold_in(self, m: StepMetrics):
-        """The bucket's worst overflow and largest counts, in place."""
-        for k, acc in self.fold.items():
-            op = torch.logical_or if k == "overflow" else torch.maximum
-            op(acc, getattr(m, k), out=acc)
+    # ------------------------------------------------------------ the calls
 
     def __call__(self, state, data: TrainingData, j: int):
         """Step ``j`` of the loaded bucket on ``state`` (copied into the
@@ -394,65 +378,6 @@ class ChainStep(_Graphed):
                                          for k, x in self.fold.items()})
 
 
-class ScanSteps(_Graphed):
-    """One bucket per call (see :func:`make_train_steps_scan`)."""
-
-    mode = "scan"
-    label = "scan step"
-
-    def __init__(self, train_step, **kw):
-        super().__init__(train_step, **kw)
-        self.out: Optional[StepMetrics] = None
-
-    def warm_up(self, state):
-        self.step_body(state, self.ints[0], self.floats[0],
-                       valid=self.valid[0])
-        spans.stage("end", self.device)
-
-    def graph_body(self):
-        state, ms = self.state, []
-        for j in range(self.bucket):
-            state, m = self.step_body(state, self.ints[j], self.floats[j],
-                                      valid=self.valid[j])
-            ms.append(m)
-        self.state = state
-        v = self.valid
-        last = torch.clamp(v.sum() - 1, min=0).reshape(1)
-
-        def column(name):
-            return torch.stack([getattr(m, name) for m in ms])
-
-        def pick(name):
-            return column(name).index_select(0, last)[0]
-
-        def largest(name):
-            x = column(name)
-            return torch.where(v, x, torch.zeros_like(x)).max()
-
-        self.out = StepMetrics(
-            loss=pick("loss"), l1=pick("l1"), ssim=pick("ssim"),
-            depth_l1=pick("depth_l1"), n_visible=pick("n_visible"),
-            overflow=(column("overflow") & v).any(),
-            **{k: largest(k) for k in FOLDED[1:]
-               if getattr(ms[0], k) is not None})
-        spans.stage("end", self.device)
-
-    def __call__(self, state, data: TrainingData):
-        """The loaded bucket on ``state``, one replay: its valid steps
-        update the state, the masked ones leave it exactly as it was.
-        Returns the static state and the last valid step's metrics with
-        the bucket's worst overflow and largest counts (copies)."""
-        self.bind(state, data)
-        with spans.span("train.step", unit=self.iterations[0]):
-            self.dispatch()
-        return self.state, StepMetrics(*[
-            x.clone() if isinstance(x, torch.Tensor) else x
-            for x in self.out])
-
-    def run(self, state, data: TrainingData, b: int):
-        return self(state, data)
-
-
 def make_train_step_chain(train_step, *, use_alpha: bool, use_depth: bool,
                           bucket: int = 1) -> ChainStep:
     """Single-step dispatch with the device-resident training data: the
@@ -472,20 +397,6 @@ def make_train_step_chain(train_step, *, use_alpha: bool, use_depth: bool,
                      bucket=bucket)
 
 
-def make_train_steps_scan(train_step, *, use_alpha: bool, use_depth: bool,
-                          bucket: int) -> ScanSteps:
-    """``bucket`` steps per dispatch, each step gated by its entry of the
-    bucket's ``valid`` mask (False: the state is left exactly as it was),
-    so blocks of any length share one capture. The bucket's metrics are
-    the last valid step's, with the worst overflow and the largest
-    ``num_duplicates`` and ``max_tile_len`` (under a mesh also
-    ``max_band_visible`` and ``max_band_duplicates``) over its valid steps
-    (``gs_tpu/train/step.py:291-299``). ``train_step`` as for
-    :func:`make_train_step_chain`."""
-    return ScanSteps(train_step, use_alpha=use_alpha, use_depth=use_depth,
-                     bucket=bucket)
-
-
 class DensityGraph:
     """Density control as CUDA graphs: the port of the JAX trainer's jitted
     ``densify_and_prune`` and ``reset_opacity`` (``gs_tpu/train/loop.py:
@@ -495,11 +406,11 @@ class DensityGraph:
     A DensityGraph works on the one ``state`` it is made with (a
     TrainState or PackedState; under ``mesh`` its local shards): each graph
     reads it and writes its result into its own tensors, in place
-    (``copy_`` after every read). The step runners hold one on their
-    static state (:meth:`_Graphed.density_control`), so the next step's
-    replay takes the result as its own, with no copy, and the view graphs,
-    which hold the same tensors, keep their captures; a runner with new
-    static tensors makes a new one. The densify's static inputs are the
+    (``copy_`` after every read). The chain holds one on its static state
+    (:meth:`ChainStep.density_control`), so the next step's replay takes
+    the result as its own, with no copy, and the view graphs, which hold
+    the same tensors, keep their captures; a chain with new static tensors
+    makes a new one. The densify's static inputs are the
     split noise ``noise`` [C, 3] (C the whole capacity; the caller draws it
     there, or hands in a tensor that is copied there) and
     ``use_size_threshold`` as a 0-d bool tensor; its :class:`DensifyInfo`

@@ -23,26 +23,25 @@ iterations, and after every densify, whose growth check reads the alive
 count, as the JAX trainer's ``_maybe_grow`` does).
 
 Step mode runs one iteration at a time, as the JAX trainer dispatches
-its jitted step once per iteration (``gs_tpu/train/loop.py:261-280``): on
-CUDA each iteration replays one captured CUDA graph of the step
-(``train/graph.py::ChainStep.step``), its camera, iteration,
-schedule row and background loaded into the graph's inputs; on the CPU the
-same body runs eagerly. Block mode (``train(block_scan=True)``,
-``run_block``) runs schedule-aligned blocks with the JAX trainer's block
-dispatch (``train/graph.py``): ``block_dispatch`` "chain" (the default,
-``gs_tpu/train/loop.py:158-164``) replays a CUDA graph of one step per
-iteration, "scan" one of a bucket of ``densification_interval`` steps per
-bucket; on the CPU the same bodies run eagerly. The graph updates its
-static state in place, so the snapshot at a sync is a copy of it, and the
-metrics the trainer keeps are copies of the graph's; whatever replaces
-the state between steps or blocks (densify, opacity reset, an overflow
-replay's snapshot, a resumed checkpoint) is copied into the static
-tensors at the next one. A growth of the capacity, or of the binning
-buffers (which rebuilds the step), captures again; ``captures`` records
-each capture's capacity, time and graph-pool peak. Under a ``mesh`` the block goes through the same
-chain or scan, whose graph then holds the banded step and its
+its jitted step once per iteration (``gs_tpu/train/loop.py:261-280``);
+block mode (``train(block_scan=True)``, ``run_block``) runs
+schedule-aligned blocks, as the JAX trainer's default block dispatch, its
+chain, does (``gs_tpu/train/loop.py:158-164``). Both go through one
+runner, ``train/graph.py::ChainStep``: on CUDA each iteration replays one
+captured CUDA graph of the step, its camera, iteration, schedule row and
+background loaded into the graph's inputs (step mode through
+``ChainStep.step``; block mode from a bucket of at most
+``densification_interval`` rows uploaded once); on the CPU the same body
+runs eagerly. The graph updates its static state in place, so the
+snapshot at a sync is a copy of it, and the metrics the trainer keeps are
+copies of the graph's; whatever replaces the state between steps or
+blocks (densify, opacity reset, an overflow replay's snapshot, a resumed
+checkpoint) is copied into the static tensors at the next one. A growth
+of the capacity, or of the binning buffers (which rebuilds the step),
+captures again; ``captures`` records each capture's capacity, time and
+graph-pool peak. Under a ``mesh`` the graph holds the banded step and its
 collectives, as the JAX trainer dispatches its block under a mesh
-(``gs_tpu/train/loop.py:327-375``); on gloo the bodies run eagerly.
+(``gs_tpu/train/loop.py:327-375``); on gloo the body runs eagerly.
 
 Under a ``mesh`` (a group of ``parallel/mesh.py``) the state is this
 process's shards of a capacity padded to a multiple of the group's size
@@ -113,8 +112,8 @@ from ..parallel.mesh import gather_state, pad_state, shard_state
 from ..render import (MAX_DUP_CAPACITY, RenderOutput, ViewGraph,
                       overflow_changes, render_grown)
 from ..utils import spans
-from .graph import (DensityGraph, TrainingData, make_train_step_chain,
-                    make_train_steps_scan)
+from .graph import (ChainStep, DensityGraph, TrainingData,
+                    make_train_step_chain)
 from .step import StepMetrics, make_train_step, mask_sh_rest
 
 
@@ -252,10 +251,8 @@ class Trainer:
         if self.packed:
             self.state = pack_state(self.state)
 
-        # block dispatch: "chain" replays one captured step per iteration,
-        # "scan" one captured bucket of densification_interval steps
-        self.block_dispatch = "chain"
-        self._runner = None
+        # the graphed step of step and block mode, built when first needed
+        self._runner: Optional[ChainStep] = None
         self.captures: list = []      # every capture: capacity, ms, pool peak
         # the view's graphs (render_view, evaluate, the viewer), banded
         # under a mesh
@@ -365,11 +362,10 @@ class Trainer:
 
     def _density_control(self, state) -> DensityGraph:
         """Density control on the step graph's static state, with
-        ``state`` bound into it first: the current runner's (else one for
-        ``block_dispatch``), which the next step replays, so the view
-        graphs, which read the same tensors, keep their captures."""
-        runner = self._graph_runner(self._runner.mode if self._runner
-                                    else self.block_dispatch)
+        ``state`` bound into it first: the chain's, which the next step
+        replays, so the view graphs, which read the same tensors, keep
+        their captures."""
+        runner = self._graph_runner()
         runner.bind(state, self._data)
         return runner.density_control()
 
@@ -440,7 +436,7 @@ class Trainer:
             bg = (torch.rand(3, generator=self.generator, device=self.device)
                   if self.opt.random_background else None)
             sched = torch.from_numpy(self.train_step.schedule(i)[0])
-            self.state, metrics = self._graph_runner("chain").step(
+            self.state, metrics = self._graph_runner().step(
                 self.state, self._data, idx, i, sched, bg)
         self._window_metrics = _fold_window(metrics, self._window_metrics)
         self._last_metrics = self._window_metrics
@@ -473,18 +469,14 @@ class Trainer:
         keeps densify/reset boundaries out of the block (``train`` aligns
         blocks to the schedule).
 
-        The block goes through ``block_dispatch``, on one device or under a
+        The block goes through the chain, on one device or under a
         ``mesh``: buckets of at most ``densification_interval`` steps, each
         bucket's camera picks, iterations, schedule rows and backgrounds
-        uploaded once; "chain" replays the captured step once per
-        iteration, "scan" the captured bucket once (its tail steps
-        masked)."""
+        uploaded once, and the captured step replayed once per
+        iteration."""
         self._log(("block", k))
-        if self.block_dispatch not in ("chain", "scan"):
-            raise ValueError(f"block_dispatch {self.block_dispatch!r}: "
-                             f"'chain' or 'scan'")
         with spans.span("train.block", unit=self.iteration + 1):
-            runner = self._graph_runner(self.block_dispatch)
+            runner = self._graph_runner()
             done = 0
             while done < k:
                 b = min(runner.bucket, k - done)
@@ -500,14 +492,13 @@ class Trainer:
             self._last_metrics = self._window_metrics
             return self._last_metrics
 
-    def _graph_runner(self, mode: str):
-        """Block mode's chain or scan of the current step, built when first
-        needed (and again after ``_build_step`` or a change of mode); step
-        mode replays the chain's graph through its ``step`` entry."""
-        if self._runner is None or self._runner.mode != mode:
-            maker = (make_train_step_chain if mode == "chain"
-                     else make_train_steps_scan)
-            self._runner = maker(
+    def _graph_runner(self) -> ChainStep:
+        """The chain of the current step, built when first needed (and
+        again after ``_build_step``): block mode replays it once per
+        iteration of a loaded bucket, step mode through its ``step``
+        entry."""
+        if self._runner is None:
+            self._runner = make_train_step_chain(
                 self.train_step, use_alpha=self.alphas is not None,
                 use_depth=self.use_depth,
                 bucket=max(int(self.opt.densification_interval), 1))
@@ -516,21 +507,21 @@ class Trainer:
         return self._runner
 
     def _bucket_inputs(self, cams: list, bucket: int):
-        """One bucket's inputs: [B, 2] camera indices and iterations, [B, 6]
-        schedule rows and backgrounds, [B] valid (the first len(cams)). The
-        tail repeats the last camera, as the JAX trainer's does; all B
-        backgrounds are drawn, in one call, whatever the mode."""
+        """The inputs of a bucket of b = len(cams) steps, for
+        ``ChainStep.load``: [b, 2] camera indices and iterations, [b, 6]
+        schedule rows and backgrounds, and the iterations on the host. All
+        ``bucket`` backgrounds are drawn, in one call, as the JAX trainer
+        splits its key into a bucket's draws, and the first b are used."""
         b = len(cams)
-        its = self.iteration + 1 + np.arange(bucket)
-        idxs = np.array(cams + cams[-1:] * (bucket - b), np.int64)
-        ints = torch.from_numpy(np.stack([idxs, its], 1))
-        floats = torch.zeros((bucket, 6))
+        its = self.iteration + 1 + np.arange(b)
+        ints = torch.from_numpy(np.stack([np.array(cams, np.int64), its], 1))
+        floats = torch.zeros((b, 6))
         floats[:, :3] = torch.from_numpy(self.train_step.schedule(its))
         floats = floats.to(self.device, non_blocking=True)
         if self.opt.random_background:
             floats[:, 3:] = torch.rand((bucket, 3), generator=self.generator,
-                                       device=self.device)
-        return ints, floats, torch.from_numpy(np.arange(bucket) < b)
+                                       device=self.device)[:b]
+        return ints, floats, its.tolist()
 
     def _next_boundary(self, i: int, end: int, extra=()) -> int:
         """Next schedule event strictly after iteration i."""

@@ -116,13 +116,12 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
     state is a ``PackedState``.
 
     ``step.core(state, cam_idx, iteration, sched, gt_image, alpha_mask,
-    invdepth_gt, depth_mask, depth_ok, bg=None, *, valid=None,
-    inplace=False)`` is the device-indexed step: ``cam_idx`` and
-    ``iteration`` 0-d int64 tensors, ``sched`` a [3] row of
-    :func:`schedule_table`, ``depth_ok`` a 0-d float32 tensor (read only
-    with ``invdepth_gt``), ``bg`` None for the static background. ``valid``
-    (0-d bool) gates every update, as the JAX core's; ``inplace`` writes
-    the new state into the given one (``models/gaussian_model.py``).
+    invdepth_gt, depth_mask, depth_ok, bg=None, *, inplace=False)`` is
+    the device-indexed step: ``cam_idx`` and ``iteration`` 0-d int64
+    tensors, ``sched`` a [3] row of :func:`schedule_table`, ``depth_ok`` a
+    0-d float32 tensor (read only with ``invdepth_gt``), ``bg`` None for
+    the static background. ``inplace`` writes the new state into the given
+    one (``models/gaussian_model.py``).
     ``step.schedule(iterations)`` is :func:`schedule_table` for this
     step's configuration; ``step.mesh`` is ``mesh``."""
     width, height = cams.width, cams.height
@@ -153,8 +152,7 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
              invdepth_gt: Optional[torch.Tensor] = None,
              depth_mask: Optional[torch.Tensor] = None,
              depth_ok: Optional[torch.Tensor] = None,
-             bg: Optional[torch.Tensor] = None, *,
-             valid: Optional[torch.Tensor] = None, inplace: bool = False):
+             bg: Optional[torch.Tensor] = None, *, inplace: bool = False):
         index = cam_idx.reshape(1)
         cam = cams.select_index(index)
         active_sh_degree = torch.clamp(iteration // 1000, max=max_sh_degree)
@@ -229,31 +227,29 @@ def make_train_step(opt: OptimizationConfig, model_cfg: ModelConfig,
             stats_gate = out.visibility & (iteration < opt.densify_until_iter)
             state = add_densification_stats(
                 state, tap_grad, stats_gate, width, height, out.radii,
-                scale=stats_scale, valid=valid, inplace=inplace)
+                scale=stats_scale, inplace=inplace)
             visible = out.visibility if use_sparse else None
             banded = out.band_visible is not None
             n_vis = (torch.sum(out.visibility) if use_sparse or not banded
                      else None)
             if use_sparse:
-                written = n_vis if valid is None else n_vis * valid
-                spans.count("adam_columns", written.reshape(1))
+                spans.count("adam_columns", n_vis.reshape(1))
             if packed:
                 # the xyz rows take the scheduled rate, by selection
                 lr = torch.where(xyz_rows, sched[0], lr_fixed)
                 state = adam_update_packed(state, grads[0], lr, visible,
-                                           valid=valid, inplace=inplace)
+                                           inplace=inplace)
             else:
                 state = adam_update(
                     state, GaussianParams(*grads[:len(leaves)]),
                     lrs_fixed._replace(xyz=sched[0]), visible,
-                    valid=valid, inplace=inplace)
+                    inplace=inplace)
             if use_exposure:
                 spans.stage("exposure", dev)
                 full = torch.zeros_like(state.exposure).index_copy_(
                     0, index, grads[-1][None])
                 state = exposure_update(state, full, opt, iteration,
-                                        valid=valid, lr=sched[1],
-                                        inplace=inplace)
+                                        lr=sched[1], inplace=inplace)
             metrics = StepMetrics(
                 loss=loss.detach(), l1=ll1.detach(), ssim=ssim_v.detach(),
                 depth_l1=dl1.detach(), num_duplicates=out.num_duplicates,

@@ -16,7 +16,7 @@ gradient arrives. Stamps change no value.
 
 A unit of work opens at one of :data:`OPENERS` (``step``, ``frame``, and
 density control's ``densify`` and ``reset_opacity``) and closes at ``end``
-or at the next opener (the steps of a scan share one ``end``). A stage's
+or at the next opener. A stage's
 time runs from its stamp to the next stamp; a stage stamped several times in
 a unit sums; what runs between an ``end`` and the next opener (the host
 between replays) is in no stage. :func:`stage_ms` copies the ring back (a

@@ -8,8 +8,8 @@ On the CPU:
 * ``adam_update_packed`` runs the twin and launches nothing, and the
   kernel's wrapper refuses a block that is not on a CUDA device;
 * the twin equals the tree layout's ``adam_update`` bit for bit, dense and
-  column-masked, with ``valid`` absent, True and False, in place (into the
-  state's own tensors) and not;
+  column-masked, at Adam's first update, an early one and a late one, in
+  place (into the state's own tensors) and not;
 * a ``Trainer`` constructed from a packed start state that serves views
   through ``render_view`` and ``viewer/server.py::frame_bytes`` launches no
   Adam kernel and asks for no Adam library: the view's path runs nothing
@@ -56,21 +56,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SH = 3
 N = 333                  # an odd width: the vector loop leaves a tail of 1
 PAD = (8, 7)             # the slice's columns before and after, in the block
-STEP = 7                 # Adam's count before the update
 LR_SCALE = 1.5
 MASKS = (False, True)
-VALIDS = (None, True, False)
+# Adam's count before the update: the first update's bias corrections, an
+# early step's and a late one's
+STEPS = (0, 7, 29_999)
 INPLACE = (False, True)
-CASES = [(m, v, i) for m in MASKS for v in VALIDS for i in INPLACE]
+CASES = [(m, t, i) for m in MASKS for t in STEPS for i in INPLACE]
 
 
 def _ids(case):
-    mask, valid, inplace = case
-    return (f"{'masked' if mask else 'dense'}-valid_{valid}-"
+    mask, step, inplace = case
+    return (f"{'masked' if mask else 'dense'}-step_{step}-"
             f"{'inplace' if inplace else 'new'}")
 
 
-def _inputs(device, n=N, seed=0):
+def _inputs(device, n=N, seed=0, step=7):
     """(state, grad, lr [R, 1], visible mask [n]) of a degree-3 block."""
     rng = np.random.default_rng(seed)
     rows = pk.layout(SH).rows
@@ -87,21 +88,18 @@ def _inputs(device, n=N, seed=0):
         packed=t(rng.normal(0, 1, (rows, n))), alive=t(rng.random(n) < 0.8,
                                                        torch.bool),
         m=t(rng.normal(0, 1e-3, (rows, n))), v=t(v),
-        step=t(STEP, torch.int32), grad_accum=t(np.zeros(n)),
+        step=t(step, torch.int32), grad_accum=t(np.zeros(n)),
         denom=t(np.zeros(n)), max_radii2D=t(np.zeros(n), torch.int32),
         exposure=t(np.zeros((1, 3, 4))), exp_m=t(np.zeros((1, 3, 4))),
         exp_v=t(np.zeros((1, 3, 4))), exp_step=t(0, torch.int32))
-    lr = group_lr_rows(pk.layout(SH), OptimizationConfig(), STEP + 1,
+    lr = group_lr_rows(pk.layout(SH), OptimizationConfig(), step + 1,
                        LR_SCALE, device=device)
     return state, t(grad), lr, t(rng.random(n) < 0.55, torch.bool)
 
 
-def _args(case, mask, device):
-    use_mask, valid, inplace = case
-    return dict(visible_mask=mask if use_mask else None,
-                valid=None if valid is None else torch.tensor(
-                    valid, device=device),
-                inplace=inplace)
+def _args(case, mask):
+    use_mask, _, inplace = case
+    return dict(visible_mask=mask if use_mask else None, inplace=inplace)
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -137,11 +135,12 @@ def test_twin_is_the_tree_layouts_adam_bitwise(case):
     """The packed twin against ``gaussian_model.adam_update`` on the same
     state, gradient and rates, leaf by leaf; in place, into the state's
     own tensors."""
-    state, grad, lr, mask = _inputs("cpu")
-    kw = _args(case, mask, "cpu")
+    step = case[1]
+    state, grad, lr, mask = _inputs("cpu", step=step)
+    kw = _args(case, mask)
     tree0 = unpack_state(_clone(state))
     tree = adam_update(tree0, pk.unpack_params(grad, SH),
-                       group_lrs(OptimizationConfig(), STEP + 1, LR_SCALE),
+                       group_lrs(OptimizationConfig(), step + 1, LR_SCALE),
                        **kw)
     before = _clone(state)
     got = adam_update_packed(state, grad, lr, **kw)
@@ -149,11 +148,8 @@ def test_twin_is_the_tree_layouts_adam_bitwise(case):
     for name in ("params", "m", "v"):
         for x, y in zip(getattr(un, name), getattr(tree, name)):
             assert _same_bits(x, y), name
-    assert int(got.step) == int(tree.step) == STEP + (kw["valid"] is None
-                                                      or bool(kw["valid"]))
-    if case[1] is False:
-        for name in ("packed", "m", "v"):
-            assert _same_bits(getattr(got, name), getattr(before, name))
+    assert int(got.step) == int(tree.step) == step + 1
+    assert not _same_bits(got.packed, before.packed)
     if case[2]:
         assert all(getattr(got, k) is getattr(state, k)
                    for k in ("packed", "m", "v", "step"))
@@ -263,8 +259,8 @@ LAYOUTS = {   # name: (width, the column offset of the slice or None)
 def test_kernel_equals_its_twin_bitwise(case, layout, cuda_device):
     dev = cuda_device
     n, lo = LAYOUTS[layout]
-    state, grad, lr, mask = _inputs(dev, n)
-    kw = _args(case, mask, dev)
+    state, grad, lr, mask = _inputs(dev, n, step=case[1])
+    kw = _args(case, mask)
     want = adam_update_packed_plain(_clone(state), grad, lr, **kw)
     runs = []
     for _ in range(2):
@@ -297,15 +293,13 @@ def test_captured_step_counts_its_replays(cuda_device):
     from gs_tpu_torch.utils.cuda_graphs import capture, replay
     dev = cuda_device
     state, grad, lr, mask = _inputs(dev, n=4096)
-    valid = torch.tensor(True, device=dev)
     static = _clone(state)
 
     def warm_up():
-        adam_update_packed(_clone(state), grad, lr, mask, valid=valid,
-                           inplace=True)
+        adam_update_packed(_clone(state), grad, lr, mask, inplace=True)
 
     def body():
-        adam_update_packed(static, grad, lr, mask, valid=valid, inplace=True)
+        adam_update_packed(static, grad, lr, mask, inplace=True)
 
     cap = capture(dev, warm_up, body, "adam")
     assert cap.counts[adam_packed] == 1
@@ -318,7 +312,7 @@ def test_captured_step_counts_its_replays(cuda_device):
     assert adam_packed.launches == before + 2
     want = state
     for _ in range(2):
-        want = adam_update_packed_plain(want, grad, lr, mask, valid=valid)
+        want = adam_update_packed_plain(want, grad, lr, mask)
     for x, y in zip(static, want):
         assert _same_bits(x, y)
 

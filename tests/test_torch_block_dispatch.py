@@ -1,6 +1,6 @@
-"""The block dispatch of gs_tpu_torch.train.graph against the eager step
-and against gs_tpu's make_train_step_chain / make_train_steps_scan and
-block Trainer, on the CPU.
+"""The block dispatch of gs_tpu_torch.train.graph (the chain) against the
+eager step, against step mode and against gs_tpu's make_train_step_chain
+and block Trainer, on the CPU.
 
 The scene is tests/test_block_scan.py's: four 64x48 views of uniform
 noise, 50 points, SH degree 1, capacity 256; here each view has its own
@@ -8,14 +8,15 @@ small camera offset, an alpha mask and a depth map, so the device index
 picks something that differs. The JAX package runs its binned backend,
 the port its kernel path (the plain versions on CPU tensors).
 
-On the CPU the chain and the scan run their bodies eagerly, in place on
-their static state, and are held bitwise to the eager per-step wrapper
-(the same arithmetic, picked by device index instead of a Python index).
+On the CPU the chain runs its body eagerly, in place on its static
+state, and is held bitwise to the eager per-step wrapper (the same
+arithmetic, picked by device index instead of a Python index), step by
+step and over the first b rows of a loaded bucket with the bucket's folded
+metrics; the block Trainer is held bitwise to the Trainer in step mode.
 Against the JAX package: losses within 1e-5 relative and parameters under
 tests/test_torch_trainer.py::assert_params_close, as the step tests hold
-them; the block Trainers within test_block_scan.py's atol 5e-4. A masked
-step (``valid`` False) is an exact no-op, step counters included. The
-CUDA case holds three graphed steps bitwise to three eager ones and skips
+them; the block Trainers within test_block_scan.py's atol 5e-4. The CUDA
+case holds three graphed steps bitwise to three eager ones and skips
 without a card."""
 import math
 
@@ -36,7 +37,6 @@ from gs_tpu.models.gaussian_model import create_from_pcd as jax_create
 from gs_tpu.models.gaussian_model import init_state as jax_init_state
 from gs_tpu.models.packed_state import unpack_state as jax_unpack_state
 from gs_tpu.train.loop import Trainer as JTrainer
-from gs_tpu.train.step import make_train_steps_scan as jax_scan
 
 from gs_tpu_torch.config import (ModelConfig, OptimizationConfig,
                                  PipelineConfig, RasterConfig)
@@ -46,10 +46,10 @@ from gs_tpu_torch.data.camera_utils import LoadedCamera
 from gs_tpu_torch.data.dataset_readers import CameraInfo
 from gs_tpu_torch.models.gaussian_model import exposure_lr, group_lrs
 from gs_tpu_torch.models.packed_state import pack_state
-from gs_tpu_torch.train.graph import (TrainingData, launch_counters,
-                                      make_train_step_chain,
-                                      make_train_steps_scan, state_leaves)
-from gs_tpu_torch.train.loop import Trainer
+from gs_tpu_torch.train.graph import (FOLDED, TrainingData,
+                                      launch_counters, make_train_step_chain,
+                                      state_leaves)
+from gs_tpu_torch.train.loop import Trainer, _fold_window
 from gs_tpu_torch.train.step import make_train_step, schedule_table
 from gs_tpu_torch.utils.schedules import expon_lr
 
@@ -136,16 +136,16 @@ def port_step(packed=True, opt=None, model=None, pipe=None):
         packed=packed)
 
 
-def bucket(step, cams, its, b=None, bgs=None):
-    """The bucket inputs the Trainer loads: [B, 2], [B, 6], [B]."""
+def bucket(step, cams, its, bgs=None):
+    """The bucket inputs the Trainer loads: [B, 2], [B, 6] and the
+    iterations."""
     n = len(cams)
     ints = torch.tensor(np.stack([cams, its], 1), dtype=torch.int64)
     floats = torch.zeros((n, 6))
     floats[:, :3] = torch.from_numpy(step.schedule(its))
     if bgs is not None:
         floats[:, 3:] = bgs
-    valid = torch.arange(n) < (n if b is None else b)
-    return ints, floats, valid
+    return ints, floats, list(its)
 
 
 def leaves_equal(a, b):
@@ -228,31 +228,37 @@ def test_schedule_table_is_expon_lr():
         assert [float(x) for x in row] == list(want), i
 
 
-@pytest.mark.parametrize("packed,inplace", [(True, True), (False, False)],
-                         ids=["packed-inplace", "tree"])
-def test_masked_step_is_a_no_op(packed, inplace):
-    """``valid`` False: every state tensor (parameters, moments, the Adam
-    and exposure step counts, the densification statistics, the exposures)
-    is bitwise what it was; ``valid`` True is the ungated step."""
-    step = port_step(packed, opt=dict(BLOCK_OPT,
-                                      optimizer_type="sparse_adam"),
-                     model=dict(train_test_exp=True))
+RUN_CAMS = [2, 0, 3, 1, 1, 3, 0, 2, 3, 1]       # a bucket of 10 rows
+
+
+@pytest.mark.parametrize("b", [1, 9, 10])
+def test_chain_run_equals_eager_steps(b):
+    """``ChainStep.run(b)`` on a loaded bucket of 10 rows: the first b
+    rows, one step each, bitwise ``b`` eager steps; its metrics the last
+    step's, with the worst overflow and the largest counts over the b
+    steps (the eager window's fold, ``train/loop.py::_fold_window``)."""
+    step = port_step(True)
     data = port_data(alpha=True, depth=True)
-    gt, a = data.images[1], data.alphas[1]
-    args = (torch.tensor(1), torch.tensor(7), torch.from_numpy(
-        step.schedule(7)[0]), gt, a, data.invdepths[1], data.depth_masks[1],
-        data.depth_oks[1])
-    before = port_state(packed)
-    st = port_state(packed)
-    out, m = step.core(st, *args, valid=torch.tensor(False), inplace=inplace)
-    leaves_equal(out, before)
-    leaves_equal(st, before)
-    assert float(m.loss) > 0
-    gated, _ = step.core(port_state(packed), *args, valid=torch.tensor(True))
-    plain, _ = step.core(port_state(packed), *args)
-    leaves_equal(gated, plain)
-    assert int(plain.step) == 1 and int(plain.exp_step) == 1
-    assert not torch.equal(state_leaves(plain)[0], state_leaves(before)[0])
+    its = list(range(1, 11))
+    st, window = port_state(True), None
+    for c, i in zip(RUN_CAMS[:b], its[:b]):
+        st, m = step(st, c, data.images[c], data.alphas[c],
+                     data.invdepths[c], data.depth_masks[c],
+                     data.depth_oks[c], iteration=i)
+        window = _fold_window(m, window)
+    chain = make_train_step_chain(step, use_alpha=True, use_depth=True,
+                                  bucket=10)
+    chain.load(*bucket(step, RUN_CAMS, its))
+    gs, got = chain.run(port_state(True), data, b)
+    leaves_equal(gs, st)
+    assert int(gs.step) == b
+    for f in ("loss", "l1", "ssim", "depth_l1", "n_visible") + FOLDED[:3]:
+        assert torch.equal(getattr(got, f), getattr(window, f)), f
+    # copies: the next run leaves them as they are
+    kept = [x.clone() for x in got if x is not None]
+    chain.run(gs, data, 1)
+    assert all(torch.equal(x, y)
+               for x, y in zip([x for x in got if x is not None], kept))
 
 
 # ------------------------------------------------- against the JAX package
@@ -282,10 +288,9 @@ CAMS, ITS = [2, 0, 3, 3], [1, 2, 3, 4]
 def jax_run():
     """gs_tpu's block dispatch on the packed state of the scene's Trainer:
     its chain (``make_train_step_chain``, the Trainer's own executable)
-    for three steps and ``make_train_steps_scan`` for one bucket of four
-    with three valid, from the Trainer's initial state; then the Trainer
-    in block mode (chain) for 12 iterations, blocks 0-5, 5-10 (densify at
-    10) and 10-12, its cameras and split noise recorded for the port."""
+    for three steps from the Trainer's initial state; then the Trainer in
+    block mode (chain) for 12 iterations, blocks 0-5, 5-10 (densify at 10)
+    and 10-12, its cameras and split noise recorded for the port."""
     tr = JTrainer(_views(jax_cameras(), JCameraInfo, JLoadedCamera),
                   (DATA["pts"], DATA["cols"], np.zeros_like(DATA["pts"])),
                   spatial_lr_scale=1.0, model_cfg=JModelConfig(sh_degree=1),
@@ -302,12 +307,6 @@ def jax_run():
                               jnp.int32(CAMS[j]), keys[j])
         losses.append(float(m.loss))
     out = dict(chain_losses=losses, chain_params=jax_params(st))
-    scan = jax_scan(tr.train_step, use_alpha=False, use_depth=False)
-    st, m = scan(tr.state, *data, jnp.int32(0), jnp.asarray(CAMS, jnp.int32),
-                 keys, jnp.asarray([True, True, True, False]))
-    out.update(scan_loss=float(m.loss), scan_step=int(st.step),
-               scan_params=jax_params(st),
-               scan_max_tile_len=int(m.max_tile_len))
 
     log = {"cams": [], "noise": []}
     pick, densify = tr._next_camera, tr._densify
@@ -327,40 +326,23 @@ def jax_run():
                 params=jax_params(tr.state), ema=tr.ema_loss)
 
 
-@pytest.mark.parametrize("mode", ["chain", "scan"])
-def test_block_dispatch_matches_jax(jax_run, mode):
+def test_block_dispatch_matches_jax(jax_run):
     step = port_step(True)
     data = port_data()
-    if mode == "chain":
-        runner = make_train_step_chain(step, use_alpha=False,
-                                       use_depth=False, bucket=4)
-        runner.load(*bucket(step, CAMS, ITS))
-        st, losses = port_state(True), []
-        for j in range(3):
-            st, m = runner(st, data, j)
-            losses.append(float(m.loss))
-        np.testing.assert_allclose(losses, jax_run["chain_losses"],
-                                   rtol=1e-5)
-        ref = jax_run["chain_params"]
-    else:
-        runner = make_train_steps_scan(step, use_alpha=False,
-                                       use_depth=False, bucket=4)
-        runner.load(*bucket(step, CAMS, ITS, b=3))
-        st, m = runner(port_state(True), data)
-        assert int(st.step) == jax_run["scan_step"] == 3
-        np.testing.assert_allclose(float(m.loss), jax_run["scan_loss"],
-                                   rtol=1e-5)
-        assert int(m.max_tile_len) == jax_run["scan_max_tile_len"]
-        # the last valid step's loss is the chain's third
-        np.testing.assert_allclose(float(m.loss), jax_run["chain_losses"][2],
-                                   rtol=1e-5)
-        ref = jax_run["scan_params"]
-    assert_params_close(port_params(st), ref, steps=3)
+    runner = make_train_step_chain(step, use_alpha=False, use_depth=False,
+                                   bucket=4)
+    runner.load(*bucket(step, CAMS, ITS))
+    st, losses = port_state(True), []
+    for j in range(3):
+        st, m = runner(st, data, j)
+        losses.append(float(m.loss))
+    np.testing.assert_allclose(losses, jax_run["chain_losses"], rtol=1e-5)
+    assert_params_close(port_params(st), jax_run["chain_params"], steps=3)
 
 
 # ------------------------------------------------------- the block Trainer
 
-def port_trainer(dispatch, packed=True, dup_capacity=4096):
+def port_trainer(packed=True, dup_capacity=4096):
     tr = Trainer(_views(port_cameras(), CameraInfo, LoadedCamera),
                  (DATA["pts"], DATA["cols"], np.zeros_like(DATA["pts"])),
                  spatial_lr_scale=1.0,
@@ -369,32 +351,34 @@ def port_trainer(dispatch, packed=True, dup_capacity=4096):
                  raster=RasterConfig(**dict(RASTER,
                                             dup_capacity=dup_capacity)),
                  initial_capacity=CAPACITY, seed=7, packed=packed)
-    tr.block_dispatch = dispatch
     return tr
 
 
-def test_trainer_chain_equals_scan():
-    """10 block-mode iterations through an overflow replay (a 64-entry
-    buffer), a densify at 10 and buckets with masked tails: chain and scan
-    end bitwise equal."""
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "tree"])
+def test_trainer_chain_equals_step_mode(packed):
+    """10 iterations through an overflow replay (a 64-entry buffer) and a
+    densify at 10, in block mode (the chain over buckets of 5 steps with
+    room for 10, a sync after each) and in step mode (the chain's graph
+    through ``ChainStep.step``, a sync every 5): bitwise equal."""
     runs = []
-    for mode in ("chain", "scan"):
-        tr = port_trainer(mode, dup_capacity=64)
-        tr.train(iterations=10, block_scan=True)
+    for block in (True, False):
+        tr = port_trainer(packed, dup_capacity=64)
+        tr.sync_every = 5
+        tr.train(iterations=10, block_scan=block)
         assert tr.raster.dup_capacity > 64 and tr.overflow_exhausted == 0
         runs.append(tr)
-    chain, scan = runs
-    assert chain.iteration == scan.iteration == 10
-    leaves_equal(chain.state, scan.state)
-    assert chain.ema_loss == scan.ema_loss
+    chain, step = runs
+    assert chain.iteration == step.iteration == 10
+    leaves_equal(chain.state, step.state)
+    assert chain.ema_loss == step.ema_loss
     assert int(chain.state.alive.sum()) > 50, "no densify"
-    assert chain.captures == scan.captures == []    # nothing captured on CPU
+    assert chain.captures == step.captures == []    # nothing captured on CPU
 
 
 def test_block_trainer_matches_jax(jax_run):
     ref = jax_run
     assert len(ref["noise"]) == 1, "one densify, at iteration 10"
-    tr = port_trainer("chain")
+    tr = port_trainer()
     noise = list(ref["noise"])
     tr._densify_noise = lambda c: torch.tensor(noise.pop(0))
     cams = []

@@ -1,16 +1,16 @@
 """The multi-GPU Trainer in block mode: ``Trainer(mesh=...)`` through
-``train/graph.py``'s chain and scan, on the CPU (and one case on the card).
+``train/graph.py``'s chain, on the CPU (and one case on the card).
 
 Sizes are tests/test_torch_sharding.py's: tests/test_torch_trainer.py's
 scene (four 64x48 views, 50 points, 256 slots, seed 7, a sync every 4 in
 step mode), 12 iterations with one densify at 10; in block mode the blocks
-are 1..5, 6..10 and 11..12 (a sync after each), the scan's bucket the
+are 1..5, 6..10 and 11..12 (a sync after each), the chain's bucket the
 densification interval, 10.
 
 * Against the JAX package: gs_tpu's mesh Trainer in block mode
-  (``make_mesh(2)``, ``train(block_scan=True)``, ``block_dispatch`` "chain"
-  and "scan", packed and tree) and the port's ``Trainer(mesh=LocalGroup(k,
-  "cpu"))`` in the same mode for k = 2 and 4, fed the JAX run's split
+  (``make_mesh(2)``, ``train(block_scan=True)``, its chain, packed and
+  tree) and the port's ``Trainer(mesh=LocalGroup(k, "cpu"))`` in the same
+  mode for k = 2 and 4, fed the JAX run's split
   noise, by tests/test_torch_sharding.py's rules: the same cameras, losses
   at the syncs within 1e-5 relative, equal alive masks,
   ``assert_params_close``.
@@ -19,8 +19,8 @@ densification interval, 10.
   between.
   The first bucket's cameras are 3, 1, 2, 0, 0, so its first steps
   overflow and its last does not: only the bucket's largest shard count
-  grows the capacity. The mesh chain, the mesh scan and the mesh step mode
-  end bitwise equal, with no replay exhausted.
+  grows the capacity. The mesh chain and the mesh step mode end bitwise
+  equal, with no replay exhausted.
 * Two gloo processes: the train CLI with ``--multihost --block_scan``
   against the same CLI with ``group=LocalGroup(2)`` in this process,
   within tests/test_torch_multihost.py's 5e-5 x max.
@@ -57,8 +57,9 @@ from gs_tpu_torch.data.dataset_readers import CameraInfo
 from gs_tpu_torch.models.gaussian_model import create_from_pcd, init_state
 from gs_tpu_torch.models.packed_state import pack_state
 from gs_tpu_torch.parallel.mesh import LocalGroup
-from gs_tpu_torch.train.graph import (TrainingData, launch_counters,
-                                      make_train_step_chain, state_leaves)
+from gs_tpu_torch.train.graph import (ChainStep, TrainingData,
+                                      launch_counters, make_train_step_chain,
+                                      state_leaves)
 from gs_tpu_torch.train.loop import Trainer
 from gs_tpu_torch.train.step import make_train_step
 
@@ -87,14 +88,12 @@ def leaves_equal(a, b):
 
 # ------------------------------------------------- against the JAX package
 
-@pytest.fixture(scope="module", params=[("chain", True), ("scan", True),
-                                        ("chain", False), ("scan", False)],
-                ids=["chain-packed", "scan-packed", "chain-tree",
-                     "scan-tree"])
+@pytest.fixture(scope="module", params=[True, False],
+                ids=["chain-packed", "chain-tree"])
 def jax_block_run(request):
-    """gs_tpu's Trainer on make_mesh(2) in block mode, its cameras, the
-    losses after each block and the split noise recorded."""
-    dispatch, packed = request.param
+    """gs_tpu's Trainer on make_mesh(2) in block mode (its chain), its
+    cameras, the losses after each block and the split noise recorded."""
+    packed = request.param
     images, pts, cols = make_data()
     tr = JTrainer(_views(images, default_camera(W, H), JCameraInfo,
                          JLoadedCamera),
@@ -106,7 +105,6 @@ def jax_block_run(request):
                   initial_capacity=256, seed=7, mesh=make_mesh(2),
                   packed=packed)
     tr.sync_every = 4
-    tr.block_dispatch = dispatch
     log = {"cams": [], "losses": [], "noise": [], "its": []}
     densify = tr._densify
 
@@ -119,7 +117,7 @@ def jax_block_run(request):
     record = _record(tr, log)
     tr.train(iterations=ITERS, log_every=1, block_scan=True,
              on_step=lambda i, m, t: (log["its"].append(i), record(i, m, t)))
-    return dict(log, dispatch=dispatch, packed=packed,
+    return dict(log, packed=packed,
                 alive=np.asarray(tr.state.alive), params=_params(tr),
                 ema=tr.ema_loss)
 
@@ -130,13 +128,12 @@ def test_mesh_block_trainer_matches_jax(jax_block_run, k):
     assert ref["its"] == [5, 10, 12], "blocks 1..5, 6..10, 11..12"
     assert len(ref["noise"]) == 1, "one densify, at iteration 10"
     tr = port_trainer(mesh=LocalGroup(k, "cpu"), packed=ref["packed"])
-    tr.block_dispatch = ref["dispatch"]
     noise = list(ref["noise"])
     tr._densify_noise = lambda c: torch.tensor(noise.pop(0))
     log = {"cams": [], "losses": []}
     tr.train(iterations=ITERS, on_step=_record(tr, log), log_every=1,
              block_scan=True)
-    assert tr._runner.mode == ref["dispatch"] and tr.captures == []
+    assert isinstance(tr._runner, ChainStep) and tr.captures == []
     assert not noise and log["cams"] == ref["cams"]
     np.testing.assert_allclose(log["losses"], ref["losses"], rtol=1e-5)
     assert math.isclose(tr.ema_loss, ref["ema"], rel_tol=1e-5)
@@ -152,9 +149,9 @@ VCAP = 32                    # between view 0's 18 visible and the others' 50
 NEAR_Z = -4.0                # view 0 moved forward into the points
 
 
-def fold_trainer(mode):
-    """LocalGroup(2) on the scene with view 0 moved forward, in ``mode``:
-    "step", or block mode through "chain" or "scan"."""
+def fold_trainer():
+    """LocalGroup(2) on the scene with view 0 moved forward; step mode or
+    block mode (the chain) by the caller's ``train``."""
     images, pts, cols = make_data()
     cams = [make_camera(np.eye(3), np.array([0.0, 0.0, NEAR_Z if i == 0
                                              else 0.0]),
@@ -168,15 +165,13 @@ def fold_trainer(mode):
                                      chunk=32, visible_capacity=VCAP),
                  initial_capacity=256, seed=7, mesh=LocalGroup(2, "cpu"))
     tr.sync_every = 4
-    if mode != "step":
-        tr.block_dispatch = mode
     return tr
 
 
 def test_fold_scene_overflows_before_the_bucket_ends():
     """The scene of test_band_fold_through_a_replay: view 0 alone stays
     under the cap, and it takes the first bucket's last step."""
-    tr = fold_trainer("step")
+    tr = fold_trainer()
     seen = [int(tr.render_view(v.camera).band_visible.max())
             for v in tr.train_cams]
     assert seen[0] == 18 and seen[1:] == [50] * 3 and 18 < VCAP < 50
@@ -185,12 +180,12 @@ def test_fold_scene_overflows_before_the_bucket_ends():
 
 
 def test_band_fold_through_a_replay():
-    """Chain, scan and step mode end bitwise equal through a
+    """The chain and step mode end bitwise equal through a
     visible_capacity overflow that falls before the bucket's last step,
     and a second one after the densify."""
     runs = {}
-    for mode in ("step", "chain", "scan"):
-        tr = fold_trainer(mode)
+    for mode in ("step", "chain"):
+        tr = fold_trainer()
         grows = []
         grow = tr._grow_raster
         tr._grow_raster = lambda changes, will_replay, _g=grows, _f=grow: (
@@ -203,22 +198,19 @@ def test_band_fold_through_a_replay():
         assert tr.overflow_exhausted == 0, mode
         assert grows and all(set(g) == {"visible_capacity"} for g in grows)
         runs[mode] = (tr, losses, grows)
-    step, chain, scan = (runs[m][0] for m in ("step", "chain", "scan"))
-    assert chain._runner.mode == "chain" and scan._runner.mode == "scan"
-    assert step._runner.mode == "chain"     # step mode's entry to the chain
+    step, chain = (runs[m][0] for m in ("step", "chain"))
+    # step mode's entry to the chain
+    assert isinstance(chain._runner, ChainStep)
+    assert isinstance(step._runner, ChainStep)
     assert step.raster.visible_capacity == chain.raster.visible_capacity \
-        == scan.raster.visible_capacity > VCAP
-    assert runs["chain"][2] == runs["scan"][2]
+        > VCAP
     assert int(step.state.alive.sum()) > 50, "no densify"
-    for tr in (chain, scan):
-        leaves_equal(tr.state, step.state)
+    leaves_equal(chain.state, step.state)
     # the losses of the iterations where both modes read them
-    for mode in ("chain", "scan"):
-        got = runs[mode][1]
-        assert sorted(got) == [5, 10, 12]
-        for i in (10, 12):
-            assert got[i] == runs["step"][1][i], (mode, i)
-    assert chain.ema_loss == scan.ema_loss
+    got = runs["chain"][1]
+    assert sorted(got) == [5, 10, 12]
+    for i in (10, 12):
+        assert got[i] == runs["step"][1][i], i
 
 
 # ---------------------------------------------------- two gloo processes
@@ -240,7 +232,8 @@ def test_two_process_block_cli_matches_local_group(tmp_path):
     model_lg = str(tmp_path / "model_lg")
     trainer = train_app.main(_train_args(root, model_lg) + ["--block_scan"],
                              group=LocalGroup(2, "cpu"))
-    assert trainer._runner.mode == "chain", "the CLI did not run blocks"
+    assert isinstance(trainer._runner, ChainStep), \
+        "the CLI did not run blocks"
     assert trainer.num_alive() > 50, "no densify"
 
     rel = os.path.join("point_cloud", "iteration_12", "point_cloud.ply")
@@ -327,7 +320,7 @@ def test_graphed_mesh_steps_equal_eager_mesh_steps(cuda_device):
     ints = torch.tensor(np.stack([picks, its], 1), dtype=torch.int64)
     floats = torch.zeros((3, 6))
     floats[:, :3] = torch.from_numpy(step.schedule(its))
-    chain.load(ints, floats, torch.ones(3, dtype=torch.bool))
+    chain.load(ints, floats, its)
     gs = state0()
     chain.bind(gs, data)
     assert chain.graph is not None and chain.captures[0]["capacity"] == 256

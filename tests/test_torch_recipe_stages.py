@@ -5,10 +5,12 @@ where a stamp records the host clock.
 * ``depth`` is stamped before the depth-L1 term only where the views carry
   depth priors, ``exposure`` before the exposure's Adam only under
   ``train_test_exp``; a step with neither stamps the plain step's stages,
-  in the eager step, the chain and the scan.
+  in the eager step, the chain (block mode) and step mode through the
+  chain's graph.
 * ``adam_columns`` is written once a step only under ``sparse_adam``, and
   equals the step's visible count (``StepMetrics.n_visible``), the columns
-  the masked Adam writes.
+  the masked Adam writes; a block shorter than its bucket writes one entry
+  a step it ran.
 * The new stamps and the counter change no value.
 
 The scene is tests/test_torch_spans.py's (four 64x48 views of uniform
@@ -116,22 +118,19 @@ def test_new_stages_keep_the_existing_ids():
     assert spans.COUNTERS == ("band_work", "adam_columns")
 
 
-@pytest.mark.parametrize("mode", ["eager", "chain", "scan"])
+@pytest.mark.parametrize("mode", ["eager", "chain", "step"])
 @pytest.mark.parametrize("depth,exposure", [
     (False, False), (True, False), (False, True), (True, True)],
     ids=["plain", "depth", "exposure", "both"])
 def test_depth_and_exposure_stamp_only_under_their_switches(mode, depth,
                                                             exposure):
     tr = trainer(depth=depth, exposure=exposure, eager=mode == "eager")
-    tr.block_dispatch = "chain" if mode == "eager" else mode
     spans.clear()
-    tr.train(iterations=4, block_scan=mode != "eager")
+    tr.train(iterations=4, block_scan=mode == "chain")
     seq = expected(depth, exposure)
-    n = OPT["densification_interval"] if mode == "scan" else 4
-    want = [seq[:-1]] * (n - 1) + [seq] if mode == "scan" else [seq] * n
-    assert sequences() == [("step", s) for s in want]
+    assert sequences() == [("step", seq)] * 4
     ms = spans.stage_ms(unit="step")
-    assert len(ms) == n and all(set(u) == set(seq[:-1]) for u in ms)
+    assert len(ms) == 4 and all(set(u) == set(seq[:-1]) for u in ms)
     assert spans.counter("adam_columns", unit="step") == []
 
 
@@ -145,7 +144,7 @@ def test_mesh_step_stamps_the_recipe_stages():
         assert seq.index("exposure") == seq.index("update") + 1
 
 
-@pytest.mark.parametrize("mode", ["eager", "chain"])
+@pytest.mark.parametrize("mode", ["eager", "chain", "step"])
 @pytest.mark.parametrize("antialiasing", [False, True], ids=["", "aa"])
 def test_adam_columns_is_the_visible_count(mode, antialiasing):
     tr = trainer(sparse=True, depth=True, exposure=True,
@@ -153,27 +152,26 @@ def test_adam_columns_is_the_visible_count(mode, antialiasing):
     spans.clear()
     visible = []
     for it in range(1, 6):       # one step a call: its metrics each
-        tr.train(iterations=it, block_scan=mode != "eager", log_every=1,
+        tr.train(iterations=it, block_scan=mode == "chain", log_every=1,
                  on_step=lambda i, mt, t: visible.append(int(mt.n_visible)))
     cols = spans.counter("adam_columns", unit="step")
     assert cols == [[v] for v in visible]
     assert len(cols) == 5 and all(0 < v[0] <= 256 for v in cols)
 
 
-def test_scan_counts_no_columns_in_its_masked_steps():
+def test_partial_bucket_counts_only_its_steps():
+    """A block of 3 steps in a bucket of 10 rows writes 3 entries, step
+    mode's own."""
     counts = {}
-    for dispatch in ("chain", "scan"):
+    for block in (True, False):
         tr = trainer(sparse=True)
-        tr.block_dispatch = dispatch
         spans.clear()
-        tr.train(iterations=3, block_scan=True)
-        counts[dispatch] = [c[0] for c in spans.counter("adam_columns",
-                                                        unit="step")]
-    chain, scan = counts["chain"], counts["scan"]
-    # the bucket replays all of its 10 steps; the 7 past the third write
-    # nothing
-    assert len(chain) == 3 and all(c > 0 for c in chain)
-    assert scan == chain + [0] * 7
+        tr.train(iterations=3, block_scan=block)
+        assert tr._runner.bucket == OPT["densification_interval"]
+        counts[block] = [c[0] for c in spans.counter("adam_columns",
+                                                     unit="step")]
+    assert len(counts[True]) == 3 and all(c > 0 for c in counts[True])
+    assert counts[True] == counts[False]
 
 
 def test_recipe_stamps_and_counter_change_no_value(monkeypatch):

@@ -6,8 +6,9 @@ the CUDA-graph replays.
 The scene is tests/test_torch_trainer.py's (four 64x48 views of uniform
 noise, 50 points, capacity 256), made here with numpy alone.
 
-* The eager step, the chain and the scan (packed and tree), the banded step
-  under ``LocalGroup(2)``, the view and the banded view each record their
+* The eager step, the chain in block mode and step mode through the
+  chain's graph (packed and tree), the banded step under
+  ``LocalGroup(2)``, the view and the banded view each record their
   stages in order, once per step or frame, the backward's after every
   forward stage.
 * Host spans nest under the right parent and share the step's or the
@@ -129,20 +130,15 @@ def sequences(device="cpu"):
 
 # ----------------------------------------------------------------- stages
 
-@pytest.mark.parametrize("mode", ["eager", "chain", "scan"])
+@pytest.mark.parametrize("mode", ["eager", "chain", "step"])
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "tree"])
 def test_step_records_its_stages_in_order(mode, packed):
     tr = trainer(packed=packed, eager=mode == "eager")
-    tr.block_dispatch = "chain" if mode == "eager" else mode
     spans.clear()
-    tr.train(iterations=4, block_scan=mode != "eager")
+    tr.train(iterations=4, block_scan=mode == "chain")
     units = sequences()
-    # a scan replays its whole bucket of densification_interval steps, the
-    # masked ones too, and its steps share the replay's end: each closes
-    # at the next step's stamp
-    n = OPT["densification_interval"] if mode == "scan" else 4
-    want = [STEP[:-1]] * (n - 1) + [STEP] if mode == "scan" else [STEP] * n
-    assert units == [("step", seq) for seq in want]
+    n = 4
+    assert units == [("step", STEP)] * n
     for _, seq in units:
         last_forward = max(i for i, s in enumerate(seq) if s in FORWARD)
         assert all(i > last_forward for i, s in enumerate(seq)

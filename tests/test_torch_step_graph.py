@@ -49,7 +49,7 @@ from gs_tpu_torch.core.camera import focal2fov, make_camera
 from gs_tpu_torch.data.camera_utils import LoadedCamera
 from gs_tpu_torch.data.dataset_readers import CameraInfo
 from gs_tpu_torch.parallel.mesh import LocalGroup
-from gs_tpu_torch.train.graph import launch_counters, state_leaves
+from gs_tpu_torch.train.graph import ChainStep, launch_counters, state_leaves
 from gs_tpu_torch.train.loop import Trainer
 from gs_tpu_torch.train.step import StepMetrics
 
@@ -120,7 +120,7 @@ def test_step_graph_equals_the_eager_step(packed, random_background):
                      random_background=random_background, **SCHEDULE)
         runs[eager] = (tr, run(tr))
     (eager, el), (graph, gl) = runs[True], runs[False]
-    assert graph._runner.mode == "chain" and graph.captures == []
+    assert isinstance(graph._runner, ChainStep) and graph.captures == []
     assert eager._runner is None            # the eager step builds none
     for tr in (eager, graph):
         assert tr.raster.dup_capacity > 64 and tr.overflow_exhausted == 0
@@ -202,7 +202,7 @@ def _port_against(ref, mesh=None):
         assert_params_close(_params(tr), ref["params"], steps=ITERS)
         runs.append((tr, log["losses"]))
     (graph, gl), (eager, el) = runs
-    assert graph._runner.mode == "chain" and gl == el
+    assert isinstance(graph._runner, ChainStep) and gl == el
     assert_states_equal(graph.state, eager.state)
 
 

@@ -98,8 +98,6 @@ def main(argv=None):
     ap.add_argument("--densify_grad_threshold", type=float, default=0.0,
                     help="0: 1e-4 scaled by sqrt(pixels / (160 x 120)), as "
                          "the JAX script's")
-    ap.add_argument("--block_dispatch", default="chain",
-                    choices=("chain", "scan"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="SCHEDULE_RUN_torch.json")
     args = ap.parse_args(argv)
@@ -178,7 +176,6 @@ def main(argv=None):
                  opt=opt, pipe=PipelineConfig(), raster=raster,
                  test_cams=test_cams,
                  initial_capacity=args.initial_capacity)
-    tr.block_dispatch = args.block_dispatch
 
     trajectory = []
     t0 = time.perf_counter()
@@ -220,8 +217,7 @@ def main(argv=None):
         "config": {"iters": args.iters, "views": args.views, "res": [W, H],
                    "init_points": n0,
                    "opacity_reset_interval": args.reset_interval,
-                   "densify_until": opt.densify_until_iter,
-                   "block_dispatch": args.block_dispatch},
+                   "densify_until": opt.densify_until_iter},
         "final": {"test_psnr": trajectory[-1]["test_psnr"] if trajectory
                   else None,
                   "n_gaussians": final_n,

@@ -79,7 +79,7 @@ def worker(pkg_root: str, steps: int, graph: bool) -> int:
         floats = torch.zeros((len(its), 6))
         floats[:, :3] = torch.from_numpy(step.schedule(its))
         chain.load(torch.from_numpy(np.stack([np.zeros_like(its), its], 1)),
-                   floats, torch.ones(len(its), dtype=torch.bool))
+                   floats, its)
         data = TrainingData(gt[None])
         chain.bind(s0, data)
         holder = [chain.state]
