@@ -63,7 +63,12 @@ Phases (each failure exits non-zero):
     events against the bytes bound, registers and spills; [adam]: Adam's
     kernel (csrc/adam.cu) against its twin at 4,194,304 slots, bitwise,
     dense and column-masked, in place and not; its ms and the twin's by
-    CUDA events against the bytes bound;
+    CUDA events against the bytes bound; [ssim]: SSIM's kernel pair
+    (csrc/ssim.cu) against its twins at garden's, playroom's and truck's
+    frames, the value within 1e-6 and the gradient within 2e-4 of the
+    largest, the same bits from run to run; each kernel's device ms and
+    the twin's against the bytes and operations bounds, registers and
+    spills;
  8. [train] 8 steps of the bench training configuration (bench.py's train
     probe: OptimizationConfig(iterations=30000), L1 + SSIM, Adam, a zero
     ground truth) through gs_tpu_torch.train.step.make_train_step after 2
@@ -294,6 +299,9 @@ QUAT_M_SHARE = 1e-2
 # the preprocess kernel pair's launch counters (core/project.py), forward
 # and backward, in main's counters beside K1..K4
 PRE_IDS = ("PRE", "PRE_bwd")
+# SSIM's kernel pair (ops/ssim.py), forward and backward: once a training
+# step or replay, never in a view
+SSIM_IDS = ("SSIM", "SSIM_bwd")
 PROFILED_STEPS = 5
 STAGE_REPLAYS = 5              # [train stages]: replays of the graphed step
 HBM_BYTES_PER_S = 3.35e12                           # H100 SXM data sheet
@@ -1196,6 +1204,112 @@ def adam_phase(torch, dev):
     return {"dense_ms": dense_ms, "masked_ms": masked_ms, "twin_ms": twin_ms,
             "twin_masked_ms": twin_masked_ms, "bound_ms": bound,
             "launches": A.adam_packed.launches - n0}
+
+
+# the training cells' frames, [C, H, W]: m360-garden, db-playroom, tandt-truck
+SSIM_FRAMES = {"garden": (3, 840, 1297), "playroom": (3, 832, 1264),
+               "truck": (3, 546, 979)}
+
+
+def ssim_phase(torch, dev):
+    """[ssim]: the kernel pair of csrc/ssim.cu against its twins
+    (ops/ssim.py::ssim_plain under autograd, ssim_backward_plain) at the
+    SSIM_FRAMES, from seeded image pairs (a photo and a render near it):
+    the value within 1e-6 of the twin's, the gradient within 2e-4 of the
+    largest of autograd's, both the same bits from run to run, and how far
+    the gradient is from the plain formula's; at garden's frame each
+    kernel's device time by torch.profiler against the twin's (its forward
+    without autograd, its backward alone over a retained graph) and the
+    bytes and operations bounds; the kernels' registers and spills.
+    Returns the numbers."""
+    from gs_tpu_torch.ops import _cuda
+    from gs_tpu_torch.ops import ssim as S
+    g = torch.Generator(device=dev).manual_seed(23)
+    n0 = (S.ssim_fwd.launches, S.ssim_bwd.launches)
+    cot = torch.tensor(-0.2, device=dev)      # lambda_dssim's cotangent
+    worst_v = worst_g = worst_p = 0.0
+    out = {}
+
+    def grad_of(fn, img1, img2):
+        x = img1.clone().requires_grad_(True)
+        value = fn(x, img2)
+        return value.detach(), torch.autograd.grad(value * cot, x)[0]
+
+    def ratio(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    for name, shape in SSIM_FRAMES.items():
+        photo = S._blur(torch.rand(shape, generator=g, device=dev),
+                        S._gaussian_window()).mul_(2.0).sub_(0.5).clamp_(0, 1)
+        render = (photo + 0.05 * torch.randn(shape, generator=g, device=dev)
+                  ).clamp_(0, 1)
+        value, grad = grad_of(S.ssim, render, photo)
+        again = grad_of(S.ssim, render, photo)
+        check(torch.equal(value.view(torch.int32), again[0].view(torch.int32))
+              and torch.equal(grad.view(torch.int32),
+                              again[1].view(torch.int32)),
+              f"[ssim] {name}: not the same bits from run to run")
+        want, want_grad = grad_of(S.ssim_plain, render, photo)
+        plain = S.ssim_backward_plain(cot, render, photo)
+        err_v = abs(float(value) - float(want))
+        err_g, err_p = ratio(grad, want_grad), ratio(grad, plain)
+        check(err_v <= 1e-6, f"[ssim] {name}: value {float(value)!r} against "
+              f"the twin's {float(want)!r}")
+        check(err_g <= 2e-4, f"[ssim] {name}: gradient {err_g:.3e} of the "
+              f"largest of the twin's")
+        worst_v, worst_g = max(worst_v, err_v), max(worst_g, err_g)
+        worst_p = max(worst_p, err_p)
+        print(f"[ssim] {name} {shape[2]}x{shape[1]}x{shape[0]}: value "
+              f"{float(value):.8f} (twin {float(want):.8f}, off "
+              f"{err_v:.2e}); gradient off {err_g:.3e} of autograd's largest "
+              f"through the twin, {err_p:.3e} of the plain formula's "
+              f"({'bitwise' if torch.equal(grad, plain) else 'not bitwise'}); "
+              f"the same bits from run to run", flush=True)
+        if name == "garden":
+            out["images"] = (render, photo)
+    render, photo = out.pop("images")
+    _, maps = S.ssim_fwd(render, photo, maps=True)
+    with torch.no_grad():
+        fwd_ms = device_ms(torch, lambda: S.ssim_fwd(render, photo,
+                                                     maps=True), 20)
+        value_ms = device_ms(torch, lambda: S.ssim_fwd(render, photo), 20)
+        bwd_ms = device_ms(torch, lambda: S.ssim_bwd(cot, render, photo,
+                                                     maps), 20)
+        twin_fwd_ms = device_ms(torch, lambda: S.ssim_plain(render, photo), 5)
+    x = render.clone().requires_grad_(True)
+    twin = S.ssim_plain(x, photo) * cot
+    twin_bwd_ms = device_ms(torch, lambda: torch.autograd.grad(
+        twin, x, retain_graph=True), 5)
+    n = render.numel()
+    # bytes: both images in and three maps out; the maps and both images
+    # in and the gradient out. Operations: harness/work.py's SSIM_OPS (245
+    # a pixel and channel) and twice that for the backward
+    fwd_bound, fwd_by, _, _ = bound_of(5 * 4 * n, 245 * n)
+    bwd_bound, bwd_by, _, _ = bound_of(6 * 4 * n, 2 * 245 * n)
+    attrs = (ctypes.c_int * 10)()
+    fn = _cuda.function(S.SOURCE, "gs_ssim_kernel_attributes",
+                        [ctypes.c_int, ctypes.c_void_p])
+    _cuda.check(S.SOURCE, fn(dev.index or 0, ctypes.addressof(attrs)),
+                "attributes")
+    a = list(attrs)
+    print(f"[ssim] garden's frame, device ms by torch.profiler: forward "
+          f"{fwd_ms:.4f} (with its mean; {value_ms:.4f} without the maps), "
+          f"twin {twin_fwd_ms:.4f}, bound {fwd_bound:.4f} ({fwd_by}, "
+          f"{fwd_bound / fwd_ms:.1%}); backward {bwd_ms:.4f}, twin "
+          f"{twin_bwd_ms:.4f}, bound {bwd_bound:.4f} ({bwd_by}, "
+          f"{bwd_bound / bwd_ms:.1%}); forward {a[0]} registers, {a[1]} B "
+          f"shared, {a[2]} B spills, {a[3]} CTAs of {a[4]} per SM; backward "
+          f"{a[5]} registers, {a[6]} B shared, {a[7]} B spills, {a[8]} CTAs "
+          f"of {a[9]} per SM", flush=True)
+    del twin, x, maps
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "value_ms": value_ms,
+            "twin_fwd_ms": twin_fwd_ms, "twin_bwd_ms": twin_bwd_ms,
+            "fwd_bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound,
+            "fwd_bound_by": fwd_by, "bwd_bound_by": bwd_by,
+            "max_value_err": worst_v, "max_rel_err": worst_g,
+            "max_plain_rel_err": worst_p,
+            "fwd_launches": S.ssim_fwd.launches - n0[0],
+            "bwd_launches": S.ssim_bwd.launches - n0[1]}
 
 
 TRAINER_ITERS = 300
@@ -2117,7 +2231,8 @@ def viewer_phase(torch, dev, root, dup, steady_ms, counters):
             "K3": VIEWER_ITERS + steps, "K4": VIEWER_ITERS + steps}
     # the preprocess forward with each K2 (a step's or a view's of the
     # packed block), its backward and Adam with each K3
-    want.update(PRE=want["K2"], PRE_bwd=want["K3"], ADAM=want["K3"])
+    want.update(PRE=want["K2"], PRE_bwd=want["K3"], ADAM=want["K3"],
+                SSIM=want["K3"], SSIM_bwd=want["K3"])
     check(launches == want, f"[viewer] launches {launches}, want {want}")
     ms = client["ms"]
     idle = rec["idle"]
@@ -2186,7 +2301,8 @@ def viewer_phase(torch, dev, root, dup, steady_ms, counters):
     direct = frame_bytes(trainer.render_view(cams[0]).image)
     check("img" in got and got["img"].tobytes() == direct,
           "[viewer] a frame over the wire != Trainer.render_view, bitwise")
-    check(after["K2"] == after["K1"] == 1 and after["ADAM"] == 0,
+    check(after["K2"] == after["K1"] == 1 and after["ADAM"] == 0
+          and all(after[k] == 0 for k in SSIM_IDS),
           f"[viewer] one frame {after}")
     print(f"[viewer] a poll (mean of 1000): with no client {poll_us:.3f} "
           f"us, with the client attached and idle {idle_poll_us:.3f} us; "
@@ -3069,7 +3185,8 @@ def mesh_step_phase(torch, dev, p0, alive0, bench_camera, counters):
     launches = {k: c.launches for k, c in counters.items()}
     check(not bool(m4.overflow), "[mesh step] overflow")
     check(all(launches[k] == MESH_K for k in ("K2", "K1g", "K3", "K4"))
-          and launches["K1"] == launches["ADAM"] == 0,
+          and launches["K1"] == launches["ADAM"] == 0
+          and all(launches[k] == 1 for k in SSIM_IDS),
           f"[mesh step] launches {launches}")
     l1, l4 = float(m1.loss), float(m4.loss)
     check(abs(l1 - l4) <= 1e-6 * abs(l1), f"[mesh step] loss {l4} != {l1}")
@@ -3441,12 +3558,13 @@ def mesh_graph_trainer_phase(torch, dev, root, dup, counters):
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t1) / n
         per_it = {k: (c.launches - c0[k]) / n for k, c in counters.items()}
-        # the preprocess pair once a shard an iteration, Adam once over the
-        # shards
+        # the preprocess pair once a shard an iteration, Adam and the SSIM
+        # pair (the gathered frame's) once over the shards
         check(all(per_it[k] == MESH_K for k in PRE_IDS)
-              and per_it["ADAM"] == 1,
+              and all(per_it[k] == 1 for k in ("ADAM",) + SSIM_IDS),
               f"[mesh graph trainer] {mode}: launches per iteration "
-              f"{per_it}, want {MESH_K} of each of {PRE_IDS} and 1 ADAM")
+              f"{per_it}, want {MESH_K} of each of {PRE_IDS} and 1 of each "
+              f"of ADAM, {SSIM_IDS}")
         # and one more, profiled
         busy, n_k = (x / n for x in busy_per_call(torch, block))
         print(f"[mesh graph trainer] {mode}: {MESH_GRAPH_ITERS} iterations "
@@ -3843,7 +3961,8 @@ def bf16_serve_phase(torch, dev, params, alive, bg, bench_camera, kw,
         check(max(worst.values()) <= 1e-2 and worst["image"] > 0,
               f"[bf16 serve] bf16 frames vs f32: {worst}")
         check(launches["K2"] == launches["K1"] == FRAMES
-              and launches["K1g"] == launches["K3"] == launches["ADAM"] == 0,
+              and launches["K1g"] == launches["K3"] == launches["ADAM"] == 0
+              and all(launches[k] == 0 for k in SSIM_IDS),
               f"[bf16 serve] launches {launches}")
         del out
         cam = bench_camera(0)
@@ -4290,11 +4409,12 @@ def graph_trainer_phase(torch, dev, root, counters):
         check(all(v > 0 for v in launches.values()),
               f"[graph trainer] {name}: launches {launches}")
         if name == "step":
-            # one preprocess forward and backward and one Adam a training
-            # step (the eager views render the tree layout)
+            # one preprocess forward and backward, one Adam and one SSIM
+            # pair a training step (the eager views render the tree layout)
             check(launches["PRE"] == launches["K1g"]
                   and launches["PRE_bwd"] == launches["K3"]
-                  == launches["ADAM"],
+                  == launches["ADAM"] == launches["SSIM"]
+                  == launches["SSIM_bwd"],
                   f"[graph trainer] step: launches {launches}")
         # one bucket more of the trained state, profiled, no schedule and no
         # sync in it: the device's busy time per iteration
@@ -4363,7 +4483,7 @@ def graph_trainer_phase(torch, dev, root, counters):
     n_cap = len(runs["chain"]["captures"])
     n_views = len(runs["chain"]["views"])
     chain_k1 = runs["chain"]["launches"]["K1"]
-    for k in ("K2", "K1g", "K3", "K4") + PRE_IDS + ("ADAM",):
+    for k in ("K2", "K1g", "K3", "K4") + PRE_IDS + ("ADAM",) + SSIM_IDS:
         want = (step["launches"][k] + n_cap + (n_views if k == "K2" else 0)
                 + (chain_k1 if k == "PRE" else 0))
         check(runs["chain"]["launches"][k] == want,
@@ -4587,7 +4707,7 @@ def step_graph_phase(torch, dev, root, counters):
                       f"[step graph] {pair}: captures {tr.captures}")
                 check(all(launches[k] > iters for k in ("K2", "K1g", "K3",
                                                          "K4") + PRE_IDS
-                          + ("ADAM",)),
+                          + ("ADAM",) + SSIM_IDS),
                       f"[step graph] {pair}: launches {launches}")
                 for k, v in launches.items():
                     graph_launches[k] += v
@@ -4614,7 +4734,7 @@ def step_graph_phase(torch, dev, root, counters):
             per_it = {k: (c.launches - c0[k]) / STEP_GRAPH_EXTRA
                       for k, c in counters.items()}
             check(all(per_it[k] == 1 for k in ("K2", "K1g", "K3", "K4")
-                      + PRE_IDS + ("ADAM",)) and per_it["K1"] == 0,
+                      + PRE_IDS + ("ADAM",) + SSIM_IDS) and per_it["K1"] == 0,
                   f"[step graph] {pair} {how}: launches per iteration "
                   f"{per_it}")
             busy, n_k = busy_per_call(torch, tr._dispatch_step, 10)
@@ -4744,7 +4864,8 @@ def view_graph_phase(torch, dev, p0, alive0, bench_camera, counters):
     # the tree layout: its preprocess is the twin
     check(launches["K2"] == launches["K1"] == want and launches["K1g"]
           == launches["K3"] == launches["K4"] == launches["PRE"]
-          == launches["PRE_bwd"] == launches["ADAM"] == 0,
+          == launches["PRE_bwd"] == launches["ADAM"] == launches["SSIM"]
+          == launches["SSIM_bwd"] == 0,
           f"[view graph] launches {launches}, want K2 = K1 = {want}")
     host = {k: float(np.median(v)) for k, v in times.items()}
     cap = graph.captures[0]
@@ -5211,7 +5332,8 @@ def mesh_view_graph_phase(torch, dev, p0, alive0, bench_camera, counters):
                 for k, fn in (("graph", graphed), ("eager", eager))}
         check(per_view["K2"] == per_view["K1"] == per_view["PRE"] == MESH_K
               and per_view["K1g"] == per_view["K3"] == per_view["K4"]
-              == per_view["PRE_bwd"] == per_view["ADAM"] == 0,
+              == per_view["PRE_bwd"] == per_view["ADAM"] == per_view["SSIM"]
+              == per_view["SSIM_bwd"] == 0,
               f"[mesh view graph] launches per graphed view {per_view} "
               f"({n_graphed} in all), want K2 = K1 = PRE = {MESH_K}")
         moved = both("pose", bench_camera(40), 0)
@@ -5432,10 +5554,12 @@ def main() -> int:
     from gs_tpu_torch.ops.fold import fold_rows
     from gs_tpu_torch.ops.rasterize import (raster_tiles_bwd,
                                             raster_tiles_fwd_save)
+    from gs_tpu_torch.ops.ssim import ssim_bwd, ssim_fwd
     counters = {"K2": expand_rows, "K1": raster_tiles_fwd,
                 "K1g": raster_tiles_fwd_save, "K3": raster_tiles_bwd,
                 "K4": fold_rows, "PRE": preprocess_fwd,
-                "PRE_bwd": preprocess_bwd, "ADAM": adam_packed}
+                "PRE_bwd": preprocess_bwd, "ADAM": adam_packed,
+                "SSIM": ssim_fwd, "SSIM_bwd": ssim_bwd}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5745,6 +5869,9 @@ def main() -> int:
     t_adam = time.perf_counter()
     adam = adam_phase(torch, dev)
     print(f"[adam] in {time.perf_counter() - t_adam:.1f} s", flush=True)
+    t_ssim = time.perf_counter()
+    ssim = ssim_phase(torch, dev)
+    print(f"[ssim] in {time.perf_counter() - t_ssim:.1f} s", flush=True)
     t_packed = time.perf_counter()
     packed_launches, packed_errs = packed_step_phase(
         torch, dev, p0, alive0, bench_camera, counters)
@@ -5867,7 +5994,18 @@ def main() -> int:
          "masked_ms": adam["masked_ms"], "plain_ms": adam["twin_ms"],
          "plain_masked_ms": adam["twin_masked_ms"],
          "bound_ms": adam["bound_ms"], "bound_by": "bytes",
-         "library_ms": None}]
+         "library_ms": None}] + [
+        # port-only too (gs_tpu's SSIM is jnp); the value's error absolute,
+        # the gradient's relative to its largest, at the SSIM_FRAMES
+        {"name": f"ssim_{way}", "id": i, "route": "cuda",
+         "source": "gs_tpu_torch/csrc/ssim.cu", "replaces": None,
+         "launches": ssim[f"{way}_launches"],
+         "max_abs_err": ssim["max_value_err"],
+         "max_rel_err": ssim["max_rel_err"], "ms": ssim[f"{way}_ms"],
+         "kernel_ms": ssim[f"{way}_ms"], "plain_ms": ssim[f"twin_{way}_ms"],
+         "bound_ms": ssim[f"{way}_bound_ms"],
+         "bound_by": ssim[f"{way}_bound_by"], "library_ms": None}
+        for way, i in zip(("fwd", "bwd"), SSIM_IDS)]
     k4 = kernels_train[2]
     k4.update(long_k4)
     k4.update(rain_k4)
@@ -5886,7 +6024,7 @@ def main() -> int:
         k["step_graph_launches"] = step_graph_launches[k["id"]]
         k["view_graph_launches"] = view_graph_launches[k["id"]]
         k["mesh_view_graph_launches"] = mesh_view_graph_launches[k["id"]]
-        if k["id"] in PRE_IDS + ("ADAM",):
+        if k["id"] in PRE_IDS + ("ADAM",) + SSIM_IDS:
             continue
         k["max_abs_err"] = max(k["max_abs_err"], viewer_errs[k["id"]],
                                live_errs[k["id"]], rain_errs[k["id"]],

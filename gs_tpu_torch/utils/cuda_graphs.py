@@ -25,17 +25,18 @@ import torch
 
 def launch_counters() -> tuple:
     """The kernel wrappers whose ``launches`` count their launches: K2,
-    K1, K1g, K3, K4, the preprocess's forward and backward, then Adam's
-    pass over the packed block."""
+    K1, K1g, K3, K4, the preprocess's forward and backward, Adam's pass
+    over the packed block, then SSIM's forward and backward."""
     from ..core.project import preprocess_bwd, preprocess_fwd
     from ..ops.adam import adam_packed
     from ..ops.expand import expand_rows
     from ..ops.fold import fold_rows
     from ..ops.rasterize import (raster_tiles_bwd, raster_tiles_fwd,
                                  raster_tiles_fwd_save)
+    from ..ops.ssim import ssim_bwd, ssim_fwd
     return (expand_rows, raster_tiles_fwd, raster_tiles_fwd_save,
             raster_tiles_bwd, fold_rows, preprocess_fwd, preprocess_bwd,
-            adam_packed)
+            adam_packed, ssim_fwd, ssim_bwd)
 
 
 class Capture(NamedTuple):

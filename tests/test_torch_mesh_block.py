@@ -334,5 +334,6 @@ def test_graphed_mesh_steps_equal_eager_mesh_steps(cuda_device):
     leaves_equal(gs, st)
     per_step = [(f.launches - n) / 3 for f, n in zip(counters, before)]
     # K2, K1g, K3 and K4 once per band and step, the preprocess pair once
-    # per shard, Adam once over the process's shards; K1 not at all
-    assert per_step == [2, 0, 2, 2, 2, 2, 2, 1]
+    # per shard, Adam and the SSIM pair (the gathered frame's) once over
+    # the process's shards; K1 not at all
+    assert per_step == [2, 0, 2, 2, 2, 2, 2, 1, 1, 1]

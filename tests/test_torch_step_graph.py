@@ -250,7 +250,7 @@ def test_graphed_step_mode_equals_eager_step_mode(cuda_device):
         graph._dispatch_step()
     torch.cuda.synchronize()
     assert [(f.launches - n) / 3 for f, n in zip(counters, before)] \
-        == [1, 0, 1, 1, 1, 1, 1, 1]
+        == [1, 0, 1, 1, 1, 1, 1, 1, 1, 1]
 
 
 @pytest.mark.cuda
